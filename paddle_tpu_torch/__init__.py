@@ -2,7 +2,7 @@
 
 The JAX package stays the reference; this package mirrors its layout
 (``core``, ``nn``, ``kernels``, ``models``, ``generation``,
-``inference``, ``serving``) and imports torch, never jax and nothing of
+``inference``, ``serving``, ``optimizer``, ``jit``) and imports torch, never jax and nothing of
 ``paddle_tpu``. Every TPU kernel on a ported path is a kernel written by
 hand for Hopper (``csrc/``), beside its plain PyTorch version. Entry
 points run on the first CUDA card unless the caller passes

@@ -1,4 +1,4 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and optimizer state across from the JAX package.
 
 ``load_reference_state(model, arrays)`` takes the JAX model's
 ``state_dict()`` as a dict of numpy arrays (name -> array) and copies
@@ -8,6 +8,12 @@ copy is one to one. It is strict: a missing, extra, mis-shaped or
 differently typed entry raises before anything is written. This module
 imports no JAX; the caller produces the arrays, e.g.
 ``{k: np.asarray(v._data) for k, v in jax_model.state_dict().items()}``.
+
+``load_reference_optimizer_state(optimizer, state)`` takes the JAX
+``Optimizer.state_dict()`` (``_step_count``, ``param_{i}`` dicts of
+moments and fp32 masters as numpy arrays, ``LR_Scheduler``) and loads
+it into the port's optimizer over the same parameter list, so a
+resumed run computes the same next step.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import torch
 
 from .core.dtype import convert_dtype
 
-__all__ = ["load_reference_state"]
+__all__ = ["load_reference_state", "load_reference_optimizer_state"]
 
 
 def _as_tensor(a: np.ndarray) -> torch.Tensor:
@@ -47,3 +53,29 @@ def load_reference_state(model: torch.nn.Module,
     with torch.no_grad():
         for name, t in own.items():
             t.copy_(_as_tensor(np.asarray(arrays[name])))
+
+
+def load_reference_optimizer_state(optimizer, state: Mapping) -> None:
+    """Load the JAX optimizer's ``state_dict()`` into ``optimizer``. It
+    is strict: every ``param_{i}`` entry must name a parameter of the
+    port's list and match its shape, and no parameter may be left out
+    when any has state; nothing is loaded otherwise."""
+    params = optimizer._parameter_list or []
+    keys = sorted(k for k in state if k.startswith("param_"))
+    wanted = {f"param_{i}" for i in range(len(params))}
+    if keys and set(keys) != wanted:
+        raise KeyError(f"optimizer state covers {keys}, the parameter "
+                       f"list {sorted(wanted)}")
+    converted = {k: v for k, v in state.items()
+                 if not k.startswith("param_")}
+    for key in keys:
+        p = params[int(key[len("param_"):])]
+        entry = {}
+        for name, a in state[key].items():
+            a = np.asarray(a)
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{key}.{name}: shape {tuple(a.shape)} "
+                                 f"!= {tuple(p.shape)}")
+            entry[name] = _as_tensor(a)
+        converted[key] = entry
+    optimizer.set_state_dict(converted)

@@ -1,13 +1,14 @@
-"""GPT decoder-only transformer (the JAX package's ``models/gpt.py``),
-inference path.
+"""GPT decoder-only transformer (the JAX package's ``models/gpt.py``):
+training and inference.
 
 Parameter names and shapes follow the JAX package exactly, so a state
-dict moves across with ``convert.load_reference_state``. Prefill
-attention goes through ``nn.functional.scaled_dot_product_attention``
-(the flash forward kernel on a card), decode attention through
-``generation.attention.cached_attention`` (the flash decode kernel).
-The tied LM head is a plain ``torch.matmul`` against ``wte``, as the
-JAX package leaves it to XLA. Training-only options raise.
+dict moves across with ``convert.load_reference_state``. Training and
+prefill attention go through ``nn.functional.scaled_dot_product_attention``
+(the flash forward and backward kernels on a card), decode attention
+through ``generation.attention.cached_attention`` (the flash decode
+kernel). The tied LM head is a plain ``torch.matmul`` against ``wte``,
+as the JAX package leaves it to XLA. Options of the JAX config that
+are not ported yet (recompute, sequence parallelism, experts) raise.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as TF
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import device as device_mod
 from ..generation.attention import cached_attention
@@ -38,11 +40,18 @@ class GPTConfig:
     dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
-    tie_word_embeddings: bool = True
-    # training-only options of the JAX package; this package raises when
-    # one is set (the training slice ports them, ROADMAP A3/A4)
     use_recompute: bool = False
+    recompute_granularity: str = "selective"
+    #: fuse the LM head into the loss: forward() returns (hidden, head
+    #: weight) and loss() applies the head and cross entropy per
+    #: sequence chunk of lm_loss_chunk positions, recomputing each
+    #: chunk's logits in backward, so the [B, S, vocab] logits are never
+    #: kept whole; a single chunk whose fp32 logits fit
+    #: lm_loss_save_logits_budget bytes keeps its logits instead
     fused_lm_loss: bool = False
+    lm_loss_chunk: int = 256
+    lm_loss_save_logits_budget: int = 4 << 30
+    tie_word_embeddings: bool = True
     sequence_parallel: bool = False
     moe_num_experts: int = 0
 
@@ -50,16 +59,16 @@ class GPTConfig:
     def ffn_size(self) -> int:
         return self.intermediate_size or 4 * self.hidden_size
 
-    def check_inference(self):
-        unported = [name for name in ("use_recompute", "fused_lm_loss",
-                                      "sequence_parallel")
+    def check_ported(self):
+        """Raise on the JAX config's options this package lacks."""
+        unported = [name for name in ("use_recompute", "sequence_parallel")
                     if getattr(self, name)]
         if self.moe_num_experts > 0:
             unported.append("moe_num_experts")
         if unported:
             raise NotImplementedError(
-                f"GPTConfig {unported}: training options are not ported "
-                "yet (ROADMAP A3/A4)")
+                f"GPTConfig {unported}: not ported yet (ROADMAP A3 "
+                "recompute, A11 sequence parallelism and experts)")
 
 
 class GPTAttention(nn.Module):
@@ -212,7 +221,7 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        cfg.check_inference()
+        cfg.check_ported()
         self.cfg = cfg
         kw = dict(device=device_mod.resolve(device), dtype=dtype)
         self.gpt = GPTModel(cfg, generator=generator, **kw)
@@ -230,10 +239,18 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, cache=None,
                 use_cache=False, prompt_len=None, cache_max_len=None):
+        """Logits [b, s, vocab]; under ``fused_lm_loss`` the pair
+        (final hidden states, head weight) that ``loss`` takes instead.
+        The cached (generation) forward always returns logits."""
         if cache is not None or use_cache:
             return self._forward_cached(input_ids, attn_mask, cache,
                                         prompt_len, cache_max_len)
-        return self._logits(self.gpt(input_ids, attn_mask))
+        h = self.gpt(input_ids, attn_mask)
+        if self.cfg.fused_lm_loss:
+            w = self.lm_head.weight if self.lm_head is not None \
+                else self.gpt.embed.wte.weight
+            return h, w
+        return self._logits(h)
 
     def _forward_cached(self, input_ids, attn_mask, cache, prompt_len,
                         cache_max_len):
@@ -260,8 +277,63 @@ class GPTForCausalLM(nn.Module):
         from ..generation.api import generate as _generate
         return _generate(self, input_ids, max_new_tokens, **kwargs)
 
+    def _fused_loss(self, hidden, labels, w):
+        """Shifted LM head + cross entropy, mean over labels >= 0.
+
+        One chunk whose fp32 logits fit the budget keeps them for
+        backward (the JAX package's saved-logits branch). Otherwise the
+        positions go in chunks of ``lm_loss_chunk``, the last one
+        ragged, and each chunk runs under ``torch.utils.checkpoint``,
+        so its logits exist only inside its forward and again inside its
+        backward (the JAX package's per-chunk ``jax.checkpoint`` scan,
+        whose zero-padded tail rows add nothing to either sum)."""
+        tied = self.lm_head is None
+        hs, ys = hidden[:, :-1], labels[:, 1:]
+        b, s1, _ = hs.shape
+        chunk = min(self.cfg.lm_loss_chunk, s1)
+        n_chunks = -(-s1 // chunk)
+
+        def chunk_ce(hc, yc, wv):
+            wmat = wv.t() if tied else wv
+            logits = (hc @ wmat.to(hc.dtype)).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, yc.clamp_min(0).long()[..., None])
+            valid = (yc >= 0).float()
+            return ((lse - gold[..., 0]) * valid).sum(), valid.sum()
+
+        vocab = w.shape[0] if tied else w.shape[-1]
+        if n_chunks == 1 and \
+                b * s1 * vocab * 4 <= self.cfg.lm_loss_save_logits_budget:
+            total, count = chunk_ce(hs, ys, w)
+            return total / count.clamp_min(1.0)
+        total = count = 0.0
+        for i in range(n_chunks):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            t, c = checkpoint(chunk_ce, hs[:, sl], ys[:, sl], w,
+                              use_reentrant=False)
+            total, count = total + t, count + c
+        return total / count.clamp_min(1.0)
+
+    def loss(self, logits, labels):
+        """Shifted LM loss: the mean cross entropy of position t's
+        logits against label t + 1, over labels that are not ignored
+        (< 0 under the fused loss, -100 otherwise, as in the JAX
+        package). Takes ``forward``'s output."""
+        if self.cfg.fused_lm_loss:
+            hidden, w = logits
+            return self._fused_loss(hidden, labels, w)
+        shifted = logits[:, :-1, :]
+        return F.cross_entropy(shifted.reshape(-1, shifted.shape[-1]),
+                               labels[:, 1:].reshape(-1))
+
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate training FLOPs per token (6N + attention term),
+        the JAX package's formula."""
+        att = 12 * self.cfg.num_layers * self.cfg.hidden_size * seq_len
+        return 6 * self.num_params() + att
 
 
 CONFIGS = {

@@ -5,10 +5,11 @@ GPU machine as it is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
-Tolerances: fp32 outputs differ from the plain version only by the
-order of fp32 sums and exp2f's last-bit error (1e-4); bf16/fp16
-outputs are both rounded from fp32 and may land one output ulp apart
-(1e-2 absolute + 1e-2 relative covers one bf16 ulp at |x| < 4).
+Tolerances: fp32 outputs and gradients differ from the plain version
+only by the order of fp32 sums and exp2f's last-bit error (1e-4);
+bf16/fp16 outputs and gradients are both rounded from fp32 and may
+land one output ulp apart (1e-2 absolute + 1e-2 relative covers one
+bf16 ulp, 2^-7 relative at worst).
 """
 import shutil
 
@@ -211,3 +212,109 @@ def test_model_on_card_matches_model_on_cpu(dev):
                                    torch.as_tensor(plen, device=dev),
                                    cfg, 64)
     assert tok.shape == (3,) and not fin.any()
+
+
+def _bwd_inputs(gen, b, sq, sk, hq, hk, d, dtype, dev):
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    k = _randn(gen, (b, sk, hk, d), dtype, dev)
+    v = _randn(gen, (b, sk, hk, d), dtype, dev)
+    do = _randn(gen, (b, sq, hq, d), dtype, dev)
+    return q, k, v, do
+
+
+def _check_bwd(q, k, v, do, causal):
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    n0 = fa.flash_attention_bwd.launches
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n0 + 1
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for g, r in zip(grads, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        _close(g, r)
+    return grads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("sq,sk,hq,hk,causal", [
+    (100, 100, 4, 4, True),     # ragged self-attention, off every tile grid
+    (37, 100, 4, 2, True),      # cross length + grouped-query heads
+    (37, 100, 4, 4, False),
+    (130, 64, 2, 2, True),      # sq > sk: leading rows fully masked
+    (256, 256, 6, 2, True),     # 3 q heads per kv head
+])
+def test_flash_bwd_matches_plain(dev, dtype, d, sq, sk, hq, hk, causal):
+    gen = torch.Generator(device=dev).manual_seed(sq * 5 + sk + d + hq)
+    q, k, v, do = _bwd_inputs(gen, 2, sq, sk, hq, hk, d, dtype, dev)
+    dq, _, _ = _check_bwd(q, k, v, do, causal)
+    if causal and sq > sk:
+        assert dq[:, :sq - sk].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_misaligned_and_strided(dev, dtype):
+    """Rows off 16-byte alignment take the element-load path; views of
+    a fused qkv projection are read through their strides."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q = _misaligned(gen, (2, 70, 4, 64), dtype, dev)
+    k = _misaligned(gen, (2, 90, 2, 64), dtype, dev)
+    v = _misaligned(gen, (2, 90, 2, 64), dtype, dev)
+    do = _misaligned(gen, (2, 70, 4, 64), dtype, dev)
+    assert q.data_ptr() % 16
+    _check_bwd(q, k, v, do, True)
+    qkv = _randn(gen, (2, 77, 3, 4, 64), dtype, dev)
+    q, k, v = qkv.unbind(dim=2)
+    _check_bwd(q, k, v, _randn(gen, (2, 77, 4, 64), dtype, dev), True)
+
+
+def test_training_attention_records_the_kernel_backward(dev):
+    """On the card, inputs that require a gradient give an output that
+    requires one, and its backward launches the backward kernel and no
+    plain version."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    q, k, v, do = _bwd_inputs(gen, 2, 64, 64, 4, 2, 64, torch.bfloat16, dev)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fa.reset_counts()
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert out.requires_grad
+    assert type(out.grad_fn) is fa._FlashAttentionFn._backward_cls
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == 1
+    assert fa.flash_attention_bwd.launches == 1
+    assert fa.flash_attention_plain.calls == 0
+    assert fa.flash_attention_bwd_plain.calls == 0
+    with torch.no_grad():
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    ref = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                       o, lse, do, True)
+    for g, r in zip(grads, ref):
+        _close(g, r)
+
+
+def test_train_steps_on_card_match_the_cpu(dev):
+    """test-tiny in fp32, three AdamW TrainSteps with the fused chunked
+    loss: the kernel path on the card against the plain path on the CPU
+    (losses within 1e-4; parameters within 1e-4 — fp32 sums in other
+    orders, cuBLAS against the CPU BLAS, then three Adam steps)."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.gpt import gpt
+    kw = dict(fused_lm_loss=True, lm_loss_chunk=16,
+              lm_loss_save_logits_budget=0)
+    cpu = gpt("test-tiny", device="cpu",
+              generator=torch.Generator().manual_seed(0), **kw)
+    gpu = gpt("test-tiny", device=dev, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = np.random.RandomState(0).randint(0, 512, (3, 50))
+    losses = []
+    for m in (cpu, gpu):
+        opt = optimizer.AdamW(1e-3, parameters=m.parameters())
+        step = jit.TrainStep(m, opt, lambda o, y, m=m: m.loss(o, y))
+        losses.append([step(ids, ids).item() for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-4)
+    for (name, a), b in zip(cpu.state_dict().items(),
+                            gpu.state_dict().values()):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4,
+                                   msg=name)

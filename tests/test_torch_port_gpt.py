@@ -146,10 +146,13 @@ def test_bf16_layer_norm_matches_jax():
 
 
 def test_training_options_raise():
-    for opt in (dict(use_recompute=True), dict(fused_lm_loss=True),
-                dict(sequence_parallel=True), dict(moe_num_experts=2)):
+    """Options the port has not taken yet raise; the fused LM loss is
+    ported and builds."""
+    for opt in (dict(use_recompute=True), dict(sequence_parallel=True),
+                dict(moe_num_experts=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gpt("test-tiny", device="cpu", **opt)
+    assert gpt("test-tiny", device="cpu", fused_lm_loss=True).cfg.fused_lm_loss
 
 
 def test_initializer_is_seeded_by_generator():
@@ -171,7 +174,8 @@ def test_initializer_is_seeded_by_generator():
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models, paddle_tpu_torch.convert, "
-            "paddle_tpu_torch.kernels.flash_attention\n"
+            "paddle_tpu_torch.kernels.flash_attention, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu' "
             "or m == 'triton']\n"
