@@ -6,14 +6,17 @@
 Run from the root of a checkout on a machine with an sm_90 card (H100)
 and the CUDA toolkit. It builds the hand-written kernels from
 ``paddle_tpu_torch/csrc``, holds each against its plain PyTorch version
-at the shapes the serving and training paths give it, runs gpt2-small
-(random weights from a seed, bf16) through the kernel path and the
-plain path, serves 16 requests through ``ServingEngine``, then trains
-gpt2-small with ``bench.py``'s recipe (AdamW with fp32 masters, the
-fused LM-head loss, ``TrainStep``) at batch 16 x 1024 tokens, and checks
-that each path went through its kernels and never through a plain
-version. Phases print one line each; the line before the last is the
-kernel table as JSON, and the last line is
+at the shapes the serving and training paths give it (the paged decode
+kernel also bit for bit against the dense one), runs gpt2-small (random
+weights from a seed, bf16) through the kernel path and the plain path,
+serves 16 requests through ``ServingEngine`` on its dense cache, the
+same 16 and 8 shared-prefix requests on a paged cache (token streams
+equal to the dense engine's), the 16 again with chunked prefill, then
+trains gpt2-small with ``bench.py``'s recipe (AdamW with fp32 masters,
+the fused LM-head loss, ``TrainStep``) at batch 16 x 1024 tokens, and
+checks that each path went through its kernels and never through a
+plain version. Phases print one line each; the line before the last is
+the kernel table as JSON, and the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero with
 no result line. Imports neither JAX nor the JAX package.
 """
@@ -275,6 +278,163 @@ def phase_kernels(torch, timer):
         say("kernel_time", kernel=r["name"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+    return rows, dsets
+
+
+def _pool_of(torch, gen, cache, page, perm):
+    """The logical rows of one dense cache [B, T, H, D] laid out in a
+    pool of shuffled pages, as the layer-1 slice of a [2, n_pages, page,
+    H, D] pool (page 0 is the null page; unused rows hold noise), and
+    the [B, ceil(T / page)] int32 page table that names them."""
+    b, t, h, d = cache.shape
+    n_slots = -(-t // page)
+    pool = torch.randn((2, 1 + b * n_slots, page, h, d), generator=gen,
+                       device=cache.device).to(cache.dtype)
+    table = (perm[:b * n_slots] + 1).reshape(b, n_slots).to(torch.int32)
+    rows = (table.long()[:, :, None] * page + torch.arange(
+        page, device=cache.device)).reshape(b, -1)[:, :t]
+    pool[1].view(-1, h, d)[rows] = cache
+    return pool[1], table
+
+
+def phase_paged_chunk_kernels(torch, timer, dsets, dense_row):
+    """The paged decode kernel on the dense decode check's content laid
+    out in a 41-page pool of 128 (and 48) with a shuffled table: within
+    the kernel tolerance of its plain version and BITWISE equal to
+    flash_decode on the same logical rows. The chunk kernel at the
+    chunked prefill's shapes, in bf16 and fp32. Both timed."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = {}
+    h, d = 12, 64
+    q, kc, vc, kv = dsets[0]
+    B, T = kc.shape[:2]
+    cpu_gen = torch.Generator().manual_seed(SEED + 3)
+    for page in (128, 48):
+        perm = torch.randperm(B * -(-T // page), generator=cpu_gen).to(dev)
+        kp, table = _pool_of(torch, gen, kc, page, perm)
+        vp, _ = _pool_of(torch, gen, vc, page, perm)
+        out = fa.flash_attention_decode_paged(q, kp, vp, table, kv)
+        ref = fa.flash_attention_decode_paged_plain(q, kp, vp, table, kv)
+        dense = fa.flash_attention_decode(q, kc, vc, kv)
+        torch.cuda.synchronize()
+        err, n_bad = _err(out, ref)
+        bitwise = bool(torch.equal(out, dense))
+        say("kernel_check", kernel="flash_decode_paged", page=page,
+            pool=list(kp.shape), table=list(table.shape),
+            kv_len=kv.tolist(), max_abs_err=err,
+            tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad,
+            bitwise_equal_to_flash_decode=bitwise)
+        if n_bad:
+            fail(f"flash_decode_paged disagrees with its plain version at "
+                 f"page {page}")
+        if not bitwise:
+            fail(f"flash_decode_paged differs from flash_decode at page "
+                 f"{page}")
+        if page == 128:
+            paged_err = err
+    psets = []
+    for st in dsets:
+        perm = torch.randperm(B * -(-T // 128), generator=cpu_gen).to(dev)
+        kp, table = _pool_of(torch, gen, st[1], 128, perm)
+        vp, _ = _pool_of(torch, gen, st[2], 128, perm)
+        psets.append((st[0], kp, vp, table, st[3]))
+    ms = timer.ms(fa.flash_attention_decode_paged, psets)
+    plain_ms = timer.ms(fa.flash_attention_decode_paged_plain, psets)
+    n_kv = int(kv.sum())
+    pages_read = int(((kv + 127) // 128).sum())
+    n_bytes = 2 * n_kv * h * d * 2 + 2 * B * h * d * 2 + B * 4 \
+        + pages_read * 4
+    bms, by = bound_ms(n_bytes, 4 * n_kv * h * d)
+    rows["flash_decode_paged"] = dict(
+        name="flash_decode_paged", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_decode_paged.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:1323",
+        shape="q [8,1,12,64] bf16, 41-page pool [41,128,12,64] through a "
+              "shuffled [8,5] table, ragged kv_len",
+        max_abs_err=paged_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
+        library_note="none: no PyTorch call takes a page table",
+        yardstick_sdpa_dense_ms=dense_row["library_ms"],
+        flash_decode_ms=dense_row["ms"])
+
+    # -- chunk: a 128-token chunk of a long prompt against the batch-1
+    # side cache, at the 2nd and 4th chunks of a 500-token prompt; one
+    # GQA window
+    def chunk_inputs(sq, hq, hk, kv_len, dtype):
+        q = torch.randn((1, sq, hq, d), generator=gen, device=dev)
+        kc = torch.randn((2, 1, 640, hk, d), generator=gen, device=dev)
+        vc = torch.randn((2, 1, 640, hk, d), generator=gen, device=dev)
+        return (q.to(dtype), kc[1].to(dtype), vc[1].to(dtype),
+                torch.tensor([kv_len], dtype=torch.int32, device=dev))
+
+    worst = 0.0
+    for dtype, sq, hq, hk, kv_len in (
+            (torch.bfloat16, 128, 12, 12, 256),
+            (torch.bfloat16, 128, 12, 12, 512),
+            (torch.bfloat16, 200, 12, 4, 450),
+            (torch.float32, 128, 12, 12, 512),
+            (torch.float32, 200, 12, 4, 450)):
+        args = chunk_inputs(sq, hq, hk, kv_len, dtype)
+        out = fa.flash_attention_chunk(*args)
+        ref = fa.flash_attention_chunk_plain(*args)
+        torch.cuda.synchronize()
+        if dtype is torch.float32:
+            err, n_bad = _err(out, ref, F32_ATOL, F32_RTOL)
+            tol = f"{F32_ATOL}+{F32_RTOL}*|plain|"
+        else:
+            err, n_bad = _err(out, ref)
+            tol = f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|"
+            worst = max(worst, err)
+        say("kernel_check", kernel="flash_chunk",
+            dtype=str(dtype).split(".")[-1], q=[1, sq, hq, d],
+            cache=[1, 640, hk, d], kv_len=kv_len, max_abs_err=err, tol=tol,
+            out_of_tol=n_bad)
+        if n_bad:
+            fail(f"flash_chunk disagrees with its plain version at sq={sq} "
+                 f"kv_len={kv_len} {dtype}")
+    times = {}
+    for kv_len in (256, 512):
+        csets = [chunk_inputs(128, 12, 12, kv_len, torch.bfloat16)
+                 for _ in range(8)]
+        cols = torch.arange(640, device=dev)
+        rws = torch.arange(128, device=dev)
+        mask = cols[None, :] <= kv_len - 128 + rws[:, None]     # [128, 640]
+        lib_sets = [tuple(t.transpose(1, 2) for t in st[:3])
+                    for st in csets]
+        pairs = sum(kv_len - 128 + i + 1 for i in range(128))
+        n_bytes = (2 * 128 * h * d + 2 * kv_len * h * d) * 2 + 4
+        times[kv_len] = dict(
+            ms=timer.ms(fa.flash_attention_chunk, csets),
+            plain_ms=timer.ms(fa.flash_attention_chunk_plain, csets),
+            library_ms=timer.ms(lambda q, k, v: TF.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), lib_sets),
+            bound=bound_ms(n_bytes, 4 * pairs * h * d))
+        say("kernel_time", kernel="flash_chunk", kv_len=kv_len,
+            kernel_ms=times[kv_len]["ms"],
+            plain_ms=times[kv_len]["plain_ms"],
+            library_ms=times[kv_len]["library_ms"],
+            bound_ms=times[kv_len]["bound"][0],
+            bound_by=times[kv_len]["bound"][1])
+    t4 = times[512]
+    rows["flash_chunk"] = dict(
+        name="flash_chunk", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_decode.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:1163",
+        shape="q [1,128,12,64] bf16 against a [1,640,12,64] side cache at "
+              "kv_len 512 (the 4th chunk of a 500-token prompt)",
+        max_abs_err=worst, ms=t4["ms"], plain_ms=t4["plain_ms"],
+        bound_ms=t4["bound"][0], bound_by=t4["bound"][1],
+        library_ms=t4["library_ms"],
+        library_note="scaled_dot_product_attention with a boolean mask",
+        at_kv_len_256={k: (v if k != "bound" else v[0])
+                       for k, v in times[256].items()})
+    say("kernel_time", kernel="flash_decode_paged", kernel_ms=ms,
+        plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+        flash_decode_ms=dense_row["ms"],
+        yardstick_sdpa_dense_ms=dense_row["library_ms"])
     return rows
 
 
@@ -462,15 +622,10 @@ def phase_serve(torch, model, decode_ms):
     """16 requests through ServingEngine: every request completes with
     its budget, both kernels ran, no plain version ran."""
     from paddle_tpu_torch.generation.api import GenerationConfig
-    from paddle_tpu_torch.inference import Config
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
                                           ServingEngine)
-    cfg = (Config().from_layer(model).enable_use_gpu("bfloat16")
-           .enable_generation(max_new_tokens=64, prefill_buckets=(128, 512),
-                              max_batch=8)
-           .enable_serving(max_queue=64, poll_every=4))
-    engine = ServingEngine(cfg)
+    engine = ServingEngine(_serve_config(model))
     rng = np.random.RandomState(SEED + 1)
     vocab = model.cfg.vocab_size
     lens = rng.randint(16, 501, 16)
@@ -482,10 +637,7 @@ def phase_serve(torch, model, decode_ms):
         (p, RequestParams(max_new_tokens=64)) for p in prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.flash_attention.launches,
-                "flash_decode": fa.flash_attention_decode.launches}
-    plain_calls = (fa.flash_attention_plain.calls
-                   + fa.flash_attention_decode_plain.calls)
+    launches, plain_calls = _counts(fa)
     done = [h for h in handles if h.status is RequestStatus.COMPLETED
             and h.tokens is not None and h.tokens.size == 64]
     ttft = [h.ttft for h in handles]
@@ -504,8 +656,9 @@ def phase_serve(torch, model, decode_ms):
     if len(done) != 16:
         fail(f"{16 - len(done)} of 16 requests did not complete with "
              "their full budget")
-    if min(launches.values()) == 0:
-        fail(f"a kernel never launched on the serving path: {launches}")
+    if min(launches["flash_fwd"], launches["flash_decode"]) == 0 or \
+            launches["flash_decode_paged"] or launches["flash_chunk"]:
+        fail(f"serving path launches {launches}")
     if plain_calls:
         fail(f"plain versions ran {plain_calls} times on the serving path")
     # the first token of every request must equal a batch-1 greedy
@@ -526,11 +679,17 @@ def phase_serve(torch, model, decode_ms):
     if mismatch:
         fail(f"{mismatch} first tokens differ from batch-1 prefill")
 
-    # where a decode step's time goes, all 8 slots live: the wall time
-    # of a step (the host issues ~500 launches, so the spin-kernel timer
-    # does not apply) against the device time its kernels take
+    _decode_step_profile(torch, engine, prompts[8:], decode_ms, "dense")
+    return launches, prompts, handles
+
+
+def _decode_step_profile(torch, engine, prompts, attention_ms, cache):
+    """Where a decode step's time goes, all 8 slots live: the wall time
+    of a step (the host issues ~500 launches, so the spin-kernel timer
+    does not apply) against the device time its kernels take."""
+    from paddle_tpu_torch.serving import RequestParams
     from torch.profiler import ProfilerActivity, profile
-    for p in prompts[8:]:
+    for p in prompts:
         engine.submit(p, RequestParams(max_new_tokens=64))
     engine.step()                           # admits all 8
     n = 8
@@ -550,16 +709,175 @@ def phase_serve(torch, model, decode_ms):
            if e.device_time_total > 0 and e.cpu_time_total == 0]
     busy_ms = sum(e.device_time_total for e in dev) / (1e3 * n)
     top = sorted(dev, key=lambda e: -e.device_time_total)[:8]
-    say("decode_step", live_slots=sum(s is not None for s in engine._slots),
+    say("decode_step", cache=cache,
+        live_slots=sum(s is not None for s in engine._slots),
         wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
         launches_per_step=sum(e.count for e in dev) / n,
-        attention_kernel_ms=engine.network.cfg.num_layers * decode_ms,
+        attention_kernel_ms=engine.network.cfg.num_layers * attention_ms,
         top_kernels=[dict(name=e.key[:48], ms_per_step=e.device_time_total
                           / (1e3 * n), calls_per_step=e.count / n)
                      for e in top])
     while engine.busy:
         engine.step()
+
+
+def _serve_config(model, **serving):
+    from paddle_tpu_torch.inference import Config
+    return (Config().from_layer(model).enable_use_gpu("bfloat16")
+            .enable_generation(max_new_tokens=64, prefill_buckets=(128, 512),
+                               max_batch=8)
+            .enable_serving(max_queue=64, poll_every=4, **serving))
+
+
+def _counts(fa):
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "flash_decode": fa.flash_attention_decode.launches,
+                "flash_decode_paged": fa.flash_attention_decode_paged.launches,
+                "flash_chunk": fa.flash_attention_chunk.launches}
+    plain = (fa.flash_attention_plain.calls
+             + fa.flash_attention_decode_plain.calls
+             + fa.flash_attention_decode_paged_plain.calls
+             + fa.flash_attention_chunk_plain.calls)
+    return launches, plain
+
+
+def phase_serve_paged(torch, model, prompts, dense_handles, paged_ms):
+    """The engine on a paged cache (page 128, default pool): the 16
+    prompts of the dense serve run, then 8 requests that share a
+    256-token prefix (two full pages) with total lengths 300-500, all in
+    bucket 512. Every token stream equals the dense engine's; prefix
+    pages are shared; pages are conserved; every decode step runs 12
+    paged decode launches and no dense decode or plain version."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
+                                          ServingEngine)
+    engine = ServingEngine(_serve_config(model, paged=True,
+                                         kv_page_size=128))
+    rng = np.random.RandomState(SEED + 4)
+    vocab = model.cfg.vocab_size
+    prefix = rng.randint(0, vocab, 256)
+    shared = [np.r_[prefix, rng.randint(0, vocab, n - 256)]
+              for n in rng.randint(300, 501, 8)]
+    params = RequestParams(max_new_tokens=64)
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    handles = engine.serve_forever((p, params) for p in prompts)
+    handles += engine.serve_forever((p, params) for p in shared)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = _counts(fa)
+    steps, prefills = engine.stats["decode_steps"], engine.stats["prefills"]
+    dense = ServingEngine(_serve_config(model))
+    dense_shared = dense.serve_forever((p, params) for p in shared)
+    reference = list(dense_handles) + dense_shared
+    mismatch = sum(not np.array_equal(h.tokens, r.tokens)
+                   for h, r in zip(handles, reference))
+    done = [h for h in handles if h.status is RequestStatus.COMPLETED
+            and h.tokens is not None and h.tokens.size == 64]
+    engine._alloc.assert_conserved()
+    stats = dict(engine._alloc.stats)
+    say("serve_paged", requests=len(handles), completed=len(done),
+        page_size=engine.page_size, pool_pages=engine._alloc.n_pages,
+        shared_prefix_lens=[int(p.size) for p in shared], wall_s=wall,
+        tokens_per_s=len(done) * 64 / wall, decode_steps=steps,
+        launches=launches,
+        paged_launches_per_step=launches["flash_decode_paged"]
+        / max(steps, 1), plain_calls=plain_calls,
+        token_streams_differing_from_dense=mismatch, allocator=stats,
+        pages_in_use_after_drain=engine._alloc.used_pages(),
+        stats=engine.stats)
+    if len(done) != len(handles):
+        fail(f"{len(handles) - len(done)} paged requests did not complete")
+    if mismatch:
+        fail(f"{mismatch} paged token streams differ from the dense engine")
+    if stats["prefix_hits"] < 1:
+        fail("no prefix hit on the shared-prefix traffic")
+    if launches["flash_decode_paged"] != 12 * steps or \
+            launches["flash_decode"] or launches["flash_fwd"] != 12 * prefills:
+        fail(f"paged serve launches {launches} for {steps} decode steps and "
+             f"{prefills} prefills")
+    if plain_calls:
+        fail(f"plain versions ran {plain_calls} times on the paged path")
+    _decode_step_profile(torch, engine, prompts[8:], paged_ms, "paged")
+    engine._alloc.assert_conserved()
+    return launches
+
+
+def phase_serve_chunked(torch, model, prompts):
+    """The paged engine with prefill_chunk_tokens=128 on the 16 prompts:
+    all complete; prompts of 128 tokens or less prefill inline through
+    flash_fwd, longer ones chunk by chunk through flash_chunk (12
+    launches a chunk, the final chunk included); no plain version; pages
+    conserved. Then, for 4 prompts longer than 128, the logits at the
+    last prompt position of a chunked prefill against those of the
+    inline bucket prefill."""
+    from paddle_tpu_torch.generation.kv_cache import KVCache
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
+                                          ServingEngine)
+    C = 128
+    engine = ServingEngine(_serve_config(model, paged=True, kv_page_size=128,
+                                         prefill_chunk_tokens=C))
+    params = RequestParams(max_new_tokens=64)
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    handles = engine.serve_forever((p, params) for p in prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = _counts(fa)
+    chunks = engine.stats["prefill_chunks"]
+    n_short = sum(int(p.size <= C) for p in prompts)
+    expect_chunks = sum(-(-int(p.size) // C) for p in prompts if p.size > C)
+    done = [h for h in handles if h.status is RequestStatus.COMPLETED
+            and h.tokens is not None and h.tokens.size == 64]
+    engine._alloc.assert_conserved()
+
+    # chunked against inline prefill, at the model, for 4 long prompts
+    dev = engine.device
+    diffs = []
+    with torch.no_grad():
+        for p in [p for p in prompts if p.size > C][:4]:
+            n = -(-int(p.size) // C)
+            ids = np.zeros((1, 512), np.int64)
+            ids[0, :p.size] = p
+            ids_t = torch.as_tensor(ids, device=dev)
+            plen = torch.tensor([p.size], device=dev)
+            inline, _ = model(ids_t, use_cache=True, prompt_len=plen,
+                              cache_max_len=engine.max_len)
+            mc = model.cfg
+            cache = KVCache.create(mc.num_layers, 1, engine.max_len,
+                                   mc.num_heads,
+                                   mc.hidden_size // mc.num_heads,
+                                   dtype=inline.dtype, device=dev)
+            for k in range(n):
+                kw = dict(prompt_len=plen) if k == n - 1 else {}
+                chunked, cache = model(ids_t[:, k * C:(k + 1) * C],
+                                       cache=cache, **kw)
+            diffs.append(float((chunked.float() - inline.float())
+                               .abs().max()))
+    say("serve_chunked", requests=len(handles), completed=len(done),
+        chunk_tokens=C, wall_s=wall, tokens_per_s=len(done) * 64 / wall,
+        inline_prompts=n_short, prefill_chunks=chunks,
+        expected_chunks=expect_chunks, launches=launches,
+        plain_calls=plain_calls,
+        p50_ttft_ms=float(np.median([h.ttft for h in handles])) * 1e3,
+        chunked_vs_inline_max_logit_diff=diffs, tol=LOGIT_TOL,
+        stats=engine.stats)
+    if len(done) != len(handles):
+        fail(f"{len(handles) - len(done)} chunked requests did not complete")
+    if chunks != expect_chunks or launches["flash_chunk"] != 12 * chunks:
+        fail(f"chunked serve: {chunks} chunks (expected {expect_chunks}), "
+             f"flash_chunk launches {launches['flash_chunk']}")
+    if launches["flash_fwd"] != 12 * n_short or launches["flash_decode"]:
+        fail(f"chunked serve launches {launches} with {n_short} inline "
+             "prompts")
+    if plain_calls:
+        fail(f"plain versions ran {plain_calls} times on the chunked path")
+    if len(diffs) != 4 or max(diffs) > LOGIT_TOL:
+        fail(f"chunked and inline prefill logits differ by {diffs}")
     return launches
 
 
@@ -704,17 +1022,26 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     timer = DeviceTimer(torch)
-    rows = phase_kernels(torch, timer)
+    rows, dsets = phase_kernels(torch, timer)
+    rows.update(phase_paged_chunk_kernels(torch, timer, dsets,
+                                          rows["flash_decode"]))
+    del dsets
     rows["flash_bwd"], rows["flash_fwd"]["train_shape"] = \
         phase_train_kernels(torch, timer)
     model = phase_model(torch)
-    serve = phase_serve(torch, model, rows["flash_decode"]["ms"])
+    serve, prompts, handles = phase_serve(torch, model,
+                                          rows["flash_decode"]["ms"])
+    serve_paged = phase_serve_paged(torch, model, prompts, handles,
+                                    rows["flash_decode_paged"]["ms"])
+    serve_chunked = phase_serve_chunked(torch, model, prompts)
     del model
     torch.cuda.empty_cache()
     train = phase_train(torch)
+    paths = (("serve", serve), ("serve_paged", serve_paged),
+             ("serve_chunked", serve_chunked), ("train", train))
     for name, row in rows.items():
-        by_path = {path: counts[name] for path, counts in
-                   (("serve", serve), ("train", train)) if name in counts}
+        by_path = {path: counts[name] for path, counts in paths
+                   if name in counts}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["kernel_ms"] = row["ms"]

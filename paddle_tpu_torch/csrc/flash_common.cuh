@@ -216,16 +216,30 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// Key and value row c at base + c * stride (the head dimension is
+// contiguous): the addressing of every dense caller of ``attend``.
+template <typename T>
+struct Strided {
+  const T* base;
+  int64_t stride;
+  __device__ __forceinline__ const T* operator()(int c) const {
+    return base + c * stride;
+  }
+};
+
 // Attend the block's staged queries (smem[kQ...], already scaled) to key
-// columns [0, n_keys) of k/v, whose row r lives at base + r * row_stride
-// (the head dimension is contiguous). Columns past n_keys are never
-// read: the tile loader zero-fills them. Leaves the unnormalised output in
-// st.acc and the statistics in st.m / st.l. Every thread of the block
-// must call it with the same n_keys.
-template <typename T, int BQ, int D>
-__device__ void attend(float* smem, const T* __restrict__ k, int64_t k_stride,
-                       const T* __restrict__ v, int64_t v_stride, int n_keys,
-                       RowState<BQ, D>& st) {
+// columns [0, n_keys), whose key and value rows live at krow(c) and
+// vrow(c) (the head dimension is contiguous; a dense caller passes
+// Strided, the paged decode kernel a page-table lookup). ``vec``: every
+// row address is 16-byte aligned, decided once by the caller. Columns
+// past n_keys are never read: the tile loader zero-fills them. Tiles are
+// kBlockK logical columns in column order whatever the addressing, so
+// two callers that address the same logical rows get the same bits.
+// Leaves the unnormalised output in st.acc and the statistics in st.m /
+// st.l. Every thread of the block must call it with the same n_keys.
+template <typename T, int BQ, int D, typename KRow, typename VRow>
+__device__ void attend(float* smem, KRow krow, VRow vrow, bool vec,
+                       int n_keys, RowState<BQ, D>& st) {
   using L = Layout<BQ, D>;
   const int tid = threadIdx.x;
   const int cg = tid % L::NCG;
@@ -243,16 +257,15 @@ __device__ void attend(float* smem, const T* __restrict__ k, int64_t k_stride,
     for (int j = 0; j < L::TD; ++j) st.acc[i][j] = 0.f;
   }
 
-  const bool vec = rows_aligned(k, k_stride) && rows_aligned(v, v_stride);
   for (int kt = 0; kt < n_keys; kt += kBlockK) {
     // stage one K/V tile as fp32 (columns past n_keys zero-filled);
     // reads are coalesced along head_dim
     stage_rows<T, kBlockK, D>(
         ks, [&](int c) -> const T* {
-          return kt + c < n_keys ? k + (kt + c) * k_stride : nullptr;
+          return kt + c < n_keys ? krow(kt + c) : nullptr;
         },
         vs, [&](int c) -> const T* {
-          return kt + c < n_keys ? v + (kt + c) * v_stride : nullptr;
+          return kt + c < n_keys ? vrow(kt + c) : nullptr;
         },
         1.f, vec);
     __syncthreads();

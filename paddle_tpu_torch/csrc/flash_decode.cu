@@ -1,157 +1,59 @@
-// Flash-decode attention for every decode step, hand-written for Hopper
-// (sm_90a).
+// Flash-decode and chunk-prefill attention against a dense cache,
+// hand-written for Hopper (sm_90a); the kernel is flash_decode.cuh's,
+// with DenseCache addressing.
 //
-// Replaces the TPU kernel paddle_tpu/kernels/flash_attention.py
-// _decode_pallas (:942; Pallas body _decode_kernel :910 with the shared
-// _decode_accumulate :846), reached through flash_attention_decode
-// (:1037), in its wide (bf16/fp16/fp32 cache) mode.
+// paddle_flash_decode replaces the TPU kernel
+// paddle_tpu/kernels/flash_attention.py _decode_pallas (:942; Pallas
+// body _decode_kernel :910 with the shared _decode_accumulate :846),
+// reached through flash_attention_decode (:1037), in its wide
+// (bf16/fp16/fp32 cache) mode: sq <= 8 query rows per batch row.
 //
-// Computes, for each batch row b, the attention of sq <= 8 new query
-// rows q [B, sq, Hq, D] against one layer's cache k/v [B, T, Hk, D] with
-// a per-row valid length kv_len[b] that already counts the sq new
-// positions: query row i attends cache columns c <= kv_len - sq + i. The
-// cache is read IN PLACE through its strides: the layer slice of the
-// [layers, B, T, Hk, D] cache is handed over as it lies, where the JAX
-// wrapper's swapaxes/reshape to [B*Hk, T, D] would be a full copy of the
-// layer's cache in PyTorch on every layer of every step. One block per
-// (row, kv head) serves all Hq / Hk query heads of its group (all
-// group * sq query rows, in a block of 8 or, past 8, of 64 rows) from
-// the same K/V tiles, so grouped-query caches are never repeated or
-// re-read; only a group of more than 64 rows takes a second block. Tiles at or past kv_len are never read; a lane parked
-// with kv_len 0 reads nothing and writes zeros.
+// paddle_flash_chunk replaces _chunk_pallas (:1163; Pallas body
+// _chunk_kernel :1126), reached through flash_attention_chunk (:1219),
+// in its wide mode: the same contract without the 8-row cap, for the
+// serving engine's chunked prefill (a C-token window of a long prompt
+// against the batch-1 side cache the earlier chunks wrote). The TPU
+// kernel q-tiles the decode body at 128 rows; here the decode launch
+// already takes 64-row blocks over blockIdx.y, and each block stops its
+// key stream at its last row's limit.
 //
-// What bounds it on the H100: device-memory bytes. At the serving
-// shapes (8 rows, 640 cache positions, 12 heads, head_dim 64, bf16) a
-// step reads at most 15.7 MB of K/V per layer (~4.7 us at 3.35 TB/s) and
-// does ~4 FLOP per byte. What the design does about it: each K/V element
-// crosses from device memory exactly once, in 16-byte loads coalesced
-// along head_dim and all in flight before the first is used; the q rows
-// stay in shared memory; only the valid prefix of each row is streamed. Left for later: one block per (row, kv head)
-// gives 96 blocks for 132 SMs and each waits on its tile loads in turn,
-// so this version is latency-bound; split-K (flash-decoding) and
-// double-buffered loads are the next step.
-#include "flash_common.cuh"
+// The cache is read IN PLACE through its strides: the layer slice of
+// the [layers, B, T, Hk, D] cache is handed over as it lies, where the
+// JAX wrapper's swapaxes/reshape to [B*Hk, T, D] would be a full copy of
+// the layer's cache in PyTorch on every layer of every step. Grouped
+// query heads share their kv head's tiles, so caches are never repeated.
+//
+// What bounds them on the H100: device-memory bytes. At the serving
+// decode shapes (8 rows, 640 cache positions, 12 heads, head_dim 64,
+// bf16) a step reads at most 15.7 MB of K/V per layer (~4.7 us at 3.35
+// TB/s) and does ~4 FLOP per byte; a 128-row chunk against 512 cached
+// positions does ~256 FLOP per byte, near the card's bf16 ridge, but
+// this kernel multiplies on CUDA cores in fp32. What the design does
+// about it: each K/V element crosses from device memory once per block,
+// in 16-byte loads coalesced along head_dim and all in flight before the
+// first is used; the q rows stay in shared memory; only the valid prefix
+// of each row is streamed. Left for later: one block per (row, kv head)
+// gives 96 decode blocks (24 chunk blocks) for 132 SMs and each waits on
+// its tile loads in turn, so this version is latency-bound; split-K
+// (flash-decoding), tensor cores and double-buffered loads are next.
+#include "flash_decode.cuh"
 
-namespace paddle_flash {
+namespace {
 
-constexpr int kMaxQLen = 8;     // MAX_DECODE_QLEN
-
-template <typename T, int BQ, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int* __restrict__ kv_len, T* __restrict__ o,
-                        int Sq, int Hq, int Hk, int T_len, int64_t q_sb,
-                        int64_t q_ss, int64_t q_sh, int64_t k_sb,
-                        int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                        int64_t v_ss, int64_t v_sh, int64_t o_sb,
-                        int64_t o_ss, int64_t o_sh, float qscale) {
-  using L = Layout<BQ, D>;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / Hk;
-  const int hk = blockIdx.x % Hk;
-  const int group = Hq / Hk;
-  const int n_rows = group * Sq;  // (query head in group, position) pairs
-  const int j0 = blockIdx.y * BQ;
-  const int cg = threadIdx.x % L::NCG;
-  const int r0 = (threadIdx.x / L::NCG) * L::TR;
-  const int klen = min(max(kv_len[b], 0), T_len);
-
-  // block row r is pair j = j0 + r: query head hk * group + j / Sq at
-  // window position j % Sq
-  const T* qb = q + b * q_sb;
-  stage_rows<T, BQ, D>(
-      smem + L::kQ, [&](int r) -> const T* {
-        const int j = j0 + r;
-        if (j >= n_rows) return nullptr;
-        return qb + (j % Sq) * q_ss + (hk * group + j / Sq) * q_sh;
-      },
-      (float*)nullptr, [](int) -> const T* { return nullptr; }, qscale,
-      rows_aligned(qb, q_ss) && rows_aligned(qb, q_sh));
-
-  RowState<BQ, D> st;
-#pragma unroll
-  for (int i = 0; i < L::TR; ++i) {
-    const int j = j0 + r0 + i;
-    st.lim[i] = klen - Sq + (j % Sq);
-  }
-  __syncthreads();
-
-  attend<T, BQ, D>(smem, k + b * k_sb + hk * k_sh, k_ss,
-                   v + b * v_sb + hk * v_sh, v_ss, klen, st);
-
-#pragma unroll
-  for (int i = 0; i < L::TR; ++i) {
-    const int j = j0 + r0 + i;
-    if (j >= n_rows) continue;
-    const int h = hk * group + j / Sq;
-    T* orow = o + b * o_sb + (j % Sq) * o_ss + h * o_sh;
-#pragma unroll
-    for (int jj = 0; jj < L::TD; ++jj)
-      orow[cg + jj * L::NCG] = from_float<T>(out_value(st, i, jj));
-  }
+int dense(bool chunk, const void* q, const void* k, const void* v,
+          const int* kv_len, void* o, int dtype, int B, int Sq, int Hq,
+          int Hk, int T_len, int D, const int64_t* st, float scale,
+          void* stream) {
+  using namespace paddle_flash;
+  if ((!chunk && Sq > kMaxQLen) || T_len <= 0) return cudaErrorInvalidValue;
+  const DenseCache cache{k, v, st[3], st[4], st[5], st[6], st[7], st[8],
+                         T_len};
+  const int64_t qo[6] = {st[0], st[1], st[2], st[9], st[10], st[11]};
+  return dispatch(dtype, D, q, cache, kv_len, o, B, Sq, Hq, Hk, qo, scale,
+                  stream);
 }
 
-template <typename T, int BQ, int D>
-cudaError_t launch_rows(const void* q, const void* k, const void* v,
-                        const int* kv_len, void* o, int B, int Sq, int Hq,
-                        int Hk, int T_len, const int64_t* st, float scale,
-                        cudaStream_t stream) {
-  using L = Layout<BQ, D>;
-  auto kernel = flash_decode_kernel<T, BQ, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-  if (err != cudaSuccess) return err;
-  const int n_rows = (Hq / Hk) * Sq;
-  dim3 grid(B * Hk, (n_rows + BQ - 1) / BQ);
-  kernel<<<grid, kThreads, L::kBytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, kv_len, (T*)o, Sq, Hq, Hk,
-      T_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale * kLog2e);
-  return cudaGetLastError();
-}
-
-// One block holds every query row of a (batch row, kv head) group: 8
-// rows for plain multi-head attention, 64 when grouped heads need more.
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_len, void* o, int B, int Sq, int Hq, int Hk,
-                   int T_len, const int64_t* st, float scale,
-                   cudaStream_t stream) {
-  if ((Hq / Hk) * Sq <= 8)
-    return launch_rows<T, 8, D>(q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len, st,
-                                scale, stream);
-  return launch_rows<T, 64, D>(q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len, st,
-                               scale, stream);
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const int* kv_len, void* o, int B, int Sq, int Hq,
-                       int Hk, int T_len, const int64_t* st, float scale,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len, st,
-                           scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len, st,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len, st,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len, st,
-                           scale, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len, st,
-                           scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace paddle_flash
+}  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. strides: 12 element strides,
 // (batch, seq, head) of q, k, v and o in that order; head_dim must be
@@ -162,23 +64,16 @@ extern "C" int paddle_flash_decode(const void* q, const void* k,
                                    int dtype, int B, int Sq, int Hq, int Hk,
                                    int T_len, int D, const int64_t* strides,
                                    float scale, void* stream) {
-  using namespace paddle_flash;
-  cudaGetLastError();  // start from a clean error state
-  if (B <= 0) return cudaSuccess;
-  if (Sq <= 0 || Sq > kMaxQLen || Hk <= 0 || Hq % Hk != 0 || T_len <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0:
-      return dispatch_d<float>(D, q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len,
-                               strides, scale, s);
-    case 1:
-      return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_len, o, B, Sq, Hq, Hk,
-                                       T_len, strides, scale, s);
-    case 2:
-      return dispatch_d<__half>(D, q, k, v, kv_len, o, B, Sq, Hq, Hk, T_len,
-                                strides, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dense(false, q, k, v, kv_len, o, dtype, B, Sq, Hq, Hk, T_len, D,
+               strides, scale, stream);
+}
+
+// The same arguments; any Sq.
+extern "C" int paddle_flash_chunk(const void* q, const void* k,
+                                  const void* v, const int* kv_len, void* o,
+                                  int dtype, int B, int Sq, int Hq, int Hk,
+                                  int T_len, int D, const int64_t* strides,
+                                  float scale, void* stream) {
+  return dense(true, q, k, v, kv_len, o, dtype, B, Sq, Hq, Hk, T_len, D,
+               strides, scale, stream);
 }

@@ -69,8 +69,11 @@ __global__ void __launch_bounds__(kThreads)
   const int n_keys = causal ? max(0, min(Sk, last_row + offset + 1)) : Sk;
   __syncthreads();
 
-  attend<T, BQ, D>(smem, k + b * k_sb + hk * k_sh, k_ss,
-                   v + b * v_sb + hk * v_sh, v_ss, n_keys, st);
+  const T* kb = k + b * k_sb + hk * k_sh;
+  const T* vb = v + b * v_sb + hk * v_sh;
+  attend<T, BQ, D>(smem, Strided<T>{kb, k_ss}, Strided<T>{vb, v_ss},
+                   rows_aligned(kb, k_ss) && rows_aligned(vb, v_ss), n_keys,
+                   st);
 
   T* ob = o + b * o_sb + h * o_sh;
 #pragma unroll

@@ -1,15 +1,19 @@
 """Shared cached-attention step for model wiring.
 
 Write the fresh k/v into the cache at each row's ``kv_len``, then either
-attend the cached prefix through the decode kernel (decode) or run
-self-attention over the fresh window through the forward kernel
-(prefill). Only the dense, full-width cache is served here; the JAX
-package's paged, chunk-prefill and int8 branches come with later slices.
+attend the cached prefix (decode) or run self-attention over the fresh
+window through the forward kernel (prefill). A decode window goes to
+the paged decode kernel on a paged cache; on a dense cache to the chunk
+kernel when it is longer than ``MAX_DECODE_QLEN`` (a chunked-prefill
+step), else to the decode kernel. The JAX package's int8 branches come
+with a later slice.
 """
 from __future__ import annotations
 
 from ..kernels.flash_attention import (MAX_DECODE_QLEN,
-                                       flash_attention_decode)
+                                       flash_attention_chunk,
+                                       flash_attention_decode,
+                                       flash_attention_decode_paged)
 from ..nn import functional as F
 
 
@@ -20,9 +24,6 @@ def cached_attention(q, k, v, cache, layer_idx, *, decode: bool,
     [b, s, heads, head_dim]. Decode reads the cached prefix with
     per-row ragged masking at ``kv_len + s``; prefill is ordinary
     self-attention over the fresh window."""
-    if getattr(cache, "page_table", None) is not None:
-        raise NotImplementedError(
-            "paged KV cache: not ported yet (ROADMAP A6 and B4)")
     if getattr(cache, "k_scale", None) is not None:
         raise NotImplementedError(
             "int8 KV cache: not ported yet (ROADMAP A5, B3 int8 mode)")
@@ -31,12 +32,15 @@ def cached_attention(q, k, v, cache, layer_idx, *, decode: bool,
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=causal, training=False)
         return out, cache
-    s = q.shape[1]
-    if s > MAX_DECODE_QLEN:
-        raise NotImplementedError(
-            f"a {s}-token window against the cache is a chunked-prefill "
-            "step: not ported yet (ROADMAP B5)")
-    mask_len = cache.kv_len + s    # includes the new rows
-    out = flash_attention_decode(q, cache.k[layer_idx], cache.v[layer_idx],
-                                 mask_len)
+    mask_len = cache.kv_len + q.shape[1]    # includes the new rows
+    if getattr(cache, "page_table", None) is not None:
+        out = flash_attention_decode_paged(q, cache.k[layer_idx],
+                                           cache.v[layer_idx],
+                                           cache.page_table, mask_len)
+    elif q.shape[1] > MAX_DECODE_QLEN:
+        out = flash_attention_chunk(q, cache.k[layer_idx],
+                                    cache.v[layer_idx], mask_len)
+    else:
+        out = flash_attention_decode(q, cache.k[layer_idx],
+                                     cache.v[layer_idx], mask_len)
     return out, cache

@@ -1,10 +1,11 @@
 """AnalysisConfig analog: the model to serve, its device and precision,
 and the generation and serving knobs the ``ServingEngine`` reads (the
-JAX package's ``inference/config.py``, dense serving path only).
+JAX package's ``inference/config.py``: the dense, paged and chunked
+serving paths).
 
-Options of the JAX package that belong to paths not ported yet (paged,
-int8 and chunked caches, speculation, telemetry, compile cache) are
-accepted by name and raise when set, naming the ROADMAP entry.
+Options of the JAX package that belong to paths not ported yet (int8
+caches and weights, speculation, telemetry, compile cache) are accepted
+by name and raise when set, naming the ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -25,12 +26,8 @@ _LATER_GENERATION = {
     "kv_cache_dtype": "A5 and B3 int8 mode (QuantKVCache)",
 }
 _LATER_SERVING = {
-    "paged": "A6 and B4 (paged KV cache)",
-    "kv_page_size": "A6 and B4 (paged KV cache)",
-    "kv_pages": "A6 and B4 (paged KV cache)",
     "kv_cache_dtype": "A5 and B3 int8 mode (QuantKVCache)",
     "weight_bits": "A8 (int8/int4 weight paths)",
-    "prefill_chunk_tokens": "A8 and B5 (chunked prefill)",
     "trace_sample": "A7 (observability)",
     "telemetry_port": "A7 (observability)",
     "hbm_budget": "A12 (memory planner)",
@@ -105,17 +102,30 @@ class Config:
 
     def enable_serving(self, max_queue: int = 64, poll_every: int = 4,
                        default_deadline_s=None, cache_max_len=None,
-                       **later):
+                       paged: bool = False, kv_page_size=None,
+                       kv_pages=None, prefill_chunk_tokens=None, **later):
         """Continuous-batching knobs for ``serving.ServingEngine``:
         ``max_queue`` bounds admission (submit past it raises
         QueueFull), ``poll_every`` sets the completion-poll cadence in
         decode steps, ``default_deadline_s`` applies to requests that
         carry none, ``cache_max_len`` overrides the shared KV ring
         length (default: largest bucket + max_new_tokens, rounded up to
-        128)."""
+        128).
+
+        ``paged=True`` swaps the dense per-slot cache for the paged one
+        (``generation.PagedKVCache``): K/V live in a pool of
+        ``kv_pages`` pages of ``kv_page_size`` positions (default 128,
+        which must divide the cache length; default pool: the dense
+        cache's footprint plus the null page), admission waits for free
+        pages as well as free slots, and identical prompt prefixes share
+        pages. ``prefill_chunk_tokens`` admits prompts longer than that
+        many tokens one chunk per scheduler iteration, between decode
+        steps (on a paged engine a multiple of the page size)."""
         _refuse_later("enable_serving", later, _LATER_SERVING)
         self._serving = dict(
             max_queue=int(max_queue), poll_every=int(poll_every),
             default_deadline_s=default_deadline_s,
-            cache_max_len=cache_max_len)
+            cache_max_len=cache_max_len, paged=bool(paged),
+            kv_page_size=kv_page_size, kv_pages=kv_pages,
+            prefill_chunk_tokens=prefill_chunk_tokens)
         return self

@@ -1,13 +1,16 @@
 """Flash attention for training, prefill and decode: CUDA kernels for
 Hopper and their plain PyTorch versions.
 
-``flash_attention`` (training and prefill) and
-``flash_attention_decode`` (one decode step's 1..8 query rows against
-the KV cache) launch the kernels in ``csrc/flash_fwd.cu`` and
-``csrc/flash_decode.cu`` for tensors on a CUDA card and run the plain
-versions beside them for tensors on the CPU. When an input requires a
-gradient, ``flash_attention`` goes through ``_FlashAttentionFn``, whose
-backward is ``flash_attention_bwd`` (``csrc/flash_bwd.cu`` on a card).
+``flash_attention`` (training and prefill), ``flash_attention_decode``
+(one decode step's 1..8 query rows against the KV cache),
+``flash_attention_chunk`` (a chunked-prefill window of any length
+against the cache) and ``flash_attention_decode_paged`` (a decode step
+against a paged cache) launch the kernels in ``csrc/flash_fwd.cu``,
+``csrc/flash_decode.cu`` and ``csrc/flash_decode_paged.cu`` for tensors
+on a CUDA card and run the plain versions beside them for tensors on
+the CPU. When an input requires a gradient, ``flash_attention`` goes
+through ``_FlashAttentionFn``, whose backward is ``flash_attention_bwd``
+(``csrc/flash_bwd.cu`` on a card).
 Nothing else picks a plain version: on the card a kernel either
 launches or raises. Each wrapper counts its launches in a plain integer
 attribute (``flash_attention.launches``), each plain version its calls
@@ -16,9 +19,11 @@ took.
 
 Layouts are the JAX package's public ones: ``[batch, seq, heads,
 head_dim]`` for queries, keys and values, ``[batch, max_len, kv_heads,
-head_dim]`` for one layer's cache. Inputs are read through their
-strides (only head_dim must be contiguous), so views of a fused qkv
-projection or a layer slice of the cache cost no copy.
+head_dim]`` for one layer's cache, ``[n_pages, page_size, kv_heads,
+head_dim]`` for one layer's page pool with ``page_table [batch,
+pages_per_row]`` int32. Inputs are read through their strides (only
+head_dim must be contiguous), so views of a fused qkv projection or a
+layer slice of the cache or pool cost no copy.
 """
 from __future__ import annotations
 
@@ -43,8 +48,12 @@ _STRIDES = ctypes.POINTER(ctypes.c_int64)
 _FWD_SIG = {"paddle_flash_fwd": (_I, (
     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES, _I,
     ctypes.c_float, _P))}
-_DECODE_SIG = {"paddle_flash_decode": (_I, (
-    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
+_DECODE_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
+                ctypes.c_float, _P)
+_DECODE_SIG = {"paddle_flash_decode": (_I, _DECODE_ARGS),
+               "paddle_flash_chunk": (_I, _DECODE_ARGS)}
+_PAGED_SIG = {"paddle_flash_decode_paged": (_I, (
+    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
     ctypes.c_float, _P))}
 _BWD_SIG = {"paddle_flash_bwd": (_I, (
     _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -342,12 +351,11 @@ flash_attention_bwd.launches = 0
 
 # --------------------------------------------------------------- decode
 
-def flash_attention_decode_plain(query, key_cache, value_cache, kv_len,
-                                 scale: Optional[float] = None):
-    """Plain version of the decode kernel: query row i of batch row b
-    attends cache columns c <= kv_len[b] - sq + i, in fp32, output in
-    the query's dtype. Rows with no visible column give zeros."""
-    flash_attention_decode_plain.calls += 1
+def _decode_math(query, key_cache, value_cache, kv_len, scale):
+    """Query row i of batch row b attends cache columns c <= kv_len[b] -
+    sq + i, in fp32, output in the query's dtype; rows with no visible
+    column give zeros. The arithmetic of every plain decode-shaped
+    version (dense, chunk, paged)."""
     b, sq, hq, d = query.shape
     t, hk = key_cache.shape[1], key_cache.shape[2]
     g = hq // hk
@@ -363,7 +371,94 @@ def flash_attention_decode_plain(query, key_cache, value_cache, kv_len,
     return out.reshape(b, sq, hq, d).to(query.dtype)
 
 
+def flash_attention_decode_plain(query, key_cache, value_cache, kv_len,
+                                 scale: Optional[float] = None):
+    """Plain version of the decode kernel: query row i of batch row b
+    attends cache columns c <= kv_len[b] - sq + i, in fp32, output in
+    the query's dtype. Rows with no visible column give zeros."""
+    flash_attention_decode_plain.calls += 1
+    return _decode_math(query, key_cache, value_cache, kv_len, scale)
+
+
 flash_attention_decode_plain.calls = 0
+
+
+def flash_attention_chunk_plain(query, key_cache, value_cache, kv_len,
+                                scale: Optional[float] = None):
+    """Plain version of the chunk kernel: the decode plain version's
+    arithmetic for a window of any length."""
+    flash_attention_chunk_plain.calls += 1
+    return _decode_math(query, key_cache, value_cache, kv_len, scale)
+
+
+flash_attention_chunk_plain.calls = 0
+
+
+def _check_decode(query, key_cache, value_cache, kv_len):
+    """Shapes, devices and dtypes of a dense decode-shaped call; returns
+    the named tensors."""
+    _check_4d("query", query)
+    _check_4d("key_cache", key_cache, query.shape[-1])
+    _check_4d("value_cache", value_cache, query.shape[-1])
+    b, hq = query.shape[0], query.shape[2]
+    if key_cache.shape[0] != b or value_cache.shape != key_cache.shape:
+        raise ValueError(f"caches {tuple(key_cache.shape)} / "
+                         f"{tuple(value_cache.shape)} do not match query "
+                         f"{tuple(query.shape)}")
+    if hq % key_cache.shape[2]:
+        raise ValueError(f"q heads {hq} not divisible by kv heads "
+                         f"{key_cache.shape[2]}")
+    _check_kv_len(query, kv_len)
+    named = [("query", query), ("key_cache", key_cache),
+             ("value_cache", value_cache)]
+    _same_device_dtype(named)
+    return named
+
+
+def _check_kv_len(query, kv_len):
+    b = query.shape[0]
+    if tuple(kv_len.shape) != (b,):
+        raise ValueError(f"kv_len must be [batch]={b}, got "
+                         f"{tuple(kv_len.shape)}")
+    _same_device_dtype([("query", query), ("kv_len", kv_len)], dtype=False)
+
+
+def _check_int32(name, t):
+    if t.dtype != torch.int32 or not t.is_contiguous():
+        raise TypeError(f"{name} must be a contiguous int32 tensor, got "
+                        f"{t.dtype}")
+
+
+def _launch_dense(entry, query, key_cache, value_cache, kv_len, scale,
+                  named):
+    """Launch ``entry`` of ``csrc/flash_decode.cu`` on checked CUDA
+    tensors; returns the output."""
+    _check_int32("kv_len", kv_len)
+    b, sq, hq, d = query.shape
+    t, hk = key_cache.shape[1], key_cache.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    out = torch.empty((b, sq, hq, d), dtype=query.dtype,
+                      device=query.device)
+    code, strides = _kernel_args(named + [("out", out)], d)
+    lib = _build.library("flash_decode", _DECODE_SIG)
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        err = getattr(lib, entry)(
+            query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), code, b, sq, hq, hk, t, d,
+            strides, scale, stream)
+    _raise_on(err, entry)
+    return out
+
+
+def _on_card(query, name):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if query.device.type == "cpu":
+        return False
+    if query.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or the CPU, got "
+                         f"{query.device}")
+    return True
 
 
 def flash_attention_decode(query, key_cache, value_cache, kv_len,
@@ -375,50 +470,17 @@ def flash_attention_decode(query, key_cache, value_cache, kv_len,
     q_len new positions. Query row i attends columns
     ``<= kv_len - q_len + i``. The cache is read in place through its
     strides and never repeated for grouped-query heads."""
-    _check_4d("query", query)
-    _check_4d("key_cache", key_cache, query.shape[-1])
-    _check_4d("value_cache", value_cache, query.shape[-1])
-    b, sq, hq, d = query.shape
-    t, hk = key_cache.shape[1], key_cache.shape[2]
-    if sq > MAX_DECODE_QLEN:
+    named = _check_decode(query, key_cache, value_cache, kv_len)
+    if query.shape[1] > MAX_DECODE_QLEN:
         raise ValueError(
-            f"flash_attention_decode: q_len {sq} > MAX_DECODE_QLEN "
-            f"({MAX_DECODE_QLEN}); use flash_attention for longer query "
-            "windows")
-    if key_cache.shape[0] != b or value_cache.shape != key_cache.shape:
-        raise ValueError(f"caches {tuple(key_cache.shape)} / "
-                         f"{tuple(value_cache.shape)} do not match query "
-                         f"{tuple(query.shape)}")
-    if hq % hk:
-        raise ValueError(f"q heads {hq} not divisible by kv heads {hk}")
-    if tuple(kv_len.shape) != (b,):
-        raise ValueError(f"kv_len must be [batch]={b}, got "
-                         f"{tuple(kv_len.shape)}")
-    named = [("query", query), ("key_cache", key_cache),
-             ("value_cache", value_cache)]
-    _same_device_dtype(named)
-    _same_device_dtype([("query", query), ("kv_len", kv_len)], dtype=False)
-    if query.device.type == "cpu":
+            f"flash_attention_decode: q_len {query.shape[1]} > "
+            f"MAX_DECODE_QLEN ({MAX_DECODE_QLEN}); use "
+            "flash_attention_chunk for longer query windows")
+    if not _on_card(query, "flash_attention_decode"):
         return flash_attention_decode_plain(query, key_cache, value_cache,
                                             kv_len, scale)
-    if query.device.type != "cuda":
-        raise ValueError(f"flash_attention_decode runs on CUDA or the "
-                         f"CPU, got {query.device}")
-    if kv_len.dtype != torch.int32 or not kv_len.is_contiguous():
-        raise TypeError("kv_len must be a contiguous int32 tensor, got "
-                        f"{kv_len.dtype}")
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    out = torch.empty((b, sq, hq, d), dtype=query.dtype,
-                      device=query.device)
-    code, strides = _kernel_args(named + [("out", out)], d)
-    lib = _build.library("flash_decode", _DECODE_SIG)
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        err = lib.paddle_flash_decode(
-            query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), code, b, sq, hq, hk, t, d,
-            strides, scale, stream)
-    _raise_on(err, "flash_decode")
+    out = _launch_dense("paddle_flash_decode", query, key_cache,
+                        value_cache, kv_len, scale, named)
     flash_attention_decode.launches += 1
     return out
 
@@ -426,10 +488,115 @@ def flash_attention_decode(query, key_cache, value_cache, kv_len,
 flash_attention_decode.launches = 0
 
 
+def flash_attention_chunk(query, key_cache, value_cache, kv_len,
+                          scale: Optional[float] = None):
+    """Chunk-prefill attention: ``flash_attention_decode``'s contract
+    without the 8-row cap, for the serving engine's chunked prefill (a
+    C-token window of a long prompt attends the cache the earlier
+    chunks wrote). Query row i attends columns ``<= kv_len - q_len +
+    i``; rows whose limit is below 0 give zeros."""
+    named = _check_decode(query, key_cache, value_cache, kv_len)
+    if not _on_card(query, "flash_attention_chunk"):
+        return flash_attention_chunk_plain(query, key_cache, value_cache,
+                                           kv_len, scale)
+    out = _launch_dense("paddle_flash_chunk", query, key_cache, value_cache,
+                        kv_len, scale, named)
+    flash_attention_chunk.launches += 1
+    return out
+
+
+flash_attention_chunk.launches = 0
+
+
+# --------------------------------------------------------- paged decode
+
+def flash_attention_decode_paged_plain(query, key_pool, value_pool,
+                                       page_table, kv_len,
+                                       scale: Optional[float] = None):
+    """Plain version of the paged decode kernel, as the JAX package's
+    fallback: gather each row's pages into the logical [batch,
+    pages_per_row * page_size, kv_heads, head_dim] layout and run the
+    dense decode arithmetic. Content past kv_len is masked to exact
+    zeros, so the result equals the dense plain version's on the same
+    logical rows bit for bit."""
+    flash_attention_decode_paged_plain.calls += 1
+    b, n_slots = page_table.shape
+    ps, hk, d = key_pool.shape[1:]
+    idx = page_table.to(device=key_pool.device, dtype=torch.long)
+    k_rows = key_pool[idx].reshape(b, n_slots * ps, hk, d)
+    v_rows = value_pool[idx].reshape(b, n_slots * ps, hk, d)
+    return _decode_math(query, k_rows, v_rows, kv_len, scale)
+
+
+flash_attention_decode_paged_plain.calls = 0
+
+
+def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
+                                 kv_len, scale: Optional[float] = None):
+    """Decode-shaped attention over a PAGED cache: ``query`` [batch,
+    q_len<=8, heads, head_dim] against one layer's page pools
+    ``key_pool``/``value_pool`` [n_pages, page_size, kv_heads,
+    head_dim] (new tokens already written through the table), with
+    ``page_table`` [batch, pages_per_row] int32 (entry 0 is the reserved
+    null page) and ``kv_len`` [batch] int32 as in
+    ``flash_attention_decode``, whose masking this is. The pool is read
+    in place through its strides and the table; the table's values are
+    trusted, as in the JAX package."""
+    _check_4d("query", query)
+    _check_4d("key_pool", key_pool, query.shape[-1])
+    _check_4d("value_pool", value_pool, query.shape[-1])
+    b, sq, hq, d = query.shape
+    n_pages, ps, hk = key_pool.shape[:3]
+    if sq > MAX_DECODE_QLEN:
+        raise ValueError(
+            f"flash_attention_decode_paged: q_len {sq} > MAX_DECODE_QLEN "
+            f"({MAX_DECODE_QLEN}); same contract as flash_attention_decode")
+    if value_pool.shape != key_pool.shape:
+        raise ValueError(f"pools {tuple(key_pool.shape)} / "
+                         f"{tuple(value_pool.shape)} differ")
+    if hq % hk:
+        raise ValueError(f"q heads {hq} not divisible by kv heads {hk}")
+    if page_table.dim() != 2 or page_table.shape[0] != b:
+        raise ValueError(f"page_table must be [batch={b}, pages_per_row], "
+                         f"got {tuple(page_table.shape)}")
+    _check_kv_len(query, kv_len)
+    named = [("query", query), ("key_pool", key_pool),
+             ("value_pool", value_pool)]
+    _same_device_dtype(named)
+    _same_device_dtype([("query", query), ("page_table", page_table)],
+                       dtype=False)
+    if not _on_card(query, "flash_attention_decode_paged"):
+        return flash_attention_decode_paged_plain(
+            query, key_pool, value_pool, page_table, kv_len, scale)
+    _check_int32("kv_len", kv_len)
+    _check_int32("page_table", page_table)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    out = torch.empty((b, sq, hq, d), dtype=query.dtype,
+                      device=query.device)
+    code, strides = _kernel_args(named + [("out", out)], d)
+    strides = (ctypes.c_int64 * 13)(*strides, page_table.stride(0))
+    lib = _build.library("flash_decode_paged", _PAGED_SIG)
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        err = lib.paddle_flash_decode_paged(
+            query.data_ptr(), key_pool.data_ptr(), value_pool.data_ptr(),
+            page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), code,
+            b, sq, hq, hk, ps, page_table.shape[1], d, strides, scale,
+            stream)
+    _raise_on(err, "flash_decode_paged")
+    flash_attention_decode_paged.launches += 1
+    return out
+
+
+flash_attention_decode_paged.launches = 0
+
+
 def reset_counts():
     """Zero every launch and plain-call counter."""
-    for fn in (flash_attention, flash_attention_bwd, flash_attention_decode):
+    for fn in (flash_attention, flash_attention_bwd, flash_attention_decode,
+               flash_attention_chunk, flash_attention_decode_paged):
         fn.launches = 0
     for fn in (flash_attention_plain, flash_attention_bwd_plain,
-               flash_attention_decode_plain):
+               flash_attention_decode_plain, flash_attention_chunk_plain,
+               flash_attention_decode_paged_plain):
         fn.calls = 0

@@ -5,8 +5,8 @@ Parameter names and shapes follow the JAX package exactly, so a state
 dict moves across with ``convert.load_reference_state``. Training and
 prefill attention go through ``nn.functional.scaled_dot_product_attention``
 (the flash forward and backward kernels on a card), decode attention
-through ``generation.attention.cached_attention`` (the flash decode
-kernel). The tied LM head is a plain ``torch.matmul`` against ``wte``,
+through ``generation.attention.cached_attention`` (the flash decode,
+chunk or paged decode kernel). The tied LM head is a plain ``torch.matmul`` against ``wte``,
 as the JAX package leaves it to XLA. Options of the JAX config that
 are not ported yet (recompute, sequence parallelism, experts) raise.
 """
@@ -185,14 +185,13 @@ class GPTModel(nn.Module):
         (``cache=None``), decode appends to one. Returns (hidden,
         cache). ``prompt_len`` [b] marks each row's true length in a
         right-padded prompt; kv_len advances to it, so the pad tail is
-        invisible to (and overwritten by) decode steps."""
+        invisible to (and overwritten by) decode steps. Decode with
+        ``prompt_len`` is the final chunk of a chunked prefill: s
+        cache-writing positions whose tail may overhang the row's true
+        length, so kv_len clamps to ``prompt_len`` in the same way."""
         b, s = input_ids.shape
         decode = cache is not None
         if decode:
-            if prompt_len is not None:
-                raise NotImplementedError(
-                    "a decode window with prompt_len is a chunked-prefill "
-                    "step: not ported yet (ROADMAP B5)")
             x = self.embed(input_ids, pos=cache.positions(s))
         else:
             x = self.embed(input_ids)
@@ -206,7 +205,11 @@ class GPTModel(nn.Module):
             x, cache = block(x, attn_mask, cache=cache, layer_idx=i,
                              decode=decode)
         if decode:
-            cache.with_kv_len(cache.kv_len + s)
+            new_len = cache.kv_len + s
+            if prompt_len is not None:
+                new_len = torch.minimum(new_len, torch.as_tensor(
+                    prompt_len, device=new_len.device).to(new_len.dtype))
+            cache.with_kv_len(new_len)
         else:
             cache.with_kv_len(s if prompt_len is None else prompt_len)
         return self.ln_f(x), cache
@@ -257,12 +260,23 @@ class GPTForCausalLM(nn.Module):
         """Generation forward: returns (logits, cache). Prefill returns
         next-token logits only ([b, 1, vocab], gathered at each row's
         last REAL position — the prompt logits are never formed);
-        decode returns logits for all (1..8) new positions."""
+        decode returns logits for every new position, except the final
+        chunk of a chunked prefill (decode with ``prompt_len``), which
+        returns the [b, 1, vocab] logits at the last real prompt
+        position."""
         decode = cache is not None
+        # the cache updates in place: keep the entry lengths
+        kv0 = cache.kv_len.clone() if decode and prompt_len is not None \
+            else None
         h, cache = self.gpt(input_ids, attn_mask, cache=cache,
                             use_cache=True, prompt_len=prompt_len,
                             cache_max_len=cache_max_len)
-        if not decode:
+        if kv0 is not None:
+            # window-local index of global position prompt_len - 1
+            idx = torch.as_tensor(prompt_len, device=h.device).long() - 1 \
+                - kv0.long()
+            h = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
+        elif not decode:
             b, s = input_ids.shape
             if prompt_len is None:
                 h = h[:, s - 1:s]

@@ -1,25 +1,41 @@
-"""Continuous-batching serving engine over ONE shared dense KV cache
-(the JAX package's ``serving/engine.py``, dense path).
+"""Continuous-batching serving engine over ONE shared KV cache, dense
+or paged (the JAX package's ``serving/engine.py``: dense, paged and
+chunked-prefill paths).
 
 - **decode never drains.** The decode step always runs at the fixed
-  batch of ``max_batch`` slots against the shared ring ``KVCache``. A
-  finished row (eos or budget) is masked by its ``finished`` lane: its
-  output buffer entry and step count stay frozen and its ``kv_len`` is
-  pinned to 0, so an idle lane neither wraps the ring nor walks the
-  position table while it waits; the slot is freed in place.
+  batch of ``max_batch`` slots against the shared cache. A finished row
+  (eos or budget) is masked by its ``finished`` lane: its output buffer
+  entry and step count stay frozen and its ``kv_len`` is pinned to 0,
+  so an idle lane neither wraps the ring nor walks the position table
+  while it waits (on a paged cache its writes go to the null page); the
+  slot is freed in place.
 - **admission = prefill into a slot.** A queued request is prefilled
   alone (batch 1) at its prompt's bucket (``Config.enable_generation``
-  buckets), then its row cache is copied into the freed slot
-  (``KVCache.copy_row_from``) and the slot's token/finished/step/budget
-  lanes are reset.
+  buckets), then its row cache is copied into the freed slot (dense:
+  ``KVCache.copy_row_from``; paged: ``PagedKVCache.install_row`` into
+  the pages the allocator committed, skipping shared prefix pages) and
+  the slot's token/finished/step/budget lanes are reset.
+- **paged** (``enable_serving(paged=True)``): admission also needs the
+  head request's pages; a head the pool cannot cover stays queued
+  (``_page_blocked``) until pages free up. Prompts whose leading full
+  pages match a registered prompt reference those pages.
+- **chunked prefill** (``prefill_chunk_tokens``): a prompt longer than
+  one chunk takes its slot in PENDING_PREFILL and is fed into a batch-1
+  side cache one chunk per scheduler iteration, after that iteration's
+  decode step; the final chunk samples the first token and installs the
+  row as an inline admission would. One chunked admission at a time,
+  strict FIFO.
 - **host syncs** happen only at the poll cadence (every ``poll_every``
   decode steps: two [batch] lane reads), once per admission (the
-  time-to-first-token point) and once per completion (the row read).
+  time-to-first-token point), once per prefill chunk and once per
+  completion (the row read).
 
-On a CUDA card every prefill's attention runs in the flash forward
-kernel and every decode step's in the flash decode kernel. Thread mode,
-the graceful-shutdown drain, metrics, tracing and the paged, int8,
-speculative and chunked paths come with later slices (ROADMAP A7, A8).
+On a CUDA card every inline prefill's attention runs in the flash
+forward kernel, every chunk's in the chunk kernel, and every decode
+step's in the flash decode kernel (dense cache) or the paged decode
+kernel (paged cache). Thread mode, the graceful-shutdown drain,
+metrics, tracing, ``health()``, and the int8 and speculative paths come
+with later slices (ROADMAP A5, A7, A8).
 """
 from __future__ import annotations
 
@@ -34,6 +50,7 @@ import torch
 from ..generation.api import (GenerationConfig, GenerationSession,
                               _round_up)
 from ..generation.kv_cache import KVCache
+from ..generation.paged_cache import PageAllocator, PagedKVCache
 from ..generation.sampling import sample
 from ..inference.precision import serving_params
 from .request import QueueFull, Request, RequestParams, RequestStatus
@@ -63,7 +80,11 @@ class ServingEngine:
                  poll_every: Optional[int] = None,
                  default_deadline_s: Optional[float] = None,
                  cache_max_len: Optional[int] = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 paged: Optional[bool] = None,
+                 kv_page_size: Optional[int] = None,
+                 kv_pages: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None):
         layer = getattr(config, "_layer", None)
         if layer is None:
             raise ValueError("ServingEngine needs a live layer: use "
@@ -122,6 +143,70 @@ class ServingEngine:
                 "the shared ring cache would wrap under a full-length "
                 "request")
 
+        # ------------------------------------------------- paged cache
+        # K/V in a pool of fixed-size pages, an int32 page table per
+        # slot; admission needs free pages as well as a free slot
+        self._alloc = None
+        if bool(_opt(paged, "paged", False)):
+            ps = int(_opt(kv_page_size, "kv_page_size", 128))
+            if ps < 1 or self.max_len % ps:
+                raise ValueError(
+                    f"kv_page_size {ps} must divide the cache length "
+                    f"{self.max_len} (enable_serving(kv_page_size=...))")
+            self.page_size = ps
+            self.pages_per_row = self.max_len // ps
+            # default pool: the dense cache's footprint (max_batch rows
+            # of max_len) plus the reserved null page
+            n_pages = int(_opt(kv_pages, "kv_pages",
+                               self.max_batch * self.pages_per_row + 1))
+            # a pool that cannot hold ONE full-size request would stall
+            # the queue head forever with no error
+            worst = -(-(buckets[-1] + self.max_new_tokens) // ps)
+            if n_pages - 1 < worst:
+                raise ValueError(
+                    f"kv_pages {n_pages} (1 reserved) cannot hold one "
+                    f"full-size request: bucket {buckets[-1]} + "
+                    f"max_new_tokens {self.max_new_tokens} needs {worst} "
+                    f"pages of {ps}; raise kv_pages or kv_page_size")
+            self._alloc = PageAllocator(n_pages, ps)
+            self._pending_pages: Dict[int, tuple] = {}
+            self._row_pages: List[Optional[list]] = [None] * self.max_batch
+            self._page_blocked = False
+            # (req.id, allocator version) of the last head whose plan
+            # failed to commit: while the pool is unchanged, the pump
+            # loop does not re-plan it
+            self._blocked_key = None
+
+        # --------------------------------------------- chunked prefill
+        ct = _opt(prefill_chunk_tokens, "prefill_chunk_tokens", None)
+        self.prefill_chunk_tokens = None
+        if ct is not None:
+            ct = int(ct)
+            if ct < 1:
+                raise ValueError(f"prefill_chunk_tokens {ct} must be >= 1")
+            if self._alloc is not None and ct % self.page_size:
+                raise ValueError(
+                    f"prefill_chunk_tokens {ct} must be a multiple of "
+                    f"kv_page_size {self.page_size}: every completed "
+                    "chunk must end on a page boundary so its span "
+                    "installs into whole committed pages")
+            # the final chunk pads to the chunk width, so the side cache
+            # takes up to ceil(bucket / C) * C positions; past max_len
+            # the ring would wrap them onto the prompt's own prefix
+            padded_top = -(-buckets[-1] // ct) * ct
+            if ct < buckets[-1] and padded_top > self.max_len:
+                raise ValueError(
+                    f"prefill_chunk_tokens {ct}: the largest bucket "
+                    f"{buckets[-1]} pads to {padded_top} chunked tokens, "
+                    f"past the cache length {self.max_len}; raise "
+                    "prefill_chunk_tokens or cache_max_len")
+            self.prefill_chunk_tokens = ct
+        # chunking applies only to prompts LONGER than one chunk
+        self._chunk_enabled = (self.prefill_chunk_tokens is not None
+                               and self.prefill_chunk_tokens < buckets[-1])
+        self._chunking: Optional[dict] = None   # the one in-flight
+        #                                         chunked admission
+
         self._gen = None
         if self._cfg.do_sample:
             self._gen = torch.Generator(device=self.device)
@@ -137,10 +222,24 @@ class ServingEngine:
         B, cap, dev = self.max_batch, self.max_new_tokens, self.device
         wdtype = next(p.dtype for p in self.network.parameters()
                       if p.is_floating_point())
-        self._cache = KVCache.create(
-            net_cfg.num_layers, B, self.max_len, net_cfg.num_heads,
-            net_cfg.hidden_size // net_cfg.num_heads, dtype=wdtype,
-            device=dev)
+        layers, heads = net_cfg.num_layers, net_cfg.num_heads
+        head_dim = net_cfg.hidden_size // heads
+        if self._alloc is None:
+            self._cache = KVCache.create(layers, B, self.max_len, heads,
+                                         head_dim, dtype=wdtype, device=dev)
+        else:
+            self._cache = PagedKVCache.create(
+                layers, B, self._alloc.n_pages, self.page_size,
+                self.pages_per_row, heads, head_dim, dtype=wdtype,
+                device=dev)
+        # chunked prefill's persistent batch-1 side cache: reset to
+        # kv_len 0 before each chunked admission (stale K/V past kv_len
+        # is never read)
+        self._row_cache = None
+        if self._chunk_enabled:
+            self._row_cache = KVCache.create(layers, 1, self.max_len, heads,
+                                             head_dim, dtype=wdtype,
+                                             device=dev)
         self._rows = torch.arange(B, device=dev)
         self._tok = torch.zeros(B, dtype=torch.int64, device=dev)
         self._finished = torch.ones(B, dtype=torch.bool, device=dev)
@@ -157,7 +256,8 @@ class ServingEngine:
         self._steps_since_poll = 0
         self.stats: Dict[str, int] = dict(
             submitted=0, admitted=0, completed=0, cancelled=0,
-            rejected=0, slots_reused=0, decode_steps=0, prefills=0)
+            rejected=0, slots_reused=0, decode_steps=0, prefills=0,
+            prefill_chunks=0)
 
     # -------------------------------------------------------- admission
     def submit(self, prompt, params: Optional[RequestParams] = None) \
@@ -211,25 +311,72 @@ class ServingEngine:
     # -------------------------------------------------------- scheduler
     def step(self):
         """One scheduler iteration: admit queued requests into free
-        slots, dispatch one fixed-batch decode step for the running
-        slots, poll completions every ``poll_every`` steps."""
+        slots (short prompts inline, long ones as a chunked admission),
+        dispatch one fixed-batch decode step for the running slots,
+        run at most one prefill chunk, poll completions every
+        ``poll_every`` steps. Decode is issued before the chunk's sync,
+        so running streams overlap the chunk instead of waiting behind a
+        whole long prefill."""
         with self._pump_lock:
             self._admit_ready()
-            if any(s is not None for s in self._slots):
+            if any(s is not None and s.status is RequestStatus.RUNNING
+                   for s in self._slots):
                 self._dispatch_decode()
+            self._advance_chunked()
             if self._steps_since_poll >= self.poll_every:
                 self._poll()
+
+    def _unblock_if(self, req: Request):
+        """Clear the page-pressure flag when the request it was computed
+        for leaves the queue."""
+        if self._alloc is not None and self._blocked_key is not None \
+                and self._blocked_key[0] == req.id:
+            self._blocked_key = None
+            self._page_blocked = False
 
     def _pop_queue(self) -> Optional[Request]:
         with self._qlock:
             while self._queue:
-                req = self._queue.popleft()
+                req = self._queue[0]
                 if req.deadline is not None and \
                         time.monotonic() > req.deadline:
+                    self._queue.popleft()
+                    self._unblock_if(req)
                     self._cancel(req, "deadline")
                     continue
+                if self._needs_chunk(req) and self._chunking is not None:
+                    # ONE chunked prefill at a time, strict FIFO: the
+                    # long head waits (un-popped, no pages committed)
+                    return None
+                if self._alloc is not None:
+                    # the head's page plan must commit before its slot is
+                    # spent; a pool too full leaves it QUEUED. While the
+                    # pool is unchanged since the head last failed, it is
+                    # not re-planned.
+                    ver = self._alloc.version
+                    if self._blocked_key == (req.id, ver):
+                        self._page_blocked = True
+                        return None
+                    plan = self._alloc.plan(req.prompt, req.budget)
+                    pages = self._alloc.commit(plan)
+                    if pages is None:
+                        # a failed commit may still have reclaimed cached
+                        # pages: key on the version after the attempt
+                        self._blocked_key = (req.id, self._alloc.version)
+                        self._page_blocked = True
+                        return None
+                    self._blocked_key = None
+                    self._page_blocked = False
+                    self._pending_pages[req.id] = (pages, plan)
+                self._queue.popleft()
                 return req
         return None
+
+    def _needs_chunk(self, req: Request) -> bool:
+        """Chunked admission applies to prompts LONGER than one chunk;
+        shorter ones prefill inline in one dispatch."""
+        return self._chunk_enabled and \
+            req.prompt.size > self.prefill_chunk_tokens
 
     def _admit_ready(self):
         for slot, occupant in enumerate(self._slots):
@@ -239,14 +386,61 @@ class ServingEngine:
             if req is None:
                 break
             try:
-                self._admit(req, slot)
+                if self._needs_chunk(req):
+                    self._begin_chunked(req, slot)
+                else:
+                    self._admit(req, slot)
             except Exception as e:
                 # the request left the queue but reached no slot: it
-                # must still go terminal or its handle would hang
+                # must still go terminal or its handle would hang, and
+                # its committed pages must return to the free list
+                if self._chunking is not None and \
+                        self._chunking["req"] is req:
+                    self._chunking = None
                 self._slots[slot] = None
+                self._release_pending(req)
                 self._cancel(req, f"admission error: "
                                   f"{type(e).__name__}: {e}")
                 raise
+
+    def _table_row(self, pages: List[int]) -> torch.Tensor:
+        """A slot's page table: the row's pages in position order, the
+        unused entries on the null page 0."""
+        table = np.zeros((self.pages_per_row,), np.int32)
+        table[:len(pages)] = pages
+        return torch.as_tensor(table, device=self.device)
+
+    def _install(self, req: Request, slot: int, row_cache: KVCache,
+                 tok, fin, start: int = 0):
+        """Install a prefilled batch-1 row into ``slot`` and reset the
+        slot's lanes (the JAX package's admit_fn / paged_admit_fn). On a
+        paged cache only positions at or past ``start`` are written
+        (those below are shared prefix pages or already installed
+        chunks), then the prompt's full pages are registered."""
+        if self._alloc is None:
+            self._cache.copy_row_from(row_cache, 0, slot)
+        else:
+            pages, plan = self._pending_pages[req.id]
+            self._cache.install_row(row_cache, slot, self._table_row(pages),
+                                    max(start, plan.shared_len))
+        self._tok[slot] = tok[0]
+        self._steps[slot] = 1
+        self._budget[slot] = req.budget
+        self._out_buf[slot] = 0
+        self._out_buf[slot, 0] = tok[0]
+        self._finished[slot] = fin[0] | (req.budget <= 1)
+        if self._alloc is not None:
+            # popped only once the install landed: a failed install
+            # leaves it for _release_pending to roll back
+            self._pending_pages.pop(req.id)
+            self._alloc.register(plan, pages)
+            self._row_pages[slot] = pages
+        if self._slot_used[slot]:
+            self.stats["slots_reused"] += 1
+        self._slot_used[slot] = True
+        self._slots[slot] = req
+        req.status = RequestStatus.RUNNING
+        self.stats["admitted"] += 1
 
     @torch.no_grad()
     def _admit(self, req: Request, slot: int):
@@ -264,19 +458,109 @@ class ServingEngine:
         tok.cpu()
         req.admitted_at = req.first_token_at = time.monotonic()
         self.stats["prefills"] += 1
-        self._cache.copy_row_from(row_cache, 0, slot)
-        self._tok[slot] = tok[0]
-        self._steps[slot] = 1
-        self._budget[slot] = req.budget
-        self._out_buf[slot] = 0
-        self._out_buf[slot, 0] = tok[0]
-        self._finished[slot] = fin[0] | (req.budget <= 1)
-        if self._slot_used[slot]:
-            self.stats["slots_reused"] += 1
-        self._slot_used[slot] = True
+        self._install(req, slot, row_cache, tok, fin)
+
+    # ------------------------------------------------- chunked prefill
+    def _begin_chunked(self, req: Request, slot: int):
+        """Reserve ``slot`` for a long prompt and park it in
+        PENDING_PREFILL: its lane stays masked (finished, kv_len 0) while
+        ``_advance_chunked`` feeds the prompt into the side cache one
+        chunk per scheduler iteration. Host bookkeeping only."""
+        C = self.prefill_chunk_tokens
+        plen = int(req.prompt.size)
+        n = -(-plen // C)
+        ids = np.full((1, n * C), self._cfg.pad_value, np.int64)
+        ids[0, :plen] = req.prompt
+        shared = 0
+        if self._alloc is not None:
+            shared = int(self._pending_pages[req.id][1].shared_len)
+        self._row_cache.with_kv_len(0)
+        self._chunking = dict(req=req, slot=slot, plen=plen, n=n, next=0,
+                              ids=torch.as_tensor(ids, device=self.device),
+                              shared=shared)
         self._slots[slot] = req
-        req.status = RequestStatus.RUNNING
-        self.stats["admitted"] += 1
+        req.status = RequestStatus.PENDING_PREFILL
+
+    def _advance_chunked(self):
+        """Run AT MOST ONE chunk of the in-flight chunked prefill. The
+        final chunk samples the first token and installs the row. The
+        deadline of a request mid-prefill is checked here, because
+        ``_poll`` skips PENDING_PREFILL slots."""
+        st = self._chunking
+        if st is None:
+            return
+        req = st["req"]
+        if req.deadline is not None and time.monotonic() > req.deadline:
+            self._abort_chunked("deadline")
+            return
+        try:
+            if st["next"] < st["n"] - 1:
+                self._chunk_step(st)
+            else:
+                self._finish_chunked(st)
+        except Exception as e:
+            self._abort_chunked(
+                f"admission error: {type(e).__name__}: {e}")
+            raise
+
+    @torch.no_grad()
+    def _chunk_step(self, st: dict):
+        """One non-final chunk: the decode-mode forward of C tokens over
+        the side cache (the chunk kernel attends what the earlier chunks
+        wrote), on a paged engine the span install into the committed
+        pages, then one sync."""
+        req, k = st["req"], st["next"]
+        C = self.prefill_chunk_tokens
+        self.network(st["ids"][:, k * C:(k + 1) * C], cache=self._row_cache)
+        if self._alloc is not None:
+            # commit the chunk's positions now, past the shared prefix;
+            # the table row and kv_len wait for the final admission
+            start = max(k * C, st["shared"])
+            if (k + 1) * C > start:
+                pages = self._pending_pages[req.id][0]
+                self._cache.install_span(self._row_cache,
+                                         self._table_row(pages), start)
+        # the chunk must land before the host moves on: this sync bounds
+        # how long a chunk holds the device between decode steps
+        self._row_cache.kv_len.cpu()
+        st["next"] = k + 1
+        self.stats["prefill_chunks"] += 1
+
+    @torch.no_grad()
+    def _finish_chunked(self, st: dict):
+        """The final (padded) chunk and the admission: sample the first
+        token at the last real prompt position (TTFT), install the side
+        cache into the slot, flip the request to RUNNING."""
+        req, slot, k = st["req"], st["slot"], st["n"] - 1
+        C = self.prefill_chunk_tokens
+        plen = torch.tensor([st["plen"]], device=self.device)
+        logits, row_cache = self.network(st["ids"][:, k * C:(k + 1) * C],
+                                         cache=self._row_cache,
+                                         prompt_len=plen)
+        tok = sample(logits[:, -1], self._gen, **self._cfg.sample_kwargs())
+        if self._cfg.eos_token_id is not None:
+            fin = tok == self._cfg.eos_token_id
+        else:
+            fin = torch.zeros_like(tok, dtype=torch.bool)
+        tok.cpu()                     # TTFT point, as inline admission
+        req.admitted_at = req.first_token_at = time.monotonic()
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefills"] += 1
+        # the spans below the final chunk's base are installed already
+        self._install(req, slot, row_cache, tok, fin, start=k * C)
+        self._chunking = None
+
+    def _abort_chunked(self, reason: str):
+        """Terminal exit for a request mid-prefill (deadline, dispatch
+        error): release its committed pages and clear the slot. Its lane
+        was never installed (finished, kv_len 0), so nothing on the
+        device needs a reset."""
+        st, self._chunking = self._chunking, None
+        if st is None:
+            return
+        self._release_pending(st["req"])
+        self._slots[st["slot"]] = None
+        self._cancel(st["req"], reason)
 
     @torch.no_grad()
     def _dispatch_decode(self):
@@ -303,24 +587,28 @@ class ServingEngine:
 
     def _poll(self):
         """Read the [batch] finished/step lanes, complete finished rows,
-        cancel over-deadline ones (queued and in flight)."""
+        cancel over-deadline ones (queued and in flight). A
+        PENDING_PREFILL slot belongs to ``_advance_chunked``: its lane
+        reads finished but it is not done."""
         self._steps_since_poll = 0
         fin = self._finished.cpu().numpy()
         steps = self._steps.cpu().numpy()
         now = time.monotonic()
         for i, req in enumerate(self._slots):
-            if req is None:
+            if req is None or req.status is RequestStatus.PENDING_PREFILL:
                 continue
             if fin[i]:
                 toks = self._out_buf[i, :int(steps[i])].cpu().numpy()
                 self._complete(req, toks)
                 self._slots[i] = None     # freed in place
+                self._free_slot_pages(i)
             elif req.deadline is not None and now > req.deadline:
                 self._evict(i, req, "deadline", int(steps[i]))
         with self._qlock:
             for req in list(self._queue):
                 if req.deadline is not None and now > req.deadline:
                     self._queue.remove(req)
+                    self._unblock_if(req)
                     self._cancel(req, "deadline")
 
     def _complete(self, req: Request, toks: np.ndarray):
@@ -341,8 +629,9 @@ class ServingEngine:
 
     def _evict(self, slot: int, req: Request, reason: str,
                n_done: int = 0):
-        """Cancel an in-flight request: mask its lane and reset its
-        cache row (the JAX package's free_fn), keep what it produced."""
+        """Cancel an in-flight request: mask its lane and reset its cache
+        row (the JAX package's free_fn), return its pages, keep what it
+        produced."""
         self._cache.reset_rows(slot)
         self._finished[slot] = True
         if n_done:
@@ -350,7 +639,27 @@ class ServingEngine:
             req.tokens = row.astype(np.int32)
             req.n_emitted = n_done
         self._slots[slot] = None
+        self._free_slot_pages(slot)
         self._cancel(req, reason)
+
+    # ------------------------------------------------- page bookkeeping
+    def _free_slot_pages(self, slot: int):
+        """Return a terminal slot's page references to the allocator
+        (pages other rows reference, or the prefix registry caches, stay
+        resident: that is the sharing)."""
+        if self._alloc is None:
+            return
+        pages, self._row_pages[slot] = self._row_pages[slot], None
+        if pages:
+            self._alloc.free_row(pages)
+
+    def _release_pending(self, req: Request):
+        """Roll back a committed page plan whose admission failed."""
+        if self._alloc is None:
+            return
+        ent = self._pending_pages.pop(req.id, None)
+        if ent is not None:
+            self._alloc.free_row(ent[0])
 
     # -------------------------------------------------------- front-end
     def _submit_item(self, item) -> Request:
@@ -399,6 +708,10 @@ class ServingEngine:
             self._pump_lock.release()
 
     def __repr__(self):
+        paged = "" if self._alloc is None else \
+            f", pages={self._alloc.n_pages}x{self.page_size}"
+        chunk = "" if self.prefill_chunk_tokens is None else \
+            f", prefill_chunk_tokens={self.prefill_chunk_tokens}"
         return (f"ServingEngine(max_batch={self.max_batch}, "
-                f"buckets={self.buckets}, max_len={self.max_len}, "
-                f"device={self.device})")
+                f"buckets={self.buckets}, max_len={self.max_len}"
+                f"{paged}{chunk}, device={self.device})")

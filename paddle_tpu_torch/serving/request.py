@@ -10,7 +10,7 @@ so a single-threaded ``submit(); result()`` makes progress.
 Terminal statuses:
 
     COMPLETED   decoded to eos or its token budget
-    CANCELLED   deadline expired (queued or mid-decode)
+    CANCELLED   deadline expired (queued, mid-prefill or mid-decode)
     REJECTED    queue at bound when submitted
 """
 from __future__ import annotations
@@ -30,6 +30,11 @@ __all__ = ["QueueFull", "Request", "RequestFailed", "RequestParams",
 
 class RequestStatus(str, enum.Enum):
     QUEUED = "queued"
+    #: chunked prefill in flight: the request owns a slot (and its
+    #: committed pages) but its prompt is only partly written; the
+    #: scheduler never decodes a PENDING_PREFILL slot, and the final
+    #: chunk's admission flips it to RUNNING
+    PENDING_PREFILL = "pending_prefill"
     RUNNING = "running"
     COMPLETED = "completed"
     CANCELLED = "cancelled"

@@ -318,3 +318,132 @@ def test_train_steps_on_card_match_the_cpu(dev):
                             gpu.state_dict().values()):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4,
                                    msg=name)
+
+
+# ---------------------------------------------- paged decode and chunk
+
+
+def _paged_from_dense(gen, k, v, page):
+    """A pool holding the logical rows of the dense [b, t, hk, d] caches
+    k, v in shuffled pages (page 0 the null page, filled with noise),
+    as a layer slice of a [2, n_pages, page, hk, d] pool; and the table.
+    t need not be a multiple of page: the last page of a row is padded
+    with noise."""
+    b, t, hk, d = k.shape
+    n_slots = -(-t // page)
+    n_pages = 1 + b * n_slots
+    perm = torch.randperm(b * n_slots, generator=torch.Generator()
+                          .manual_seed(page)) + 1
+    table = perm.reshape(b, n_slots).to(torch.int32).to(k.device)
+    pools = []
+    for src in (k, v):
+        pool = _randn(gen, (2, n_pages, page, hk, d), src.dtype, src.device)
+        flat = pool[1].reshape(n_pages * page, hk, d)
+        rows = (table.long()[:, :, None] * page
+                + torch.arange(page, device=k.device)).reshape(b, -1)[:, :t]
+        flat[rows] = src
+        pools.append(pool)
+    return pools[0][1], pools[1][1], table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 48, 64, 128])
+@pytest.mark.parametrize("sq,hq,hk", [(1, 12, 12), (1, 12, 4), (3, 12, 4),
+                                      (8, 12, 4), (8, 4, 4)])
+def test_flash_decode_paged_matches_plain_and_dense(dev, dtype, page, sq, hq,
+                                                    hk):
+    """Against its plain version, and BITWISE equal to the dense decode
+    kernel on the same logical rows, at page sizes that do and do not
+    divide the 64-column tile; kv_len 0 writes zeros."""
+    gen = torch.Generator(device=dev).manual_seed(page + sq + hk)
+    b, t, d = 6, 384, 64
+    k = _randn(gen, (b, t, hk, d), dtype, dev)
+    v = _randn(gen, (b, t, hk, d), dtype, dev)
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    kv = torch.tensor([0, sq, 17, 200, 333, t], dtype=torch.int32,
+                      device=dev)
+    kp, vp, table = _paged_from_dense(gen, k, v, page)
+    fa.reset_counts()
+    out = fa.flash_attention_decode_paged(q, kp, vp, table, kv)
+    dense = fa.flash_attention_decode(q, k, v, kv)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_decode_paged.launches == 1
+    assert fa.flash_attention_decode_paged_plain.calls == 0
+    assert torch.equal(out, dense)
+    assert out[0].abs().max().item() == 0.0
+    _close(out, fa.flash_attention_decode_paged_plain(q, kp, vp, table, kv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,hq,hk", [(9, 4, 4), (100, 4, 2), (128, 12, 12),
+                                      (300, 12, 4)])
+def test_flash_chunk_matches_plain(dev, dtype, sq, hq, hk):
+    """Windows past the 8-row cap against a [b, 640, hk, d] cache, with
+    a row whose kv_len is below sq (its leading rows fully masked give
+    zeros), grouped heads spread over several 64-row blocks."""
+    gen = torch.Generator(device=dev).manual_seed(sq + hq + hk)
+    b, t, d = 3, 640, 64
+    cache_k = _randn(gen, (2, b, t, hk, d), dtype, dev)
+    cache_v = _randn(gen, (2, b, t, hk, d), dtype, dev)
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    kv = torch.tensor([sq - 5, sq + 40, t], dtype=torch.int32, device=dev)
+    fa.reset_counts()
+    out = fa.flash_attention_chunk(q, cache_k[1], cache_v[1], kv)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_chunk.launches == 1
+    assert fa.flash_attention_chunk_plain.calls == 0
+    assert fa.flash_attention_decode.launches == 0
+    assert out[0, :5].abs().max().item() == 0.0
+    _close(out, fa.flash_attention_chunk_plain(q, cache_k[1], cache_v[1], kv))
+
+
+def test_paged_and_chunked_refuse_what_they_do_not_take(dev):
+    q = torch.zeros((2, 1, 4, 64), dtype=torch.bfloat16, device=dev)
+    pool = torch.zeros((5, 16, 4, 64), dtype=torch.bfloat16, device=dev)
+    kv = torch.ones(2, dtype=torch.int32, device=dev)
+    table = torch.ones((2, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="page_table"):
+        fa.flash_attention_decode_paged(q, pool, pool, table.long(), kv)
+    with pytest.raises(TypeError, match="kv_len"):
+        fa.flash_attention_chunk(q, pool[:2], pool[:2], kv.long())
+    with pytest.raises(ValueError):
+        fa.flash_attention_decode_paged(q, pool, pool, table.cpu(), kv)
+
+
+def test_paged_chunked_engine_on_card_matches_cpu(dev):
+    """test-tiny in fp32: the paged engine with chunked prefill on the
+    card gives the CPU engine's tokens, through the paged decode, chunk
+    and forward kernels and no plain version (16-token chunks: a window
+    of 8 or fewer would be a decode-shaped one)."""
+    from paddle_tpu_torch.inference import Config
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.serving import ServingEngine
+    cpu = gpt("test-tiny", device="cpu",
+              generator=torch.Generator().manual_seed(0)).eval()
+    gpu = gpt("test-tiny", device=dev).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 512, n) for n in (5, 30, 12, 25, 3, 31)]
+    outs = []
+    for m, on_card in ((cpu, False), (gpu, True)):
+        cfg = (Config().from_layer(m)
+               .enable_generation(max_new_tokens=8, prefill_buckets=(16, 32),
+                                  max_batch=2)
+               .enable_serving(paged=True, kv_page_size=8,
+                               prefill_chunk_tokens=16))
+        if not on_card:
+            cfg.disable_gpu()
+        else:
+            cfg.enable_use_gpu("float32")
+        fa.reset_counts()
+        eng = ServingEngine(cfg, poll_every=2)
+        outs.append([h.tokens for h in eng.serve_forever(iter(prompts))])
+        eng._alloc.assert_conserved()
+    assert fa.flash_attention_decode_paged.launches > 0
+    assert fa.flash_attention_chunk.launches > 0
+    assert fa.flash_attention.launches > 0
+    assert fa.flash_attention_decode.launches == 0
+    assert fa.flash_attention_decode_paged_plain.calls == 0
+    assert fa.flash_attention_chunk_plain.calls == 0
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(b, a)
