@@ -7,18 +7,21 @@ Run from the root of a checkout on a machine with an sm_90 card (H100)
 and the CUDA toolkit. It builds the hand-written kernels from
 ``paddle_tpu_torch/csrc``, holds each against its plain PyTorch version
 at the shapes the serving and training paths give it (the paged decode
-kernel also bit for bit against the dense one), runs gpt2-small (random
-weights from a seed, bf16) through the kernel path and the plain path,
-serves 16 requests through ``ServingEngine`` on its dense cache, the
-same 16 and 8 shared-prefix requests on a paged cache (token streams
-equal to the dense engine's), the 16 again with chunked prefill, then
-trains gpt2-small with ``bench.py``'s recipe (AdamW with fp32 masters,
-the fused LM-head loss, ``TrainStep``) at batch 16 x 1024 tokens, and
-checks that each path went through its kernels and never through a
-plain version. Phases print one line each; the line before the last is
-the kernel table as JSON, and the last line is
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero with
-no result line. Imports neither JAX nor the JAX package.
+kernel also bit for bit against the dense one, in the wide and the
+int8 mode), runs gpt2-small (random weights from a seed, bf16) through
+the kernel path and the plain path, serves 16 requests through
+``ServingEngine`` on its dense cache (the first 8 streams equal to
+batch-1 ``generate``), the same 16 and 8 shared-prefix requests on a
+paged cache (token streams equal to the dense engine's), the 16 again
+with chunked prefill, all three again on an int8 KV cache, holds the
+int8 cache's logits to the wide cache's, then trains gpt2-small with
+``bench.py``'s recipe (AdamW with fp32 masters, the fused LM-head loss,
+``TrainStep``) at batch 16 x 1024 tokens, and checks that each path
+went through its kernels and never through a plain version. Phases
+print one line each; the line before the last is the kernel table as
+JSON, and the last line is ``{"ok": true, "device": {...}}``. Any
+failed phase exits non-zero with no result line. Imports neither JAX
+nor the JAX package.
 """
 import json
 import math
@@ -282,18 +285,20 @@ def phase_kernels(torch, timer):
 
 
 def _pool_of(torch, gen, cache, page, perm):
-    """The logical rows of one dense cache [B, T, H, D] laid out in a
-    pool of shuffled pages, as the layer-1 slice of a [2, n_pages, page,
-    H, D] pool (page 0 is the null page; unused rows hold noise), and
-    the [B, ceil(T / page)] int32 page table that names them."""
-    b, t, h, d = cache.shape
+    """The logical rows of one dense cache [B, T, ...] (values [B, T, H,
+    D] or scales [B, T, H]) laid out in a pool of shuffled pages, as the
+    layer-1 slice of a [2, n_pages, page, ...] pool (page 0 is the null
+    page; unused rows hold noise), and the [B, ceil(T / page)] int32
+    page table that names them."""
+    b, t = cache.shape[:2]
+    rest = tuple(cache.shape[2:])
     n_slots = -(-t // page)
-    pool = torch.randn((2, 1 + b * n_slots, page, h, d), generator=gen,
+    pool = torch.randn((2, 1 + b * n_slots, page) + rest, generator=gen,
                        device=cache.device).to(cache.dtype)
     table = (perm[:b * n_slots] + 1).reshape(b, n_slots).to(torch.int32)
     rows = (table.long()[:, :, None] * page + torch.arange(
         page, device=cache.device)).reshape(b, -1)[:, :t]
-    pool[1].view(-1, h, d)[rows] = cache
+    pool[1].view((-1,) + rest)[rows] = cache
     return pool[1], table
 
 
@@ -435,6 +440,221 @@ def phase_paged_chunk_kernels(torch, timer, dsets, dense_row):
         plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
         flash_decode_ms=dense_row["ms"],
         yardstick_sdpa_dense_ms=dense_row["library_ms"])
+    return rows
+
+
+def phase_int8_kernels(torch, timer):
+    """The int8 modes at the serving shapes, q in bf16, caches quantized
+    by ``quantize_kv`` from normal draws and held as layer slices: each
+    against its plain version, the paged mode BITWISE equal to the dense
+    one at page 128 and 48, the chunk mode also in fp32; all timed. The
+    library yardstick is SDPA over the dequantized bf16 cache of the same
+    content (the dequantization not timed)."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.generation.kv_cache import quantize_kv
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cpu_gen = torch.Generator().manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    h, d = 12, 64
+    rows = {}
+
+    def int8_cache(b, t, hk):
+        """int8 k, v [b, t, hk, d] and bf16 scales [b, t, hk], each the
+        layer-1 slice of a two-layer cache."""
+        out = []
+        for _ in range(2):
+            vals = torch.empty((2, b, t, hk, d), dtype=torch.int8,
+                               device=dev)
+            scales = torch.empty((2, b, t, hk), dtype=bf16, device=dev)
+            vals[1], scales[1], _ = quantize_kv(torch.randn(
+                (b, t, hk, d), generator=gen, device=dev))
+            out.append((vals[1], scales[1]))
+        (k, ks), (v, vs) = out
+        return k, v, ks, vs
+
+    def dequant(c, sc):
+        return (c.float() * sc.float()[..., None]).to(bf16).transpose(1, 2)
+
+    def decode(q, k, v, ks, vs, kv):
+        return fa.flash_attention_decode(q, k, v, kv, k_scale=ks, v_scale=vs)
+
+    def decode_plain(q, k, v, ks, vs, kv):
+        return fa.flash_attention_decode_plain(q, k, v, kv, k_scale=ks,
+                                               v_scale=vs)
+
+    # -- decode: one decode step of the 8-slot engine (cache 640)
+    B, T = 8, 640
+    kv = torch.tensor([1, 1, 17, 200, 333, 512, 577, 640],
+                      dtype=torch.int32, device=dev)
+    dsets = [(torch.randn((B, 1, h, d), generator=gen, device=dev).to(bf16),
+              *int8_cache(B, T, h), kv) for _ in range(8)]
+    out, ref = decode(*dsets[0]), decode_plain(*dsets[0])
+    torch.cuda.synchronize()
+    err, n_bad = _err(out, ref)
+    say("kernel_check", kernel="flash_decode_int8", shape=[B, T, h, d], sq=1,
+        kv_len=kv.tolist(), max_abs_err=err,
+        tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad)
+    if n_bad:
+        fail("flash_decode_int8 disagrees with its plain version")
+    ms = timer.ms(decode, dsets)
+    plain_ms = timer.ms(decode_plain, dsets)
+    cols = torch.arange(T, device=dev)
+    mask = (cols[None, :] < kv[:, None].long())[:, None, None, :]
+    lib_sets = [(st[0].transpose(1, 2), dequant(st[1], st[3]),
+                 dequant(st[2], st[4])) for st in dsets]
+    lib_ms = timer.ms(lambda q, k, v: TF.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), lib_sets)
+    del lib_sets
+    n_kv = int(kv.sum())
+    # int8 K/V and their bf16 scales over the valid prefix, q and o in
+    # bf16, kv_len
+    n_bytes = 2 * n_kv * h * d + 2 * n_kv * h * 2 + 2 * B * h * d * 2 + B * 4
+    bms, by = bound_ms(n_bytes, 4 * n_kv * h * d)
+    rows["flash_decode_int8"] = dict(
+        name="flash_decode_int8", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_decode.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:942",
+        shape="q [8,1,12,64] bf16, int8 cache [8,640,12,64] with bf16 "
+              "scales [8,640,12], ragged kv_len",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms,
+        library_note="scaled_dot_product_attention with a length mask over "
+                     "the dequantized bf16 cache (dequantization not timed)")
+
+    # -- paged: the decode check's content in a 41-page pool of 128 (and
+    # 48), scale pages through the same shuffled table
+    def paged_of(st, page):
+        perm = torch.randperm(B * -(-T // page), generator=cpu_gen).to(dev)
+        (kp, table), (vp, _), (ksp, _), (vsp, _) = (
+            _pool_of(torch, gen, c, page, perm) for c in st[1:5])
+        return st[0], kp, vp, ksp, vsp, table, st[5]
+
+    def paged(q, kp, vp, ksp, vsp, table, kv):
+        return fa.flash_attention_decode_paged(q, kp, vp, table, kv,
+                                               k_scale=ksp, v_scale=vsp)
+
+    def paged_plain(q, kp, vp, ksp, vsp, table, kv):
+        return fa.flash_attention_decode_paged_plain(
+            q, kp, vp, table, kv, k_scale=ksp, v_scale=vsp)
+
+    for page in (128, 48):
+        pst = paged_of(dsets[0], page)
+        out, ref = paged(*pst), paged_plain(*pst)
+        dense = decode(*dsets[0])
+        torch.cuda.synchronize()
+        err, n_bad = _err(out, ref)
+        bitwise = bool(torch.equal(out, dense))
+        say("kernel_check", kernel="flash_decode_paged_int8", page=page,
+            pool=list(pst[1].shape), scale_pool=list(pst[3].shape),
+            table=list(pst[5].shape), kv_len=kv.tolist(), max_abs_err=err,
+            tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad,
+            bitwise_equal_to_flash_decode_int8=bitwise)
+        if n_bad:
+            fail(f"flash_decode_paged_int8 disagrees with its plain version "
+                 f"at page {page}")
+        if not bitwise:
+            fail(f"flash_decode_paged_int8 differs from flash_decode_int8 at "
+                 f"page {page}")
+        if page == 128:
+            paged_err = err
+    psets = [paged_of(st, 128) for st in dsets]
+    pms = timer.ms(paged, psets)
+    pplain_ms = timer.ms(paged_plain, psets)
+    del psets
+    pages_read = int(((kv + 127) // 128).sum())
+    pbms, pby = bound_ms(n_bytes + pages_read * 4, 4 * n_kv * h * d)
+    rows["flash_decode_paged_int8"] = dict(
+        name="flash_decode_paged_int8", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_decode_paged.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:1323",
+        shape="q [8,1,12,64] bf16, int8 pool [41,128,12,64] with bf16 "
+              "scales [41,128,12] through a shuffled [8,5] table, ragged "
+              "kv_len",
+        max_abs_err=paged_err, ms=pms, plain_ms=pplain_ms, bound_ms=pbms,
+        bound_by=pby, library_ms=None,
+        library_note="none: no PyTorch call takes a page table",
+        yardstick_sdpa_dense_dequantized_ms=lib_ms,
+        flash_decode_int8_ms=ms)
+    del dsets
+
+    # -- chunk: a 128-token chunk against the batch-1 int8 side cache at
+    # the 2nd and 4th chunks of a 500-token prompt; one GQA window
+    def chunk_inputs(sq, hq, hk, kv_len, dtype):
+        q = torch.randn((1, sq, hq, d), generator=gen, device=dev).to(dtype)
+        return (q, *int8_cache(1, 640, hk),
+                torch.tensor([kv_len], dtype=torch.int32, device=dev))
+
+    def chunk(q, k, v, ks, vs, kv):
+        return fa.flash_attention_chunk(q, k, v, kv, k_scale=ks, v_scale=vs)
+
+    def chunk_plain(q, k, v, ks, vs, kv):
+        return fa.flash_attention_chunk_plain(q, k, v, kv, k_scale=ks,
+                                              v_scale=vs)
+
+    worst = 0.0
+    for dtype, sq, hq, hk, kv_len in (
+            (bf16, 128, 12, 12, 256), (bf16, 128, 12, 12, 512),
+            (bf16, 200, 12, 4, 450), (torch.float32, 128, 12, 12, 512),
+            (torch.float32, 200, 12, 4, 450)):
+        args = chunk_inputs(sq, hq, hk, kv_len, dtype)
+        out, ref = chunk(*args), chunk_plain(*args)
+        torch.cuda.synchronize()
+        if dtype is torch.float32:
+            err, n_bad = _err(out, ref, F32_ATOL, F32_RTOL)
+            tol = f"{F32_ATOL}+{F32_RTOL}*|plain|"
+        else:
+            err, n_bad = _err(out, ref)
+            tol = f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|"
+            worst = max(worst, err)
+        say("kernel_check", kernel="flash_chunk_int8",
+            dtype=str(dtype).split(".")[-1], q=[1, sq, hq, d],
+            cache=[1, 640, hk, d], kv_len=kv_len, max_abs_err=err, tol=tol,
+            out_of_tol=n_bad)
+        if n_bad:
+            fail(f"flash_chunk_int8 disagrees with its plain version at "
+                 f"sq={sq} kv_len={kv_len} {dtype}")
+    times = {}
+    for kv_len in (256, 512):
+        csets = [chunk_inputs(128, 12, 12, kv_len, bf16) for _ in range(8)]
+        cols = torch.arange(640, device=dev)
+        rws = torch.arange(128, device=dev)
+        cmask = cols[None, :] <= kv_len - 128 + rws[:, None]    # [128, 640]
+        lib_sets = [(st[0].transpose(1, 2), dequant(st[1], st[3]),
+                     dequant(st[2], st[4])) for st in csets]
+        pairs = sum(kv_len - 128 + i + 1 for i in range(128))
+        c_bytes = 2 * 128 * h * d * 2 + 2 * kv_len * h * d \
+            + 2 * kv_len * h * 2 + 4
+        times[kv_len] = dict(
+            ms=timer.ms(chunk, csets), plain_ms=timer.ms(chunk_plain, csets),
+            library_ms=timer.ms(lambda q, k, v: TF.scaled_dot_product_attention(
+                q, k, v, attn_mask=cmask), lib_sets),
+            bound=bound_ms(c_bytes, 4 * pairs * h * d))
+        say("kernel_time", kernel="flash_chunk_int8", kv_len=kv_len,
+            kernel_ms=times[kv_len]["ms"], plain_ms=times[kv_len]["plain_ms"],
+            library_ms=times[kv_len]["library_ms"],
+            bound_ms=times[kv_len]["bound"][0],
+            bound_by=times[kv_len]["bound"][1])
+    t4 = times[512]
+    rows["flash_chunk_int8"] = dict(
+        name="flash_chunk_int8", route="cuda",
+        source="paddle_tpu_torch/csrc/flash_decode.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:1163",
+        shape="q [1,128,12,64] bf16 against an int8 [1,640,12,64] side cache "
+              "with bf16 scales at kv_len 512",
+        max_abs_err=worst, ms=t4["ms"], plain_ms=t4["plain_ms"],
+        bound_ms=t4["bound"][0], bound_by=t4["bound"][1],
+        library_ms=t4["library_ms"],
+        library_note="scaled_dot_product_attention with a boolean mask over "
+                     "the dequantized bf16 cache (dequantization not timed)",
+        at_kv_len_256={k: (v if k != "bound" else v[0])
+                       for k, v in times[256].items()})
+    for name in ("flash_decode_int8", "flash_decode_paged_int8"):
+        r = rows[name]
+        say("kernel_time", kernel=name, kernel_ms=r["ms"],
+            plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"])
     return rows
 
 
@@ -618,75 +838,163 @@ def phase_model(torch):
     return model
 
 
-def phase_serve(torch, model, decode_ms):
-    """16 requests through ServingEngine: every request completes with
-    its budget, both kernels ran, no plain version ran."""
-    from paddle_tpu_torch.generation.api import GenerationConfig
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
-                                          ServingEngine)
-    engine = ServingEngine(_serve_config(model))
+def _serve_prompts(model):
+    """16 prompts with lengths drawn from 16..500 (seed 1)."""
     rng = np.random.RandomState(SEED + 1)
     vocab = model.cfg.vocab_size
-    lens = rng.randint(16, 501, 16)
-    prompts = [rng.randint(0, vocab, n) for n in lens]
+    return [rng.randint(0, vocab, n) for n in rng.randint(16, 501, 16)]
+
+
+def _serve_config(model, **serving):
+    from paddle_tpu_torch.inference import Config
+    return (Config().from_layer(model).enable_use_gpu("bfloat16")
+            .enable_generation(max_new_tokens=64, prefill_buckets=(128, 512),
+                               max_batch=8)
+            .enable_serving(max_queue=64, poll_every=4, **serving))
+
+
+def _counts(fa):
+    """Launches by kernel (wide and int8 modes apart) and the plain
+    versions' calls, since the last ``reset_counts``."""
+    decode_shaped = {"flash_decode": fa.flash_attention_decode,
+                     "flash_decode_paged": fa.flash_attention_decode_paged,
+                     "flash_chunk": fa.flash_attention_chunk}
+    launches = {"flash_fwd": fa.flash_attention.launches}
+    for name, fn in decode_shaped.items():
+        launches[name] = fn.launches
+    for name, fn in decode_shaped.items():
+        launches[name + "_int8"] = fn.launches_int8
+    plain = fa.flash_attention_plain.calls
+    for fn in (fa.flash_attention_decode_plain,
+               fa.flash_attention_decode_paged_plain,
+               fa.flash_attention_chunk_plain):
+        plain += fn.calls + fn.calls_int8
+    return launches, plain
+
+
+def _serve(torch, engine, work):
+    """Serve every (prompt, params) list in ``work`` through ``engine``
+    with the launch counters zeroed first; returns (handles, wall
+    seconds, launches, plain calls)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
     torch.cuda.synchronize()
     fa.reset_counts()
     t0 = time.perf_counter()
-    handles = engine.serve_forever(
-        (p, RequestParams(max_new_tokens=64)) for p in prompts)
+    handles = []
+    for items in work:
+        handles += engine.serve_forever(items)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain_calls = _counts(fa)
+    return (handles, wall) + _counts(fa)
+
+
+def _check_served(engine, handles, wall, launches, plain_calls, ran, what,
+                  **fields):
+    """Print the phase line (throughput, latencies, launches, plain calls,
+    int8 clips, cache MB) and fail unless every request completed with
+    its 64 tokens, exactly the kernels in ``ran`` decoded (flash_fwd may
+    run beside them), no plain version ran and no int8 value saturated."""
+    from paddle_tpu_torch.serving import RequestStatus
     done = [h for h in handles if h.status is RequestStatus.COMPLETED
             and h.tokens is not None and h.tokens.size == 64]
-    ttft = [h.ttft for h in handles]
-    tpot = [h.per_token_latency for h in handles]
-    steps = engine.stats["decode_steps"]
-    say("serve", requests=len(handles), completed=len(done),
-        prompt_lens=lens.tolist(), new_tokens=64, wall_s=wall,
+    clips = getattr(engine._cache, "clips", None)
+    clips = None if clips is None else int(clips)
+    say(what, requests=len(handles), completed=len(done),
+        kv_cache_dtype=engine.cache_dtype, wall_s=wall,
         tokens_per_s=len(done) * 64 / wall,
-        p50_ttft_ms=float(np.median(ttft)) * 1e3,
-        p50_per_token_ms=float(np.median(tpot)) * 1e3,
-        decode_steps=steps, launches=launches,
-        decode_launches_per_step=launches["flash_decode"] / max(steps, 1),
-        prefill_launches_per_admission=launches["flash_fwd"]
-        / max(engine.stats["prefills"], 1),
-        plain_calls=plain_calls, stats=engine.stats)
-    if len(done) != 16:
-        fail(f"{16 - len(done)} of 16 requests did not complete with "
-             "their full budget")
-    if min(launches["flash_fwd"], launches["flash_decode"]) == 0 or \
-            launches["flash_decode_paged"] or launches["flash_chunk"]:
-        fail(f"serving path launches {launches}")
+        p50_ttft_ms=float(np.median([h.ttft for h in handles])) * 1e3,
+        p50_per_token_ms=float(np.median([h.per_token_latency
+                                          for h in handles])) * 1e3,
+        decode_steps=engine.stats["decode_steps"], launches=launches,
+        plain_calls=plain_calls, clips=clips, cache_mb=_cache_mb(engine),
+        stats=engine.stats, **fields)
+    if len(done) != len(handles):
+        fail(f"{what}: {len(handles) - len(done)} of {len(handles)} "
+             "requests did not complete with their full budget")
+    bad = [k for k, n in launches.items()
+           if (k in ran and n == 0) or (k not in ran and k != "flash_fwd"
+                                        and n)]
+    if bad or launches["flash_fwd"] == 0:
+        fail(f"{what} launches {launches}")
     if plain_calls:
-        fail(f"plain versions ran {plain_calls} times on the serving path")
+        fail(f"plain versions ran {plain_calls} times on the {what} path")
+    if clips:
+        fail(f"{what}: {clips} int8 values saturated (absmax scales never "
+             "do)")
+
+
+def _cache_mb(engine):
+    """The engine cache's bytes in MB (host arithmetic over its shapes):
+    the values, the int8 scales, and the values at the model's width."""
+    c = engine._cache
+    width = next(engine.network.parameters()).element_size()
+    mb = dict(values=2 * c.k.numel() * c.k.element_size() / 1e6,
+              wide_values=2 * c.k.numel() * width / 1e6)
+    if getattr(c, "k_scale", None) is not None:
+        mb["scales"] = 2 * c.k_scale.numel() * c.k_scale.element_size() / 1e6
+    return mb
+
+
+def phase_serve(torch, model, prompts, decode_ms, kv_cache_dtype=None):
+    """The 16 requests through ServingEngine on its dense cache (full
+    width, or int8): every request completes with its budget, its first
+    token equals a batch-1 prefill of the same bucket-padded prompt, the
+    first 8 streams equal sequential batch-1 ``generate`` bit for bit,
+    12 decode launches a step in the cache's mode and no other
+    decode-shaped kernel, no plain version; then a decode-step
+    profile."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.generation.api import GenerationConfig
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    sfx = "" if kv_cache_dtype is None else "_" + kv_cache_dtype
+    engine = ServingEngine(_serve_config(model,
+                                         kv_cache_dtype=kv_cache_dtype))
+    handles, wall, launches, plain_calls = _serve(
+        torch, engine, [[(p, RequestParams(max_new_tokens=64))
+                         for p in prompts]])
+    steps = engine.stats["decode_steps"]
     # the first token of every request must equal a batch-1 greedy
-    # prefill of the same bucket-padded prompt (same shapes, same
-    # kernels: bitwise)
-    sess = engine._session
-    mismatch = 0
-    for p, h in zip(prompts, handles):
+    # prefill of the same bucket-padded prompt, and a whole stream that
+    # of a batch-1 generate (same shapes, same kernels: bitwise)
+    first, sequential = 0, []
+    for i, (p, h) in enumerate(zip(prompts, handles)):
         bucket = next(bk for bk in engine.buckets if bk >= p.size)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :p.size] = p
-        tok, _, _ = sess.prefill(
+        tok, _, _ = engine._session.prefill(
             torch.as_tensor(ids, device=engine.device),
             torch.tensor([p.size], device=engine.device),
             GenerationConfig(), engine.max_len)
-        mismatch += int(tok.item() != int(h.tokens[0]))
-    say("serve_check", first_token_mismatches=mismatch)
-    if mismatch:
-        fail(f"{mismatch} first tokens differ from batch-1 prefill")
-
-    _decode_step_profile(torch, engine, prompts[8:], decode_ms, "dense")
-    return launches, prompts, handles
+        first += int(tok.item() != int(h.tokens[0]))
+        if i < 8:
+            ref = generate(model, ids, 64, prompt_len=[p.size],
+                           cache_max_len=engine.max_len,
+                           kv_cache_dtype=kv_cache_dtype).cpu().numpy()[0]
+            if not np.array_equal(ref, h.tokens):
+                sequential.append(dict(request=i, first_differing_token=int(
+                    np.argmax(ref != h.tokens))))
+    decode = "flash_decode" + sfx
+    _check_served(engine, handles, wall, launches, plain_calls, (decode,),
+                  "serve" + sfx, prompt_lens=[int(p.size) for p in prompts],
+                  decode_launches_per_step=launches[decode] / max(steps, 1),
+                  first_token_mismatches=first,
+                  streams_differing_from_sequential_generate=sequential)
+    if launches[decode] != 12 * steps or \
+            launches["flash_fwd"] != 12 * engine.stats["prefills"]:
+        fail(f"serve{sfx}: launches {launches} for {steps} decode steps")
+    if first:
+        fail(f"{first} first tokens differ from batch-1 prefill")
+    if sequential:
+        fail(f"streams differ from sequential generate: {sequential}")
+    _decode_step_profile(torch, engine, prompts[8:], decode_ms,
+                         "dense" + sfx)
+    return launches, handles
 
 
 def _decode_step_profile(torch, engine, prompts, attention_ms, cache):
     """Where a decode step's time goes, all 8 slots live: the wall time
-    of a step (the host issues ~500 launches, so the spin-kernel timer
-    does not apply) against the device time its kernels take."""
+    of a step (the host issues 500-1000 launches, so the spin-kernel
+    timer does not apply) against the device time its kernels take."""
     from paddle_tpu_torch.serving import RequestParams
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
@@ -722,117 +1030,79 @@ def _decode_step_profile(torch, engine, prompts, attention_ms, cache):
         engine.step()
 
 
-def _serve_config(model, **serving):
-    from paddle_tpu_torch.inference import Config
-    return (Config().from_layer(model).enable_use_gpu("bfloat16")
-            .enable_generation(max_new_tokens=64, prefill_buckets=(128, 512),
-                               max_batch=8)
-            .enable_serving(max_queue=64, poll_every=4, **serving))
-
-
-def _counts(fa):
-    launches = {"flash_fwd": fa.flash_attention.launches,
-                "flash_decode": fa.flash_attention_decode.launches,
-                "flash_decode_paged": fa.flash_attention_decode_paged.launches,
-                "flash_chunk": fa.flash_attention_chunk.launches}
-    plain = (fa.flash_attention_plain.calls
-             + fa.flash_attention_decode_plain.calls
-             + fa.flash_attention_decode_paged_plain.calls
-             + fa.flash_attention_chunk_plain.calls)
-    return launches, plain
-
-
-def phase_serve_paged(torch, model, prompts, dense_handles, paged_ms):
-    """The engine on a paged cache (page 128, default pool): the 16
-    prompts of the dense serve run, then 8 requests that share a
-    256-token prefix (two full pages) with total lengths 300-500, all in
-    bucket 512. Every token stream equals the dense engine's; prefix
-    pages are shared; pages are conserved; every decode step runs 12
-    paged decode launches and no dense decode or plain version."""
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
-                                          ServingEngine)
-    engine = ServingEngine(_serve_config(model, paged=True,
-                                         kv_page_size=128))
+def phase_serve_paged(torch, model, prompts, dense_handles, paged_ms,
+                      kv_cache_dtype=None):
+    """The engine on a paged cache (page 128, default pool; full width or
+    int8): the 16 prompts of the dense serve run, then 8 requests that
+    share a 256-token prefix (two full pages) with total lengths 300-500,
+    all in bucket 512. Every token stream equals the dense engine's of
+    the same cache dtype; prefix pages are shared; pages are conserved,
+    none in use after the drain; every decode step runs 12 paged decode
+    launches in the cache's mode and nothing else decode-shaped."""
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    sfx = "" if kv_cache_dtype is None else "_" + kv_cache_dtype
+    engine = ServingEngine(_serve_config(model, paged=True, kv_page_size=128,
+                                         kv_cache_dtype=kv_cache_dtype))
     rng = np.random.RandomState(SEED + 4)
     vocab = model.cfg.vocab_size
     prefix = rng.randint(0, vocab, 256)
     shared = [np.r_[prefix, rng.randint(0, vocab, n - 256)]
               for n in rng.randint(300, 501, 8)]
     params = RequestParams(max_new_tokens=64)
-    torch.cuda.synchronize()
-    fa.reset_counts()
-    t0 = time.perf_counter()
-    handles = engine.serve_forever((p, params) for p in prompts)
-    handles += engine.serve_forever((p, params) for p in shared)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = _counts(fa)
+    handles, wall, launches, plain_calls = _serve(
+        torch, engine, [[(p, params) for p in prompts],
+                        [(p, params) for p in shared]])
     steps, prefills = engine.stats["decode_steps"], engine.stats["prefills"]
-    dense = ServingEngine(_serve_config(model))
-    dense_shared = dense.serve_forever((p, params) for p in shared)
-    reference = list(dense_handles) + dense_shared
+    dense = ServingEngine(_serve_config(model, kv_cache_dtype=kv_cache_dtype))
+    reference = list(dense_handles) + dense.serve_forever(
+        (p, params) for p in shared)
     mismatch = sum(not np.array_equal(h.tokens, r.tokens)
                    for h, r in zip(handles, reference))
-    done = [h for h in handles if h.status is RequestStatus.COMPLETED
-            and h.tokens is not None and h.tokens.size == 64]
     engine._alloc.assert_conserved()
     stats = dict(engine._alloc.stats)
-    say("serve_paged", requests=len(handles), completed=len(done),
-        page_size=engine.page_size, pool_pages=engine._alloc.n_pages,
-        shared_prefix_lens=[int(p.size) for p in shared], wall_s=wall,
-        tokens_per_s=len(done) * 64 / wall, decode_steps=steps,
-        launches=launches,
-        paged_launches_per_step=launches["flash_decode_paged"]
-        / max(steps, 1), plain_calls=plain_calls,
-        token_streams_differing_from_dense=mismatch, allocator=stats,
-        pages_in_use_after_drain=engine._alloc.used_pages(),
-        stats=engine.stats)
-    if len(done) != len(handles):
-        fail(f"{len(handles) - len(done)} paged requests did not complete")
+    paged = "flash_decode_paged" + sfx
+    _check_served(engine, handles, wall, launches, plain_calls, (paged,),
+                  "serve" + sfx + "_paged", page_size=engine.page_size,
+                  pool_pages=engine._alloc.n_pages,
+                  shared_prefix_lens=[int(p.size) for p in shared],
+                  paged_launches_per_step=launches[paged] / max(steps, 1),
+                  token_streams_differing_from_dense=mismatch,
+                  allocator=stats,
+                  pages_in_use_after_drain=engine._alloc.used_pages())
     if mismatch:
         fail(f"{mismatch} paged token streams differ from the dense engine")
-    if stats["prefix_hits"] < 1:
-        fail("no prefix hit on the shared-prefix traffic")
-    if launches["flash_decode_paged"] != 12 * steps or \
-            launches["flash_decode"] or launches["flash_fwd"] != 12 * prefills:
+    if stats["prefix_hits"] < 1 or engine._alloc.used_pages():
+        fail(f"paged allocator {stats}, {engine._alloc.used_pages()} pages "
+             "in use after the drain")
+    if launches[paged] != 12 * steps or launches["flash_fwd"] != 12 * prefills:
         fail(f"paged serve launches {launches} for {steps} decode steps and "
              f"{prefills} prefills")
-    if plain_calls:
-        fail(f"plain versions ran {plain_calls} times on the paged path")
-    _decode_step_profile(torch, engine, prompts[8:], paged_ms, "paged")
+    _decode_step_profile(torch, engine, prompts[8:], paged_ms, "paged" + sfx)
     engine._alloc.assert_conserved()
     return launches
 
 
-def phase_serve_chunked(torch, model, prompts):
-    """The paged engine with prefill_chunk_tokens=128 on the 16 prompts:
-    all complete; prompts of 128 tokens or less prefill inline through
-    flash_fwd, longer ones chunk by chunk through flash_chunk (12
-    launches a chunk, the final chunk included); no plain version; pages
-    conserved. Then, for 4 prompts longer than 128, the logits at the
-    last prompt position of a chunked prefill against those of the
-    inline bucket prefill."""
+def phase_serve_chunked(torch, model, prompts, kv_cache_dtype=None):
+    """The paged engine with prefill_chunk_tokens=128 on the 16 prompts
+    (full width or int8): all complete; prompts of 128 tokens or less
+    prefill inline through flash_fwd, longer ones chunk by chunk through
+    the chunk kernel in the cache's mode (12 launches a chunk, the final
+    chunk included); no plain version; pages conserved. Then, for 4
+    prompts longer than 128, the logits at the last prompt position of a
+    chunked prefill against those of the inline bucket prefill."""
     from paddle_tpu_torch.generation.kv_cache import KVCache
-    from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
-                                          ServingEngine)
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    sfx = "" if kv_cache_dtype is None else "_" + kv_cache_dtype
     C = 128
     engine = ServingEngine(_serve_config(model, paged=True, kv_page_size=128,
-                                         prefill_chunk_tokens=C))
+                                         prefill_chunk_tokens=C,
+                                         kv_cache_dtype=kv_cache_dtype))
     params = RequestParams(max_new_tokens=64)
-    torch.cuda.synchronize()
-    fa.reset_counts()
-    t0 = time.perf_counter()
-    handles = engine.serve_forever((p, params) for p in prompts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = _counts(fa)
+    handles, wall, launches, plain_calls = _serve(
+        torch, engine, [[(p, params) for p in prompts]])
     chunks = engine.stats["prefill_chunks"]
     n_short = sum(int(p.size <= C) for p in prompts)
     expect_chunks = sum(-(-int(p.size) // C) for p in prompts if p.size > C)
-    done = [h for h in handles if h.status is RequestStatus.COMPLETED
-            and h.tokens is not None and h.tokens.size == 64]
     engine._alloc.assert_conserved()
 
     # chunked against inline prefill, at the model, for 4 long prompts
@@ -846,39 +1116,106 @@ def phase_serve_chunked(torch, model, prompts):
             ids_t = torch.as_tensor(ids, device=dev)
             plen = torch.tensor([p.size], device=dev)
             inline, _ = model(ids_t, use_cache=True, prompt_len=plen,
-                              cache_max_len=engine.max_len)
+                              cache_max_len=engine.max_len,
+                              cache_dtype=kv_cache_dtype)
             mc = model.cfg
             cache = KVCache.create(mc.num_layers, 1, engine.max_len,
                                    mc.num_heads,
                                    mc.hidden_size // mc.num_heads,
-                                   dtype=inline.dtype, device=dev)
+                                   dtype=inline.dtype, device=dev,
+                                   cache_dtype=kv_cache_dtype)
             for k in range(n):
                 kw = dict(prompt_len=plen) if k == n - 1 else {}
                 chunked, cache = model(ids_t[:, k * C:(k + 1) * C],
                                        cache=cache, **kw)
             diffs.append(float((chunked.float() - inline.float())
                                .abs().max()))
-    say("serve_chunked", requests=len(handles), completed=len(done),
-        chunk_tokens=C, wall_s=wall, tokens_per_s=len(done) * 64 / wall,
-        inline_prompts=n_short, prefill_chunks=chunks,
-        expected_chunks=expect_chunks, launches=launches,
-        plain_calls=plain_calls,
-        p50_ttft_ms=float(np.median([h.ttft for h in handles])) * 1e3,
-        chunked_vs_inline_max_logit_diff=diffs, tol=LOGIT_TOL,
-        stats=engine.stats)
-    if len(done) != len(handles):
-        fail(f"{len(handles) - len(done)} chunked requests did not complete")
-    if chunks != expect_chunks or launches["flash_chunk"] != 12 * chunks:
+    chunk = "flash_chunk" + sfx
+    _check_served(engine, handles, wall, launches, plain_calls,
+                  (chunk, "flash_decode_paged" + sfx),
+                  "serve" + sfx + "_chunked",
+                  chunk_tokens=C, inline_prompts=n_short,
+                  prefill_chunks=chunks, expected_chunks=expect_chunks,
+                  pages_in_use_after_drain=engine._alloc.used_pages(),
+                  chunked_vs_inline_max_logit_diff=diffs, tol=LOGIT_TOL)
+    if chunks != expect_chunks or launches[chunk] != 12 * chunks:
         fail(f"chunked serve: {chunks} chunks (expected {expect_chunks}), "
-             f"flash_chunk launches {launches['flash_chunk']}")
-    if launches["flash_fwd"] != 12 * n_short or launches["flash_decode"]:
+             f"{chunk} launches {launches[chunk]}")
+    if launches["flash_fwd"] != 12 * n_short:
         fail(f"chunked serve launches {launches} with {n_short} inline "
              "prompts")
-    if plain_calls:
-        fail(f"plain versions ran {plain_calls} times on the chunked path")
+    if engine._alloc.used_pages():
+        fail("chunked serve left pages in use after the drain")
     if len(diffs) != 4 or max(diffs) > LOGIT_TOL:
         fail(f"chunked and inline prefill logits differ by {diffs}")
     return launches
+
+
+def phase_int8_logits(torch, model):
+    """At one 500-token prompt (bucket 512, cache 640): the decode logits
+    over the int8 cache against those over the wide cache, and the
+    chunked-int8 last-position logits against inline-int8's. Each is
+    gated at the JAX package's rule 0.01 * max(1, max|wide|); the wide
+    path's own kernel-against-plain noise at the same point is measured
+    and, where it is of the rule's size (over a tenth of it), added to
+    the gate. Both numbers are printed."""
+    import paddle_tpu_torch.generation.attention as cached_mod
+    import paddle_tpu_torch.nn.functional.attention as sdpa_mod
+    from paddle_tpu_torch.generation.kv_cache import KVCache
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    cfg = model.cfg
+    rng = np.random.RandomState(SEED + 6)
+    ids = np.zeros((1, 512), np.int64)
+    ids[0, :500] = rng.randint(0, cfg.vocab_size, 500)
+    ids = torch.as_tensor(ids, device=dev)
+    plen = torch.tensor([500], device=dev)
+    tok = torch.as_tensor([[rng.randint(cfg.vocab_size)]], device=dev)
+
+    @torch.no_grad()
+    def inline(cache_dtype, decode):
+        logits, cache = model(ids, use_cache=True, prompt_len=plen,
+                              cache_max_len=640, cache_dtype=cache_dtype)
+        if decode:
+            logits, _ = model(tok, cache=cache)
+        return logits.float()
+
+    @torch.no_grad()
+    def chunked(cache_dtype):
+        cache = KVCache.create(cfg.num_layers, 1, 640, cfg.num_heads,
+                               cfg.hidden_size // cfg.num_heads,
+                               dtype=torch.bfloat16, device=dev,
+                               cache_dtype=cache_dtype)
+        for k in range(4):
+            kw = dict(prompt_len=plen) if k == 3 else {}
+            logits, cache = model(ids[:, k * 128:(k + 1) * 128], cache=cache,
+                                  **kw)
+        return logits.float()
+
+    def plain(fn, *args):
+        with mock.patch.object(sdpa_mod, "flash_attention",
+                               fa.flash_attention_plain), \
+                mock.patch.object(cached_mod, "flash_attention_decode",
+                                  fa.flash_attention_decode_plain):
+            return fn(*args)
+
+    def gate(name, out, ref, wide, noise):
+        diff = float((out - ref).abs().max())
+        rule = 0.01 * max(1.0, float(wide.abs().max()))
+        limit = rule + noise if noise > 0.1 * rule else rule
+        say("int8_logits", check=name, max_abs_diff=diff, jax_rule=rule,
+            wide_kernel_vs_plain_noise=noise, gate=limit)
+        if not diff <= limit:
+            fail(f"{name}: logits differ by {diff} > {limit}")
+
+    wide = inline(None, True)
+    gate("decode_int8_vs_wide", inline("int8", True), wide, wide,
+         float((wide - plain(inline, None, True)).abs().max()))
+    wide_last = inline(None, False)
+    inline_int8 = inline("int8", False)
+    gate("chunked_int8_vs_inline_int8", chunked("int8"), inline_int8,
+         inline_int8, float((wide_last - plain(inline, None, False))
+                            .abs().max()))
 
 
 def phase_train(torch):
@@ -1026,19 +1363,27 @@ def main():
     rows.update(phase_paged_chunk_kernels(torch, timer, dsets,
                                           rows["flash_decode"]))
     del dsets
+    rows.update(phase_int8_kernels(torch, timer))
     rows["flash_bwd"], rows["flash_fwd"]["train_shape"] = \
         phase_train_kernels(torch, timer)
     model = phase_model(torch)
-    serve, prompts, handles = phase_serve(torch, model,
-                                          rows["flash_decode"]["ms"])
-    serve_paged = phase_serve_paged(torch, model, prompts, handles,
-                                    rows["flash_decode_paged"]["ms"])
-    serve_chunked = phase_serve_chunked(torch, model, prompts)
+    prompts = _serve_prompts(model)
+    paths = []
+    # the three serving paths on the full-width cache, then on the int8
+    for kv in (None, "int8"):
+        sfx = "" if kv is None else "_" + kv
+        launches, handles = phase_serve(
+            torch, model, prompts, rows["flash_decode" + sfx]["ms"], kv)
+        paths.append(("serve" + sfx, launches))
+        paths.append(("serve" + sfx + "_paged", phase_serve_paged(
+            torch, model, prompts, handles,
+            rows["flash_decode_paged" + sfx]["ms"], kv)))
+        paths.append(("serve" + sfx + "_chunked",
+                      phase_serve_chunked(torch, model, prompts, kv)))
+    phase_int8_logits(torch, model)
     del model
     torch.cuda.empty_cache()
-    train = phase_train(torch)
-    paths = (("serve", serve), ("serve_paged", serve_paged),
-             ("serve_chunked", serve_chunked), ("train", train))
+    paths.append(("train", phase_train(torch)))
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths
                    if name in counts}

@@ -24,6 +24,15 @@
 // whose lim is below 0 never accumulates and writes zeros, as the TPU
 // kernels do for fully masked rows. Columns past n_keys are never read:
 // the tile loader zero-fills them, so masked products are exact zeros.
+//
+// Int8 caches: the key and value rows are int8 with one bf16 scale per
+// column (position) in side arrays, and the dequantisation fuses into
+// the tile, as in the JAX package's _decode_accumulate: the tile's 64
+// key and 64 value scales are staged as fp32 in shared memory, each
+// score column is multiplied by its key scale before the mask
+// (s = (q . k_int8) * k_scale), the softmax normaliser sums the
+// UNSCALED p, and p * v_scale goes into the p @ v product. A wide K/V
+// row never exists anywhere.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +47,9 @@ namespace paddle_flash {
 
 constexpr int kThreads = 128;
 constexpr int kBlockK = 64;
+// fp32 shared floats past Layout::kFloats that an int8 cache's tile
+// scales take (its 64 key scales, then its 64 value scales)
+constexpr int kScaleFloats = 2 * kBlockK;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -46,6 +58,7 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
@@ -115,9 +128,19 @@ __device__ __forceinline__ void unpack16(const uint4& r, float (&out)[8]) {
   }
 }
 
+// 16 int8 values (exact in fp32), sign-extended from each byte.
+__device__ __forceinline__ void unpack16(const uint4& r, float (&out)[16]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[4 * i + j] = (float)((int32_t)(w[i] << (24 - 8 * j)) >> 24);
+}
+
 template <typename T, int VN>
 __device__ __forceinline__ void unpack(const uint4& r, float (&out)[VN]) {
-  if constexpr (VN == 4)
+  if constexpr (VN == 4 || VN == 16)
     unpack16(r, out);
   else
     unpack16<T>(r, out);
@@ -227,19 +250,50 @@ struct Strided {
   }
 };
 
+// The column scales of a wide cache: none.
+struct NoScales {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ float k(int) const { return 1.f; }
+  __device__ __forceinline__ float v(int) const { return 1.f; }
+};
+
+// The column scales of an int8 cache: the bf16 key and value scales of
+// column c at ka(c) and va(c).
+template <typename KA, typename VA>
+struct ColumnScales {
+  static constexpr bool kOn = true;
+  KA ka;
+  VA va;
+  __device__ __forceinline__ float k(int c) const {
+    return __bfloat162float(*ka(c));
+  }
+  __device__ __forceinline__ float v(int c) const {
+    return __bfloat162float(*va(c));
+  }
+};
+
+template <typename KA, typename VA>
+__device__ __forceinline__ ColumnScales<KA, VA> column_scales(KA ka, VA va) {
+  return {ka, va};
+}
+
 // Attend the block's staged queries (smem[kQ...], already scaled) to key
-// columns [0, n_keys), whose key and value rows live at krow(c) and
-// vrow(c) (the head dimension is contiguous; a dense caller passes
-// Strided, the paged decode kernel a page-table lookup). ``vec``: every
-// row address is 16-byte aligned, decided once by the caller. Columns
-// past n_keys are never read: the tile loader zero-fills them. Tiles are
-// kBlockK logical columns in column order whatever the addressing, so
-// two callers that address the same logical rows get the same bits.
-// Leaves the unnormalised output in st.acc and the statistics in st.m /
-// st.l. Every thread of the block must call it with the same n_keys.
-template <typename T, int BQ, int D, typename KRow, typename VRow>
+// columns [0, n_keys), whose key and value rows (of element type KT)
+// live at krow(c) and vrow(c) (the head dimension is contiguous; a dense
+// caller passes Strided, the paged decode kernel a page-table lookup).
+// ``vec``: every row address is 16-byte aligned, decided once by the
+// caller. Columns past n_keys are never read: the tile loader zero-fills
+// them. Tiles are kBlockK logical columns in column order whatever the
+// addressing, so two callers that address the same logical rows get the
+// same bits. An int8 cache passes ColumnScales ``sc`` and kScaleFloats
+// more floats of shared memory past L::kFloats. Leaves the unnormalised
+// output in st.acc and the statistics in st.m / st.l. Every thread of
+// the block must call it with the same n_keys.
+template <typename KT, int BQ, int D, typename KRow, typename VRow,
+          typename Scales = NoScales>
 __device__ void attend(float* smem, KRow krow, VRow vrow, bool vec,
-                       int n_keys, RowState<BQ, D>& st) {
+                       int n_keys, RowState<BQ, D>& st,
+                       Scales sc = Scales{}) {
   using L = Layout<BQ, D>;
   const int tid = threadIdx.x;
   const int cg = tid % L::NCG;
@@ -248,6 +302,8 @@ __device__ void attend(float* smem, KRow krow, VRow vrow, bool vec,
   float* ks = smem + L::kK;
   float* vs = smem + L::kV;
   float* ps = smem + L::kP;
+  float* kscale = smem + L::kFloats;   // int8 cache only
+  float* vscale = kscale + kBlockK;
 
 #pragma unroll
   for (int i = 0; i < L::TR; ++i) {
@@ -257,17 +313,33 @@ __device__ void attend(float* smem, KRow krow, VRow vrow, bool vec,
     for (int j = 0; j < L::TD; ++j) st.acc[i][j] = 0.f;
   }
 
+  static_assert(kBlockK <= kThreads, "one thread per column scale");
   for (int kt = 0; kt < n_keys; kt += kBlockK) {
+    // int8 cache: thread c < kBlockK loads column kt + c's two scales
+    // before the tile's rows, so their latency overlaps the row loads
+    float kcol = 0.f, vcol = 0.f;
+    if constexpr (Scales::kOn) {
+      if (tid < kBlockK && kt + tid < n_keys) {
+        kcol = sc.k(kt + tid);
+        vcol = sc.v(kt + tid);
+      }
+    }
     // stage one K/V tile as fp32 (columns past n_keys zero-filled);
     // reads are coalesced along head_dim
-    stage_rows<T, kBlockK, D>(
-        ks, [&](int c) -> const T* {
+    stage_rows<KT, kBlockK, D>(
+        ks, [&](int c) -> const KT* {
           return kt + c < n_keys ? krow(kt + c) : nullptr;
         },
-        vs, [&](int c) -> const T* {
+        vs, [&](int c) -> const KT* {
           return kt + c < n_keys ? vrow(kt + c) : nullptr;
         },
         1.f, vec);
+    if constexpr (Scales::kOn) {
+      if (tid < kBlockK) {
+        kscale[tid] = kcol;
+        vscale[tid] = vcol;
+      }
+    }
     __syncthreads();
 
     // scores s = q . k for this thread's TR x TC block
@@ -287,6 +359,12 @@ __device__ void attend(float* smem, KRow krow, VRow vrow, bool vec,
       for (int i = 0; i < L::TR; ++i)
 #pragma unroll
         for (int j = 0; j < L::TC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+    if constexpr (Scales::kOn) {   // fused K dequant: scale the columns
+#pragma unroll
+      for (int i = 0; i < L::TR; ++i)
+#pragma unroll
+        for (int j = 0; j < L::TC; ++j) s[i][j] *= kscale[cg + j * L::NCG];
     }
 
     // mask, then the online-softmax update of every owned row
@@ -314,9 +392,12 @@ __device__ void attend(float* smem, KRow krow, VRow vrow, bool vec,
       st.m[i] = mn;
 #pragma unroll
       for (int j = 0; j < L::TD; ++j) st.acc[i][j] *= alpha;
+      // fused V dequant: the softmax weights carry the value scales
+      // (l above summed the unscaled p)
 #pragma unroll
       for (int j = 0; j < L::TC; ++j)
-        ps[(r0 + i) * L::KP + cg + j * L::NCG] = s[i][j];
+        ps[(r0 + i) * L::KP + cg + j * L::NCG] =
+            Scales::kOn ? s[i][j] * vscale[cg + j * L::NCG] : s[i][j];
     }
     __syncthreads();
 

@@ -17,6 +17,14 @@
 // already takes 64-row blocks over blockIdx.y, and each block stops its
 // key stream at its last row's limit.
 //
+// paddle_flash_decode_int8 and paddle_flash_chunk_int8 are the int8
+// modes of the same two TPU kernels (the quant branch of
+// _decode_accumulate, :858-865 and :867-896): an int8 cache with bf16
+// scales [B, T, Hk] per (position, kv head), the QuantKVCache layer
+// slices, read in place; the dequantisation fuses into the tile (see
+// flash_common.cuh). They move half the wide mode's K/V bytes plus 2
+// bytes of scales per (position, head).
+//
 // The cache is read IN PLACE through its strides: the layer slice of
 // the [layers, B, T, Hk, D] cache is handed over as it lies, where the
 // JAX wrapper's swapaxes/reshape to [B*Hk, T, D] would be a full copy of
@@ -40,17 +48,24 @@
 
 namespace {
 
+// ks/vs: null for a wide cache; for an int8 cache the scales, whose
+// strides follow the 12 of q, k, v and o in st.
 int dense(bool chunk, const void* q, const void* k, const void* v,
-          const int* kv_len, void* o, int dtype, int B, int Sq, int Hq,
-          int Hk, int T_len, int D, const int64_t* st, float scale,
-          void* stream) {
+          const void* ks, const void* vs, const int* kv_len, void* o,
+          int dtype, int B, int Sq, int Hq, int Hk, int T_len, int D,
+          const int64_t* st, float scale, void* stream, bool int8_cache) {
   using namespace paddle_flash;
   if ((!chunk && Sq > kMaxQLen) || T_len <= 0) return cudaErrorInvalidValue;
-  const DenseCache cache{k, v, st[3], st[4], st[5], st[6], st[7], st[8],
-                         T_len};
+  DenseCache cache{k, v, st[3], st[4], st[5], st[6], st[7], st[8], T_len};
+  if (int8_cache) {
+    cache.ks = ks;
+    cache.vs = vs;
+    cache.ks_sb = st[12], cache.ks_ss = st[13], cache.ks_sh = st[14];
+    cache.vs_sb = st[15], cache.vs_ss = st[16], cache.vs_sh = st[17];
+  }
   const int64_t qo[6] = {st[0], st[1], st[2], st[9], st[10], st[11]};
-  return dispatch(dtype, D, q, cache, kv_len, o, B, Sq, Hq, Hk, qo, scale,
-                  stream);
+  return dispatch(dtype, int8_cache, D, q, cache, kv_len, o, B, Sq, Hq, Hk,
+                  qo, scale, stream);
 }
 
 }  // namespace
@@ -64,8 +79,8 @@ extern "C" int paddle_flash_decode(const void* q, const void* k,
                                    int dtype, int B, int Sq, int Hq, int Hk,
                                    int T_len, int D, const int64_t* strides,
                                    float scale, void* stream) {
-  return dense(false, q, k, v, kv_len, o, dtype, B, Sq, Hq, Hk, T_len, D,
-               strides, scale, stream);
+  return dense(false, q, k, v, nullptr, nullptr, kv_len, o, dtype, B, Sq,
+               Hq, Hk, T_len, D, strides, scale, stream, false);
 }
 
 // The same arguments; any Sq.
@@ -74,6 +89,28 @@ extern "C" int paddle_flash_chunk(const void* q, const void* k,
                                   int dtype, int B, int Sq, int Hq, int Hk,
                                   int T_len, int D, const int64_t* strides,
                                   float scale, void* stream) {
-  return dense(true, q, k, v, kv_len, o, dtype, B, Sq, Hq, Hk, T_len, D,
-               strides, scale, stream);
+  return dense(true, q, k, v, nullptr, nullptr, kv_len, o, dtype, B, Sq,
+               Hq, Hk, T_len, D, strides, scale, stream, false);
+}
+
+// Int8 cache: k, v int8 [B, T, Hk, D]; k_scale, v_scale bf16 [B, T, Hk];
+// dtype is q's and o's. strides: 18 element strides, the 12 above, then
+// (batch, seq, head) of k_scale and of v_scale.
+extern "C" int paddle_flash_decode_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const int* kv_len, void* o, int dtype, int B,
+    int Sq, int Hq, int Hk, int T_len, int D, const int64_t* strides,
+    float scale, void* stream) {
+  return dense(false, q, k, v, k_scale, v_scale, kv_len, o, dtype, B, Sq,
+               Hq, Hk, T_len, D, strides, scale, stream, true);
+}
+
+// The same arguments; any Sq.
+extern "C" int paddle_flash_chunk_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const int* kv_len, void* o, int dtype, int B,
+    int Sq, int Hq, int Hk, int T_len, int D, const int64_t* strides,
+    float scale, void* stream) {
+  return dense(true, q, k, v, k_scale, v_scale, kv_len, o, dtype, B, Sq,
+               Hq, Hk, T_len, D, strides, scale, stream, true);
 }

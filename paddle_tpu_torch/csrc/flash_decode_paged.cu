@@ -28,7 +28,39 @@
 // order, its output equals paddle_flash_decode's bit for bit on the
 // same logical content, which is what lets the paged serving engine
 // give the dense engine's tokens.
+//
+// paddle_flash_decode_paged_int8 is the int8-pool mode of the same TPU
+// kernel (its scale pages through the same table, :1330-1333): int8
+// pools with bf16 scale pools [n_pages, page, Hk] (QuantPagedKVCache
+// layer slices), read in place through the table entries the block has
+// staged; equal bit for bit to paddle_flash_decode_int8 on the same
+// logical content.
 #include "flash_decode.cuh"
+
+namespace {
+
+int paged(const void* q, const void* k_pool, const void* v_pool,
+          const void* ks, const void* vs, const int* page_table,
+          const int* kv_len, void* o, int dtype, int B, int Sq, int Hq,
+          int Hk, int page, int n_slots, int D, const int64_t* st,
+          float scale, void* stream, bool int8_cache) {
+  using namespace paddle_flash;
+  if (Sq > kMaxQLen || page <= 0 || n_slots <= 0)
+    return cudaErrorInvalidValue;
+  PagedCache cache{k_pool, v_pool, page_table, st[3], st[4], st[5],
+                   st[6], st[7], st[8], st[12], page, n_slots};
+  if (int8_cache) {
+    cache.ks = ks;
+    cache.vs = vs;
+    cache.ks_sp = st[13], cache.ks_sr = st[14], cache.ks_sh = st[15];
+    cache.vs_sp = st[16], cache.vs_sr = st[17], cache.vs_sh = st[18];
+  }
+  const int64_t qo[6] = {st[0], st[1], st[2], st[9], st[10], st[11]};
+  return dispatch(dtype, int8_cache, D, q, cache, kv_len, o, B, Sq, Hq, Hk,
+                  qo, scale, stream);
+}
+
+}  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. k_pool/v_pool: [n_pages,
 // page, Hk, D] (head_dim contiguous). page_table: [B, n_slots] int32 on
@@ -41,12 +73,21 @@ extern "C" int paddle_flash_decode_paged(
     const int* page_table, const int* kv_len, void* o, int dtype, int B,
     int Sq, int Hq, int Hk, int page, int n_slots, int D,
     const int64_t* st, float scale, void* stream) {
-  using namespace paddle_flash;
-  if (Sq > kMaxQLen || page <= 0 || n_slots <= 0)
-    return cudaErrorInvalidValue;
-  const PagedCache cache{k_pool, v_pool, page_table, st[3], st[4], st[5],
-                         st[6], st[7], st[8], st[12], page, n_slots};
-  const int64_t qo[6] = {st[0], st[1], st[2], st[9], st[10], st[11]};
-  return dispatch(dtype, D, q, cache, kv_len, o, B, Sq, Hq, Hk, qo, scale,
-                  stream);
+  return paged(q, k_pool, v_pool, nullptr, nullptr, page_table, kv_len, o,
+               dtype, B, Sq, Hq, Hk, page, n_slots, D, st, scale, stream,
+               false);
+}
+
+// Int8 pools: k_pool, v_pool int8 [n_pages, page, Hk, D]; k_scale,
+// v_scale bf16 [n_pages, page, Hk]; dtype is q's and o's. strides: 19,
+// the 13 above, then (page, row, head) of k_scale and of v_scale.
+extern "C" int paddle_flash_decode_paged_int8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const int* page_table,
+    const int* kv_len, void* o, int dtype, int B, int Sq, int Hq, int Hk,
+    int page, int n_slots, int D, const int64_t* st, float scale,
+    void* stream) {
+  return paged(q, k_pool, v_pool, k_scale, v_scale, page_table, kv_len, o,
+               dtype, B, Sq, Hq, Hk, page, n_slots, D, st, scale, stream,
+               true);
 }

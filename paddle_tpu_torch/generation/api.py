@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .kv_cache import resolve_cache_dtype
 from .sampling import sample
 
 __all__ = ["GenerationConfig", "GenerationSession", "generate"]
@@ -61,11 +62,15 @@ def _expect_logits_cache(out):
 
 
 class GenerationSession:
-    """The (prefill, decode) pair for one network."""
+    """The (prefill, decode) pair for one network. ``cache_dtype``
+    (None = full width, ``"int8"`` = the quantized cache) is what its
+    prefill creates: a session serves exactly one cache dtype."""
 
-    def __init__(self, network):
+    def __init__(self, network, cache_dtype=None):
         network.eval()
         self.network = network
+        self.cache_dtype = resolve_cache_dtype(cache_dtype) \
+            if cache_dtype is not None else None
 
     @property
     def device(self) -> torch.device:
@@ -82,9 +87,11 @@ class GenerationSession:
         ``prompt_len`` [B]); returns (first token [B], cache, finished
         [B])."""
         self._ensure_eval()
+        kw = {} if self.cache_dtype is None \
+            else {"cache_dtype": self.cache_dtype}
         logits, cache = _expect_logits_cache(self.network(
             ids, use_cache=True, prompt_len=prompt_len,
-            cache_max_len=cache_len))
+            cache_max_len=cache_len, **kw))
         tok = sample(logits[:, -1], generator, **cfg.sample_kwargs())
         if cfg.eos_token_id is not None:
             finished = tok == cfg.eos_token_id
@@ -126,7 +133,9 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
              eos_token_id: Optional[int] = None,
              pad_token_id: Optional[int] = None,
              prompt_len=None, cache_max_len: Optional[int] = None,
-             seed: Optional[int] = None) -> torch.Tensor:
+             seed: Optional[int] = None,
+             session: Optional[GenerationSession] = None,
+             kv_cache_dtype=None) -> torch.Tensor:
     """Generate ``max_new_tokens`` tokens after ``input_ids`` on the
     network's device.
 
@@ -139,6 +148,12 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
     exceed the model's ``max_position_embeddings``. Sampling draws from
     a generator seeded with ``seed``, or from the device's default
     generator; greedy decoding draws nothing.
+
+    ``kv_cache_dtype="int8"`` (or ``PADDLE_KV_CACHE_DTYPE=int8``)
+    quantizes the KV cache: int8 values with per-(position, head) bf16
+    scales, dequantized inside the decode kernel (half the cache bytes
+    per step). ``session`` reuses a :class:`GenerationSession`; asking
+    it for another cache dtype than it serves raises.
     """
     ids = _as_int_ids(input_ids)
     b, s = ids.shape
@@ -179,7 +194,18 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
                            top_k=top_k, top_p=top_p,
                            eos_token_id=eos_token_id,
                            pad_token_id=pad_token_id)
-    sess = GenerationSession(network)
+    cache_dtype = resolve_cache_dtype(kv_cache_dtype)
+    if session is not None:
+        if kv_cache_dtype is not None and \
+                session.cache_dtype != kv_cache_dtype:
+            raise ValueError(
+                f"generate(): session serves kv_cache_dtype="
+                f"{session.cache_dtype!r} but {kv_cache_dtype!r} was "
+                "requested; build a session with the matching "
+                "cache_dtype")
+        sess = session
+    else:
+        sess = GenerationSession(network, cache_dtype)
     dev = sess.device
     generator = None
     if cfg.do_sample:

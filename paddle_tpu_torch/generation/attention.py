@@ -5,8 +5,11 @@ attend the cached prefix (decode) or run self-attention over the fresh
 window through the forward kernel (prefill). A decode window goes to
 the paged decode kernel on a paged cache; on a dense cache to the chunk
 kernel when it is longer than ``MAX_DECODE_QLEN`` (a chunked-prefill
-step), else to the decode kernel. The JAX package's int8 branches come
-with a later slice.
+step), else to the decode kernel. On an int8 cache (``QuantKVCache``,
+``QuantPagedKVCache``) the write quantizes, and the layer's scale slices
+ride into the same three kernels, which dequantize inside the tile.
+Prefill attends the fresh wide k/v, so the prompt's own attention never
+sees the quantization, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,23 +27,23 @@ def cached_attention(q, k, v, cache, layer_idx, *, decode: bool,
     [b, s, heads, head_dim]. Decode reads the cached prefix with
     per-row ragged masking at ``kv_len + s``; prefill is ordinary
     self-attention over the fresh window."""
-    if getattr(cache, "k_scale", None) is not None:
-        raise NotImplementedError(
-            "int8 KV cache: not ported yet (ROADMAP A5, B3 int8 mode)")
     cache.update(layer_idx, k, v, cache.kv_len)
     if not decode:
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=causal, training=False)
         return out, cache
     mask_len = cache.kv_len + q.shape[1]    # includes the new rows
+    scales = {} if getattr(cache, "k_scale", None) is None else dict(
+        k_scale=cache.k_scale[layer_idx], v_scale=cache.v_scale[layer_idx])
     if getattr(cache, "page_table", None) is not None:
         out = flash_attention_decode_paged(q, cache.k[layer_idx],
                                            cache.v[layer_idx],
-                                           cache.page_table, mask_len)
+                                           cache.page_table, mask_len,
+                                           **scales)
     elif q.shape[1] > MAX_DECODE_QLEN:
         out = flash_attention_chunk(q, cache.k[layer_idx],
-                                    cache.v[layer_idx], mask_len)
+                                    cache.v[layer_idx], mask_len, **scales)
     else:
         out = flash_attention_decode(q, cache.k[layer_idx],
-                                     cache.v[layer_idx], mask_len)
+                                     cache.v[layer_idx], mask_len, **scales)
     return out, cache

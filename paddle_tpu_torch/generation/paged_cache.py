@@ -1,5 +1,5 @@
 """Block-table paged KV cache with shared-prefix reuse (the JAX
-package's ``generation/paged_cache.py``, full-width pools).
+package's ``generation/paged_cache.py``: full-width and int8 pools).
 
 - **PagedKVCache**: ``k, v`` pools of shape ``[layers, n_pages,
   page_size, heads, head_dim]``, a per-row int32 ``page_table [batch,
@@ -10,6 +10,10 @@ package's ``generation/paged_cache.py``, full-width pools).
   destination page through the table on the device, so no write needs a
   host sync. The paged decode kernel reads a layer's pool slice
   ``k[layer]`` through the table in place.
+- **QuantPagedKVCache**: the int8 pool, with bf16 scale pools
+  ``k_scale``/``v_scale [layers, n_pages, page_size, heads]`` and the
+  ``clips`` counter. The scales live in the page, so prefix sharing,
+  copy-on-write and reclaim carry them with the values.
 - **Page 0 is the reserved null page**: masked install positions,
   out-of-table positions and idle engine lanes (``kv_len == 0``) all
   write there, and nothing reads it unmasked. So a parked slot with a
@@ -32,9 +36,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .kv_cache import KVCache
+from .kv_cache import KVCache, quantize_kv, validate_cache_dtype
 
-__all__ = ["PagedKVCache", "PageAllocator", "AdmissionPlan"]
+__all__ = ["PagedKVCache", "QuantPagedKVCache", "PageAllocator",
+           "AdmissionPlan"]
 
 
 class PagedKVCache:
@@ -80,23 +85,35 @@ class PagedKVCache:
         """Logical per-row capacity (the dense cache's ``max_len``)."""
         return self.pages_per_row * self.page_size
 
+    @property
+    def cache_dtype(self):
+        """The low-bit storage mode (None = full width)."""
+        return None
+
     # ---------------------------------------------------------- creation
     @classmethod
     def create(cls, num_layers: int, batch: int, n_pages: int,
                page_size: int, pages_per_row: int, num_heads: int,
                head_dim: int, dtype=torch.float32, device=None,
                cache_dtype=None) -> "PagedKVCache":
-        if cache_dtype is not None:
-            raise NotImplementedError(
-                f"paged cache_dtype={cache_dtype!r}: the int8 page pool "
-                "(QuantPagedKVCache) is not ported yet (ROADMAP A5, B3 "
-                "int8 mode)")
+        """A zeroed pool; ``cache_dtype="int8"`` gives a
+        :class:`QuantPagedKVCache`."""
         shape = (num_layers, n_pages, page_size, num_heads, head_dim)
+        table = torch.zeros((batch, pages_per_row), dtype=torch.int32,
+                            device=device)
+        kv_len = torch.zeros((batch,), dtype=torch.int32, device=device)
+        if validate_cache_dtype(cache_dtype) is not None:
+            sshape = shape[:-1]
+            return QuantPagedKVCache(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device), table,
+                kv_len,
+                torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+                torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros((batch, pages_per_row), dtype=torch.int32,
-                               device=device),
-                   torch.zeros((batch,), dtype=torch.int32, device=device))
+                   torch.zeros(shape, dtype=dtype, device=device), table,
+                   kv_len)
 
     # ------------------------------------------------------------ update
     def _write_pages(self, pos):
@@ -110,27 +127,32 @@ class PagedKVCache:
         dead = (pos[:, 0:1] == 0) | (slot >= self.pages_per_row)
         return page.masked_fill(dead, 0), pos % self.page_size
 
+    def _update_pages(self, b: int, s: int, pos):
+        """(page, offset) [b, s] destinations of ``s`` writes per row
+        starting at ``pos`` ([batch] int tensor or an int)."""
+        pos = torch.as_tensor(pos, device=self.k.device)
+        if pos.dim() == 0:
+            pos = pos.expand(b)
+        positions = pos.long()[:, None] + \
+            torch.arange(s, device=self.k.device)[None, :]
+        return self._write_pages(positions)
+
     def update(self, layer: int, k_new, v_new, pos) -> "PagedKVCache":
         """Write ``k_new``/``v_new`` ([batch, s, heads, head_dim]) into
         ``layer`` at per-row start position ``pos`` through the page
         table, in place. A live row's ``pos`` (its ``kv_len``) is >= 1,
         so a row writing at position 0 is an idle engine lane and lands
         on the null page. Does NOT advance ``kv_len``."""
-        b, s = k_new.shape[0], k_new.shape[1]
-        pos = torch.as_tensor(pos, device=self.k.device)
-        if pos.dim() == 0:
-            pos = pos.expand(b)
-        positions = pos.long()[:, None] + \
-            torch.arange(s, device=self.k.device)[None, :]
-        page, off = self._write_pages(positions)             # [b, s] each
+        page, off = self._update_pages(k_new.shape[0], k_new.shape[1], pos)
         self.k[layer][page, off] = k_new.to(self.k.dtype)
         self.v[layer][page, off] = v_new.to(self.v.dtype)
         return self
 
-    def _scatter_row(self, src: KVCache, table_row, start):
-        """Scatter positions ``[start, src.kv_len[0])`` of the batch-1
-        dense cache ``src`` into the pool pages named by ``table_row``
-        (every layer); every other position goes to the null page."""
+    def _row_pages(self, src: KVCache, table_row, start):
+        """(table row, page, offset) of every position of the batch-1
+        dense cache ``src``: positions ``[start, src.kv_len[0])`` go to
+        the pool pages named by ``table_row``, every other one to the
+        null page."""
         dev = self.k.device
         table_row = torch.as_tensor(table_row, device=dev).long()
         start = torch.as_tensor(start, device=dev)
@@ -140,7 +162,13 @@ class PagedKVCache:
         valid = (pos >= start) & (pos < src.kv_len[0]) & \
             (page_slot < self.pages_per_row)
         page = torch.where(valid, page, torch.zeros_like(page))
-        off = pos % self.page_size
+        return table_row, page, pos % self.page_size
+
+    def _scatter_row(self, src: KVCache, table_row, start):
+        """Scatter positions ``[start, src.kv_len[0])`` of ``src`` into
+        the pool pages named by ``table_row`` (every layer); returns the
+        table row."""
+        table_row, page, off = self._row_pages(src, table_row, start)
         self.k[:, page, off] = src.k[:, 0].to(self.k.dtype)
         self.v[:, page, off] = src.v[:, 0].to(self.v.dtype)
         return table_row
@@ -202,6 +230,71 @@ class PagedKVCache:
                 f"batch={self.batch}, pages={self.n_pages}x"
                 f"{self.page_size}, per_row={self.pages_per_row}, "
                 f"dtype={self.k.dtype})")
+
+
+class QuantPagedKVCache(PagedKVCache):
+    """Int8 page pool: K/V pages int8 with per-(slot, head) bf16 scales in
+    the scale pools ``k_scale``/``v_scale`` ([layers, n_pages,
+    page_size, heads]) and the 0-d int32 ``clips`` counter. The scales
+    live IN the page, so everything the allocator does at page
+    granularity (prefix sharing, copy-on-write, reclaim) carries them
+    with the values: a shared page dequantizes alike for every sharer,
+    and a copy-on-write page gets values and scales together."""
+
+    __slots__ = ("k_scale", "v_scale", "clips")
+
+    def __init__(self, k, v, page_table, kv_len, k_scale, v_scale,
+                 clips):
+        super().__init__(k, v, page_table, kv_len)
+        self.k_scale = k_scale
+        self.v_scale = v_scale
+        self.clips = clips
+
+    @property
+    def cache_dtype(self):
+        return "int8"
+
+    def update(self, layer: int, k_new, v_new,
+               pos) -> "QuantPagedKVCache":
+        """Quantize the fresh k/v per (token, head) and write int8 values
+        and bf16 scales through the page table, with the wide pool's
+        null-page routing; saturated values add to ``clips``."""
+        page, off = self._update_pages(k_new.shape[0], k_new.shape[1], pos)
+        kq, ks, kc = quantize_kv(k_new)
+        vq, vs, vc = quantize_kv(v_new)
+        self.k[layer][page, off] = kq
+        self.v[layer][page, off] = vq
+        self.k_scale[layer][page, off] = ks
+        self.v_scale[layer][page, off] = vs
+        self.clips += kc + vc
+        return self
+
+    def _scatter_row(self, src, table_row, start):
+        """Scatter a batch-1 :class:`QuantKVCache` row's int8 values AND
+        scales verbatim (no requantization): the installed pages decode
+        bitwise equal to the dense row."""
+        table_row, page, off = self._row_pages(src, table_row, start)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            getattr(self, name)[:, page, off] = getattr(src, name)[:, 0]
+        return table_row
+
+    def install_row(self, src, slot: int, table_row,
+                    start) -> "QuantPagedKVCache":
+        """Slot admission from a batch-1 :class:`QuantKVCache` prefill
+        row (see the wide pool's); ``src.clips`` folds in once. The
+        inherited ``install_span`` does NOT fold it: the final
+        ``install_row`` of a chunked admission adds the side cache's
+        counter once, which per-span folding would count again for
+        every earlier chunk."""
+        super().install_row(src, slot, table_row, start)
+        self.clips += src.clips
+        return self
+
+    def __repr__(self):
+        return (f"QuantPagedKVCache(layers={self.num_layers}, "
+                f"batch={self.batch}, pages={self.n_pages}x"
+                f"{self.page_size}, per_row={self.pages_per_row}, "
+                f"dtype=int8+bf16-scales)")
 
 
 class AdmissionPlan:

@@ -4,12 +4,14 @@ JAX package's ``inference/config.py``: the dense, paged and chunked
 serving paths).
 
 Options of the JAX package that belong to paths not ported yet (int8
-caches and weights, speculation, telemetry, compile cache) are accepted
+and int4 weights, speculation, telemetry, compile cache) are accepted
 by name and raise when set, naming the ROADMAP entry.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+from ..generation.kv_cache import validate_cache_dtype
 
 
 class PrecisionType:
@@ -23,10 +25,8 @@ class PrecisionType:
 _LATER_GENERATION = {
     "speculative": "A5 (speculative decoding)",
     "draft_model": "A5 (speculative decoding)",
-    "kv_cache_dtype": "A5 and B3 int8 mode (QuantKVCache)",
 }
 _LATER_SERVING = {
-    "kv_cache_dtype": "A5 and B3 int8 mode (QuantKVCache)",
     "weight_bits": "A8 (int8/int4 weight paths)",
     "trace_sample": "A7 (observability)",
     "telemetry_port": "A7 (observability)",
@@ -86,24 +86,30 @@ class Config:
                           max_batch: int = 1, do_sample: bool = False,
                           temperature: float = 1.0, top_k: int = 0,
                           top_p: float = 1.0, eos_token_id=None,
-                          pad_token_id=None, **later):
+                          pad_token_id=None, kv_cache_dtype=None, **later):
         """Generation knobs: the token budget, the prompt-length buckets
         prompts are right-padded to, the fixed decode batch, and the
-        sampling configuration."""
+        sampling configuration. ``kv_cache_dtype="int8"`` (or
+        ``PADDLE_KV_CACHE_DTYPE``) quantizes the KV cache of every
+        serving surface built from this config: int8 values with
+        per-(position, head) bf16 scales, dequantized inside the decode
+        kernels (half the cache bytes streamed per token)."""
         _refuse_later("enable_generation", later, _LATER_GENERATION)
+        validate_cache_dtype(kv_cache_dtype)      # eagerly, as JAX does
         self._generation = dict(
             max_new_tokens=int(max_new_tokens),
             prefill_buckets=tuple(sorted(int(b) for b in prefill_buckets)),
             max_batch=int(max_batch), do_sample=bool(do_sample),
             temperature=float(temperature), top_k=int(top_k),
             top_p=float(top_p), eos_token_id=eos_token_id,
-            pad_token_id=pad_token_id)
+            pad_token_id=pad_token_id, kv_cache_dtype=kv_cache_dtype)
         return self
 
     def enable_serving(self, max_queue: int = 64, poll_every: int = 4,
                        default_deadline_s=None, cache_max_len=None,
                        paged: bool = False, kv_page_size=None,
-                       kv_pages=None, prefill_chunk_tokens=None, **later):
+                       kv_pages=None, prefill_chunk_tokens=None,
+                       kv_cache_dtype=None, **later):
         """Continuous-batching knobs for ``serving.ServingEngine``:
         ``max_queue`` bounds admission (submit past it raises
         QueueFull), ``poll_every`` sets the completion-poll cadence in
@@ -120,12 +126,16 @@ class Config:
         pages as well as free slots, and identical prompt prefixes share
         pages. ``prefill_chunk_tokens`` admits prompts longer than that
         many tokens one chunk per scheduler iteration, between decode
-        steps (on a paged engine a multiple of the page size)."""
+        steps (on a paged engine a multiple of the page size).
+        ``kv_cache_dtype="int8"`` quantizes the engine's cache, dense or
+        paged (it wins over the ``enable_generation`` value)."""
         _refuse_later("enable_serving", later, _LATER_SERVING)
+        validate_cache_dtype(kv_cache_dtype)
         self._serving = dict(
             max_queue=int(max_queue), poll_every=int(poll_every),
             default_deadline_s=default_deadline_s,
             cache_max_len=cache_max_len, paged=bool(paged),
             kv_page_size=kv_page_size, kv_pages=kv_pages,
-            prefill_chunk_tokens=prefill_chunk_tokens)
+            prefill_chunk_tokens=prefill_chunk_tokens,
+            kv_cache_dtype=kv_cache_dtype)
         return self

@@ -24,6 +24,16 @@ head_dim]`` for one layer's page pool with ``page_table [batch,
 pages_per_row]`` int32. Inputs are read through their strides (only
 head_dim must be contiguous), so views of a fused qkv projection or a
 layer slice of the cache or pool cost no copy.
+
+The three decode-shaped functions also take an int8 cache or pool
+(``QuantKVCache``, ``QuantPagedKVCache``) with its bf16 ``k_scale`` /
+``v_scale`` ([batch, max_len, kv_heads], or [n_pages, page_size,
+kv_heads] for a pool): the dequantisation fuses into the kernel (the
+key scale multiplies each score column, the value scale each softmax
+weight), so the cache streams at half the bytes and is never widened.
+Their int8 launches and plain calls count under their own names
+(``flash_attention_decode.launches_int8``,
+``flash_attention_decode_plain.calls_int8``).
 """
 from __future__ import annotations
 
@@ -50,11 +60,17 @@ _FWD_SIG = {"paddle_flash_fwd": (_I, (
     ctypes.c_float, _P))}
 _DECODE_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
                 ctypes.c_float, _P)
+# the int8 entries take the two scale pointers after k and v
+_DECODE_INT8_ARGS = _DECODE_ARGS[:3] + (_P, _P) + _DECODE_ARGS[3:]
 _DECODE_SIG = {"paddle_flash_decode": (_I, _DECODE_ARGS),
-               "paddle_flash_chunk": (_I, _DECODE_ARGS)}
-_PAGED_SIG = {"paddle_flash_decode_paged": (_I, (
-    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
-    ctypes.c_float, _P))}
+               "paddle_flash_chunk": (_I, _DECODE_ARGS),
+               "paddle_flash_decode_int8": (_I, _DECODE_INT8_ARGS),
+               "paddle_flash_chunk_int8": (_I, _DECODE_INT8_ARGS)}
+_PAGED_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+               _STRIDES, ctypes.c_float, _P)
+_PAGED_SIG = {"paddle_flash_decode_paged": (_I, _PAGED_ARGS),
+              "paddle_flash_decode_paged_int8": (
+                  _I, _PAGED_ARGS[:3] + (_P, _P) + _PAGED_ARGS[3:])}
 _BWD_SIG = {"paddle_flash_bwd": (_I, (
     _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     _STRIDES, _I, ctypes.c_float, _P))}
@@ -146,14 +162,18 @@ def flash_attention_plain(query, key, value, causal: bool = False,
 flash_attention_plain.calls = 0
 
 
-def _softmax_pv(s, value, pv_eq):
+def _softmax_pv(s, value, pv_eq, v_scale=None):
     """fp32 softmax of masked scores (-inf = masked) times V; rows with
-    no visible column give zeros."""
+    no visible column give zeros. ``v_scale`` (broadcast against the
+    softmax weights, one per column) dequantises an int8 V by scaling
+    the normalised weights, as the JAX package's fallback does."""
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(l == 0, torch.ones_like(l), l)
+    if v_scale is not None:
+        p = p * v_scale
     return torch.einsum(pv_eq, p, _wide(value))
 
 
@@ -351,52 +371,117 @@ flash_attention_bwd.launches = 0
 
 # --------------------------------------------------------------- decode
 
-def _decode_math(query, key_cache, value_cache, kv_len, scale):
+def _column_scales(sc):
+    """[batch, t, kv_heads] scales as fp32 [batch, kv_heads, 1, 1, t],
+    broadcast against the "bhgqk" scores."""
+    return sc.float().permute(0, 2, 1)[:, :, None, None, :]
+
+
+def _decode_math(query, key_cache, value_cache, kv_len, scale,
+                 k_scale=None, v_scale=None):
     """Query row i of batch row b attends cache columns c <= kv_len[b] -
     sq + i, in fp32, output in the query's dtype; rows with no visible
     column give zeros. The arithmetic of every plain decode-shaped
-    version (dense, chunk, paged)."""
+    version (dense, chunk, paged). With ``k_scale``/``v_scale`` (an int8
+    cache) it is the JAX package's fused-dequant fallback
+    (``_decode_xla``): scores scaled per column by ``k_scale`` before the
+    mask, the softmax normalised over the unscaled weights, then
+    ``(p * v_scale) @ v_int8`` in fp32."""
     b, sq, hq, d = query.shape
     t, hk = key_cache.shape[1], key_cache.shape[2]
     g = hq // hk
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     qf = query.float().reshape(b, sq, hk, g, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, key_cache.float()) * scale
+    if k_scale is not None:
+        s = s * _column_scales(k_scale)
     rows = torch.arange(sq, device=query.device)[None, :, None]
     cols = torch.arange(t, device=query.device)[None, None, :]
     lim = kv_len.to(device=query.device, dtype=torch.int64)
     visible = cols - rows <= (lim - sq)[:, None, None]       # [b, sq, t]
     s = s.masked_fill(~visible[:, None, None], float("-inf"))
-    out = _softmax_pv(s, value_cache, "bhgqk,bkhd->bqhgd")
+    out = _softmax_pv(s, value_cache, "bhgqk,bkhd->bqhgd",
+                      None if v_scale is None else _column_scales(v_scale))
     return out.reshape(b, sq, hq, d).to(query.dtype)
 
 
+def _count_plain(fn, k_scale):
+    if k_scale is None:
+        fn.calls += 1
+    else:
+        fn.calls_int8 += 1
+
+
 def flash_attention_decode_plain(query, key_cache, value_cache, kv_len,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None, *,
+                                 k_scale=None, v_scale=None):
     """Plain version of the decode kernel: query row i of batch row b
     attends cache columns c <= kv_len[b] - sq + i, in fp32, output in
-    the query's dtype. Rows with no visible column give zeros."""
-    flash_attention_decode_plain.calls += 1
-    return _decode_math(query, key_cache, value_cache, kv_len, scale)
+    the query's dtype. Rows with no visible column give zeros. With
+    ``k_scale``/``v_scale`` the plain version of its int8 mode."""
+    _count_plain(flash_attention_decode_plain, k_scale)
+    return _decode_math(query, key_cache, value_cache, kv_len, scale,
+                        k_scale, v_scale)
 
 
 flash_attention_decode_plain.calls = 0
+flash_attention_decode_plain.calls_int8 = 0
 
 
 def flash_attention_chunk_plain(query, key_cache, value_cache, kv_len,
-                                scale: Optional[float] = None):
+                                scale: Optional[float] = None, *,
+                                k_scale=None, v_scale=None):
     """Plain version of the chunk kernel: the decode plain version's
-    arithmetic for a window of any length."""
-    flash_attention_chunk_plain.calls += 1
-    return _decode_math(query, key_cache, value_cache, kv_len, scale)
+    arithmetic for a window of any length (int8 mode included)."""
+    _count_plain(flash_attention_chunk_plain, k_scale)
+    return _decode_math(query, key_cache, value_cache, kv_len, scale,
+                        k_scale, v_scale)
 
 
 flash_attention_chunk_plain.calls = 0
+flash_attention_chunk_plain.calls_int8 = 0
+
+
+def _check_cache_dtypes(named):
+    """Devices of the query and its cache (or pool) tensors; the caches
+    share one dtype, which is the query's unless it is int8. Returns
+    True for an int8 cache."""
+    _same_device_dtype(named, dtype=False)
+    _same_device_dtype(named[1:])
+    int8 = named[1][1].dtype == torch.int8
+    if not int8:
+        _same_device_dtype(named)
+    return int8
+
+
+def _check_scales(fn, query, k_scale, v_scale, shape):
+    """The int8 cache's scale pair: both given (else the JAX package's
+    ValueError), of ``shape``, on the query's device; a kernel launch
+    also needs them in bfloat16."""
+    if k_scale is None or v_scale is None:
+        if fn.endswith("_paged"):
+            raise ValueError(
+                "flash_attention_decode_paged: int8 pools need "
+                "k_scale/v_scale ([n_pages, page_size, kv_heads] — the "
+                "QuantPagedKVCache sidecars); an unscaled int8 pool cannot "
+                "be dequantized")
+        raise ValueError(
+            f"{fn}: int8 caches need k_scale/v_scale "
+            "([batch, max_len, kv_heads] — the QuantKVCache sidecars); "
+            "an unscaled int8 cache cannot be dequantized")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(sc.shape) != tuple(shape):
+            raise ValueError(f"{fn}: {name} must be {tuple(shape)}, got "
+                             f"{tuple(sc.shape)}")
+        _same_device_dtype([("query", query), (name, sc)], dtype=False)
+        if query.device.type == "cuda" and sc.dtype != torch.bfloat16:
+            raise TypeError(f"{fn}: {name} must be bfloat16 on the card, "
+                            f"got {sc.dtype}")
 
 
 def _check_decode(query, key_cache, value_cache, kv_len):
     """Shapes, devices and dtypes of a dense decode-shaped call; returns
-    the named tensors."""
+    the named tensors and whether the cache is int8."""
     _check_4d("query", query)
     _check_4d("key_cache", key_cache, query.shape[-1])
     _check_4d("value_cache", value_cache, query.shape[-1])
@@ -411,8 +496,7 @@ def _check_decode(query, key_cache, value_cache, kv_len):
     _check_kv_len(query, kv_len)
     named = [("query", query), ("key_cache", key_cache),
              ("value_cache", value_cache)]
-    _same_device_dtype(named)
-    return named
+    return named, _check_cache_dtypes(named)
 
 
 def _check_kv_len(query, kv_len):
@@ -429,9 +513,20 @@ def _check_int32(name, t):
                         f"{t.dtype}")
 
 
+def _scale_args(scales, strides):
+    """The int8 entries' extra arguments: the two scale pointers, and
+    the strides with each scale tensor's three appended."""
+    if scales is None:
+        return [], strides
+    ks, vs = scales
+    st = list(strides) + list(ks.stride()) + list(vs.stride())
+    return [ks.data_ptr(), vs.data_ptr()], (ctypes.c_int64 * len(st))(*st)
+
+
 def _launch_dense(entry, query, key_cache, value_cache, kv_len, scale,
-                  named):
-    """Launch ``entry`` of ``csrc/flash_decode.cu`` on checked CUDA
+                  named, scales=None):
+    """Launch ``entry`` of ``csrc/flash_decode.cu`` (its ``_int8`` twin
+    when ``scales`` is the (k_scale, v_scale) pair) on checked CUDA
     tensors; returns the output."""
     _check_int32("kv_len", kv_len)
     b, sq, hq, d = query.shape
@@ -440,13 +535,16 @@ def _launch_dense(entry, query, key_cache, value_cache, kv_len, scale,
     out = torch.empty((b, sq, hq, d), dtype=query.dtype,
                       device=query.device)
     code, strides = _kernel_args(named + [("out", out)], d)
+    sc_ptrs, strides = _scale_args(scales, strides)
+    if scales is not None:
+        entry += "_int8"
     lib = _build.library("flash_decode", _DECODE_SIG)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = getattr(lib, entry)(
             query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), code, b, sq, hq, hk, t, d,
-            strides, scale, stream)
+            *sc_ptrs, kv_len.data_ptr(), out.data_ptr(), code, b, sq, hq,
+            hk, t, d, strides, scale, stream)
     _raise_on(err, entry)
     return out
 
@@ -461,78 +559,125 @@ def _on_card(query, name):
     return True
 
 
+def _dense_scales(fn, query, key_cache, k_scale, v_scale, int8):
+    """(k_scale, v_scale) of an int8 dense cache, checked; None for a
+    wide cache (whose scales, if any, are ignored, as in the JAX
+    package)."""
+    if not int8:
+        return None
+    b, t, hk = key_cache.shape[:3]
+    _check_scales(fn, query, k_scale, v_scale, (b, t, hk))
+    return k_scale, v_scale
+
+
 def flash_attention_decode(query, key_cache, value_cache, kv_len,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None, *,
+                           k_scale=None, v_scale=None):
     """Decode-shaped attention: ``query`` [batch, q_len<=8, heads,
     head_dim] against one layer's cache ``key_cache``/``value_cache``
     [batch, max_len, kv_heads, head_dim] (new tokens already written),
     with ``kv_len`` [batch] int32 valid entries per row INCLUDING the
     q_len new positions. Query row i attends columns
     ``<= kv_len - q_len + i``. The cache is read in place through its
-    strides and never repeated for grouped-query heads."""
-    named = _check_decode(query, key_cache, value_cache, kv_len)
+    strides and never repeated for grouped-query heads.
+
+    Int8 cache mode: with ``key_cache``/``value_cache`` int8 pass
+    ``k_scale``/``v_scale`` ([batch, max_len, kv_heads], the
+    ``QuantKVCache`` sidecars); the dequantisation fuses into the
+    kernel, which streams half the bytes."""
+    named, int8 = _check_decode(query, key_cache, value_cache, kv_len)
     if query.shape[1] > MAX_DECODE_QLEN:
         raise ValueError(
             f"flash_attention_decode: q_len {query.shape[1]} > "
             f"MAX_DECODE_QLEN ({MAX_DECODE_QLEN}); use "
             "flash_attention_chunk for longer query windows")
+    scales = _dense_scales("flash_attention_decode", query, key_cache,
+                           k_scale, v_scale, int8)
     if not _on_card(query, "flash_attention_decode"):
-        return flash_attention_decode_plain(query, key_cache, value_cache,
-                                            kv_len, scale)
+        return flash_attention_decode_plain(
+            query, key_cache, value_cache, kv_len, scale,
+            **_scale_kw(scales))
     out = _launch_dense("paddle_flash_decode", query, key_cache,
-                        value_cache, kv_len, scale, named)
-    flash_attention_decode.launches += 1
+                        value_cache, kv_len, scale, named, scales)
+    _count_launch(flash_attention_decode, scales)
     return out
 
 
 flash_attention_decode.launches = 0
+flash_attention_decode.launches_int8 = 0
+
+
+def _scale_kw(scales):
+    return {} if scales is None else dict(k_scale=scales[0],
+                                          v_scale=scales[1])
+
+
+def _count_launch(fn, scales):
+    if scales is None:
+        fn.launches += 1
+    else:
+        fn.launches_int8 += 1
 
 
 def flash_attention_chunk(query, key_cache, value_cache, kv_len,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None, *,
+                          k_scale=None, v_scale=None):
     """Chunk-prefill attention: ``flash_attention_decode``'s contract
     without the 8-row cap, for the serving engine's chunked prefill (a
     C-token window of a long prompt attends the cache the earlier
     chunks wrote). Query row i attends columns ``<= kv_len - q_len +
-    i``; rows whose limit is below 0 give zeros."""
-    named = _check_decode(query, key_cache, value_cache, kv_len)
+    i``; rows whose limit is below 0 give zeros. An int8 cache takes
+    its ``k_scale``/``v_scale`` as in ``flash_attention_decode``."""
+    named, int8 = _check_decode(query, key_cache, value_cache, kv_len)
+    scales = _dense_scales("flash_attention_chunk", query, key_cache,
+                           k_scale, v_scale, int8)
     if not _on_card(query, "flash_attention_chunk"):
-        return flash_attention_chunk_plain(query, key_cache, value_cache,
-                                           kv_len, scale)
+        return flash_attention_chunk_plain(
+            query, key_cache, value_cache, kv_len, scale,
+            **_scale_kw(scales))
     out = _launch_dense("paddle_flash_chunk", query, key_cache, value_cache,
-                        kv_len, scale, named)
-    flash_attention_chunk.launches += 1
+                        kv_len, scale, named, scales)
+    _count_launch(flash_attention_chunk, scales)
     return out
 
 
 flash_attention_chunk.launches = 0
+flash_attention_chunk.launches_int8 = 0
 
 
 # --------------------------------------------------------- paged decode
 
 def flash_attention_decode_paged_plain(query, key_pool, value_pool,
                                        page_table, kv_len,
-                                       scale: Optional[float] = None):
+                                       scale: Optional[float] = None, *,
+                                       k_scale=None, v_scale=None):
     """Plain version of the paged decode kernel, as the JAX package's
-    fallback: gather each row's pages into the logical [batch,
-    pages_per_row * page_size, kv_heads, head_dim] layout and run the
-    dense decode arithmetic. Content past kv_len is masked to exact
-    zeros, so the result equals the dense plain version's on the same
-    logical rows bit for bit."""
-    flash_attention_decode_paged_plain.calls += 1
+    fallback: gather each row's pages (and, for an int8 pool, its scale
+    pages through the same table) into the logical [batch,
+    pages_per_row * page_size, ...] layout and run the dense decode
+    arithmetic. Content past kv_len is masked to exact zeros, so the
+    result equals the dense plain version's on the same logical rows
+    bit for bit."""
+    _count_plain(flash_attention_decode_paged_plain, k_scale)
     b, n_slots = page_table.shape
     ps, hk, d = key_pool.shape[1:]
     idx = page_table.to(device=key_pool.device, dtype=torch.long)
     k_rows = key_pool[idx].reshape(b, n_slots * ps, hk, d)
     v_rows = value_pool[idx].reshape(b, n_slots * ps, hk, d)
-    return _decode_math(query, k_rows, v_rows, kv_len, scale)
+    if k_scale is not None:
+        k_scale = k_scale[idx].reshape(b, n_slots * ps, hk)
+        v_scale = v_scale[idx].reshape(b, n_slots * ps, hk)
+    return _decode_math(query, k_rows, v_rows, kv_len, scale, k_scale,
+                        v_scale)
 
 
 flash_attention_decode_paged_plain.calls = 0
+flash_attention_decode_paged_plain.calls_int8 = 0
 
 
 def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
-                                 kv_len, scale: Optional[float] = None):
+                                 kv_len, scale: Optional[float] = None, *,
+                                 k_scale=None, v_scale=None):
     """Decode-shaped attention over a PAGED cache: ``query`` [batch,
     q_len<=8, heads, head_dim] against one layer's page pools
     ``key_pool``/``value_pool`` [n_pages, page_size, kv_heads,
@@ -541,7 +686,12 @@ def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
     null page) and ``kv_len`` [batch] int32 as in
     ``flash_attention_decode``, whose masking this is. The pool is read
     in place through its strides and the table; the table's values are
-    trusted, as in the JAX package."""
+    trusted, as in the JAX package.
+
+    Int8 pool mode: with int8 pools pass ``k_scale``/``v_scale``
+    ([n_pages, page_size, kv_heads], the ``QuantPagedKVCache``
+    sidecars); the scale pages resolve through the same table and the
+    dequantisation fuses into the kernel."""
     _check_4d("query", query)
     _check_4d("key_pool", key_pool, query.shape[-1])
     _check_4d("value_pool", value_pool, query.shape[-1])
@@ -562,12 +712,18 @@ def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
     _check_kv_len(query, kv_len)
     named = [("query", query), ("key_pool", key_pool),
              ("value_pool", value_pool)]
-    _same_device_dtype(named)
+    int8 = _check_cache_dtypes(named)
     _same_device_dtype([("query", query), ("page_table", page_table)],
                        dtype=False)
+    scales = None
+    if int8:
+        _check_scales("flash_attention_decode_paged", query, k_scale,
+                      v_scale, (n_pages, ps, hk))
+        scales = (k_scale, v_scale)
     if not _on_card(query, "flash_attention_decode_paged"):
         return flash_attention_decode_paged_plain(
-            query, key_pool, value_pool, page_table, kv_len, scale)
+            query, key_pool, value_pool, page_table, kv_len, scale,
+            **_scale_kw(scales))
     _check_int32("kv_len", kv_len)
     _check_int32("page_table", page_table)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -575,28 +731,38 @@ def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
                       device=query.device)
     code, strides = _kernel_args(named + [("out", out)], d)
     strides = (ctypes.c_int64 * 13)(*strides, page_table.stride(0))
+    sc_ptrs, strides = _scale_args(scales, strides)
+    entry = "paddle_flash_decode_paged" + ("" if scales is None
+                                           else "_int8")
     lib = _build.library("flash_decode_paged", _PAGED_SIG)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
-        err = lib.paddle_flash_decode_paged(
+        err = getattr(lib, entry)(
             query.data_ptr(), key_pool.data_ptr(), value_pool.data_ptr(),
-            page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), code,
-            b, sq, hq, hk, ps, page_table.shape[1], d, strides, scale,
-            stream)
-    _raise_on(err, "flash_decode_paged")
-    flash_attention_decode_paged.launches += 1
+            *sc_ptrs, page_table.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), code, b, sq, hq, hk, ps, page_table.shape[1], d,
+            strides, scale, stream)
+    _raise_on(err, entry)
+    _count_launch(flash_attention_decode_paged, scales)
     return out
 
 
 flash_attention_decode_paged.launches = 0
+flash_attention_decode_paged.launches_int8 = 0
 
 
 def reset_counts():
-    """Zero every launch and plain-call counter."""
+    """Zero every launch and plain-call counter (int8 modes included)."""
     for fn in (flash_attention, flash_attention_bwd, flash_attention_decode,
                flash_attention_chunk, flash_attention_decode_paged):
         fn.launches = 0
+    for fn in (flash_attention_decode, flash_attention_chunk,
+               flash_attention_decode_paged):
+        fn.launches_int8 = 0
     for fn in (flash_attention_plain, flash_attention_bwd_plain,
                flash_attention_decode_plain, flash_attention_chunk_plain,
                flash_attention_decode_paged_plain):
         fn.calls = 0
+    for fn in (flash_attention_decode_plain, flash_attention_chunk_plain,
+               flash_attention_decode_paged_plain):
+        fn.calls_int8 = 0

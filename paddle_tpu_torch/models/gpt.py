@@ -170,20 +170,23 @@ class GPTModel(nn.Module):
                               device=kw.get("device"), dtype=kw.get("dtype"))
 
     def forward(self, input_ids, attn_mask=None, cache=None,
-                use_cache=False, prompt_len=None, cache_max_len=None):
+                use_cache=False, prompt_len=None, cache_max_len=None,
+                cache_dtype=None):
         if cache is not None or use_cache:
             return self._forward_cached(input_ids, attn_mask, cache,
-                                        prompt_len, cache_max_len)
+                                        prompt_len, cache_max_len,
+                                        cache_dtype)
         x = self.embed(input_ids)
         for block in self.blocks:
             x = block(x, attn_mask)
         return self.ln_f(x)
 
     def _forward_cached(self, input_ids, attn_mask, cache, prompt_len,
-                        cache_max_len):
+                        cache_max_len, cache_dtype=None):
         """Generation forward: prefill creates and fills the KV cache
-        (``cache=None``), decode appends to one. Returns (hidden,
-        cache). ``prompt_len`` [b] marks each row's true length in a
+        (``cache=None``; ``cache_dtype="int8"`` creates the quantized
+        cache), decode appends to one. Returns (hidden, cache).
+        ``prompt_len`` [b] marks each row's true length in a
         right-padded prompt; kv_len advances to it, so the pad tail is
         invisible to (and overwritten by) decode steps. Decode with
         ``prompt_len`` is the final chunk of a chunked prefill: s
@@ -200,7 +203,7 @@ class GPTModel(nn.Module):
             cache = KVCache.create(
                 self.cfg.num_layers, b, max_len, self.cfg.num_heads,
                 self.cfg.hidden_size // self.cfg.num_heads,
-                dtype=x.dtype, device=x.device)
+                dtype=x.dtype, device=x.device, cache_dtype=cache_dtype)
         for i, block in enumerate(self.blocks):
             x, cache = block(x, attn_mask, cache=cache, layer_idx=i,
                              decode=decode)
@@ -241,13 +244,16 @@ class GPTForCausalLM(nn.Module):
         return torch.matmul(h, self.gpt.embed.wte.weight.t())
 
     def forward(self, input_ids, attn_mask=None, cache=None,
-                use_cache=False, prompt_len=None, cache_max_len=None):
+                use_cache=False, prompt_len=None, cache_max_len=None,
+                cache_dtype=None):
         """Logits [b, s, vocab]; under ``fused_lm_loss`` the pair
         (final hidden states, head weight) that ``loss`` takes instead.
-        The cached (generation) forward always returns logits."""
+        The cached (generation) forward always returns logits;
+        ``cache_dtype="int8"`` makes its prefill create the int8 cache."""
         if cache is not None or use_cache:
             return self._forward_cached(input_ids, attn_mask, cache,
-                                        prompt_len, cache_max_len)
+                                        prompt_len, cache_max_len,
+                                        cache_dtype)
         h = self.gpt(input_ids, attn_mask)
         if self.cfg.fused_lm_loss:
             w = self.lm_head.weight if self.lm_head is not None \
@@ -256,7 +262,7 @@ class GPTForCausalLM(nn.Module):
         return self._logits(h)
 
     def _forward_cached(self, input_ids, attn_mask, cache, prompt_len,
-                        cache_max_len):
+                        cache_max_len, cache_dtype=None):
         """Generation forward: returns (logits, cache). Prefill returns
         next-token logits only ([b, 1, vocab], gathered at each row's
         last REAL position — the prompt logits are never formed);
@@ -270,7 +276,8 @@ class GPTForCausalLM(nn.Module):
             else None
         h, cache = self.gpt(input_ids, attn_mask, cache=cache,
                             use_cache=True, prompt_len=prompt_len,
-                            cache_max_len=cache_max_len)
+                            cache_max_len=cache_max_len,
+                            cache_dtype=cache_dtype)
         if kv0 is not None:
             # window-local index of global position prompt_len - 1
             idx = torch.as_tensor(prompt_len, device=h.device).long() - 1 \

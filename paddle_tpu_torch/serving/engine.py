@@ -25,6 +25,13 @@ chunked-prefill paths).
   decode step; the final chunk samples the first token and installs the
   row as an inline admission would. One chunked admission at a time,
   strict FIFO.
+- **int8 cache** (``kv_cache_dtype="int8"`` in ``enable_serving`` or
+  ``enable_generation``, or ``PADDLE_KV_CACHE_DTYPE``): the slots are a
+  ``QuantKVCache`` or ``QuantPagedKVCache`` (and the chunked side cache
+  a ``QuantKVCache``). Prefill quantizes the row once and admission
+  copies its int8 values and scales verbatim, so a slot decodes as a
+  sequential int8 ``generate`` would. The saturation count stays on the
+  device in ``engine._cache.clips``.
 - **host syncs** happen only at the poll cadence (every ``poll_every``
   decode steps: two [batch] lane reads), once per admission (the
   time-to-first-token point), once per prefill chunk and once per
@@ -33,9 +40,9 @@ chunked-prefill paths).
 On a CUDA card every inline prefill's attention runs in the flash
 forward kernel, every chunk's in the chunk kernel, and every decode
 step's in the flash decode kernel (dense cache) or the paged decode
-kernel (paged cache). Thread mode, the graceful-shutdown drain,
-metrics, tracing, ``health()``, and the int8 and speculative paths come
-with later slices (ROADMAP A5, A7, A8).
+kernel (paged cache), in their int8 modes on an int8 cache. Thread
+mode, the graceful-shutdown drain, metrics, tracing, ``health()``, and
+the speculative path come with later slices (ROADMAP A5, A7, A8).
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ import torch
 
 from ..generation.api import (GenerationConfig, GenerationSession,
                               _round_up)
-from ..generation.kv_cache import KVCache
+from ..generation.kv_cache import KVCache, resolve_cache_dtype
 from ..generation.paged_cache import PageAllocator, PagedKVCache
 from ..generation.sampling import sample
 from ..inference.precision import serving_params
@@ -112,7 +119,14 @@ class ServingEngine:
         self.network = self._sp.layer
         self.device = self._sp.device
         self.config = config
-        self._session = GenerationSession(self.network)
+        # the serving knob wins over the generation one; the environment
+        # fills the gap
+        explicit = sopts.get("kv_cache_dtype")
+        if explicit is None:
+            explicit = opts.get("kv_cache_dtype")
+        self.cache_dtype = resolve_cache_dtype(explicit)
+        self._session = GenerationSession(self.network,
+                                          cache_dtype=self.cache_dtype)
         self._cfg = GenerationConfig(
             do_sample=opts["do_sample"], temperature=opts["temperature"],
             top_k=opts["top_k"], top_p=opts["top_p"],
@@ -224,22 +238,23 @@ class ServingEngine:
                       if p.is_floating_point())
         layers, heads = net_cfg.num_layers, net_cfg.num_heads
         head_dim = net_cfg.hidden_size // heads
+        cd = self.cache_dtype
         if self._alloc is None:
             self._cache = KVCache.create(layers, B, self.max_len, heads,
-                                         head_dim, dtype=wdtype, device=dev)
+                                         head_dim, dtype=wdtype, device=dev,
+                                         cache_dtype=cd)
         else:
             self._cache = PagedKVCache.create(
                 layers, B, self._alloc.n_pages, self.page_size,
                 self.pages_per_row, heads, head_dim, dtype=wdtype,
-                device=dev)
-        # chunked prefill's persistent batch-1 side cache: reset to
-        # kv_len 0 before each chunked admission (stale K/V past kv_len
-        # is never read)
+                device=dev, cache_dtype=cd)
+        # chunked prefill's persistent batch-1 side cache: zeroed after
+        # each chunked admission (kv_len 0, and clips 0 on an int8 cache)
         self._row_cache = None
         if self._chunk_enabled:
             self._row_cache = KVCache.create(layers, 1, self.max_len, heads,
                                              head_dim, dtype=wdtype,
-                                             device=dev)
+                                             device=dev, cache_dtype=cd)
         self._rows = torch.arange(B, device=dev)
         self._tok = torch.zeros(B, dtype=torch.int64, device=dev)
         self._finished = torch.ones(B, dtype=torch.bool, device=dev)
@@ -474,7 +489,6 @@ class ServingEngine:
         shared = 0
         if self._alloc is not None:
             shared = int(self._pending_pages[req.id][1].shared_len)
-        self._row_cache.with_kv_len(0)
         self._chunking = dict(req=req, slot=slot, plen=plen, n=n, next=0,
                               ids=torch.as_tensor(ids, device=self.device),
                               shared=shared)
@@ -549,6 +563,16 @@ class ServingEngine:
         # the spans below the final chunk's base are installed already
         self._install(req, slot, row_cache, tok, fin, start=k * C)
         self._chunking = None
+        self._zero_row_cache()
+
+    def _zero_row_cache(self):
+        """Reset the chunked side cache for the next chunked admission, in
+        place: every tensor zeroed (kv_len 0, clips 0 on an int8 cache),
+        as the JAX engine rebuilds it."""
+        for name in ("k", "v", "kv_len", "k_scale", "v_scale", "clips"):
+            t = getattr(self._row_cache, name, None)
+            if t is not None:
+                t.zero_()
 
     def _abort_chunked(self, reason: str):
         """Terminal exit for a request mid-prefill (deadline, dispatch
@@ -558,6 +582,7 @@ class ServingEngine:
         st, self._chunking = self._chunking, None
         if st is None:
             return
+        self._zero_row_cache()
         self._release_pending(st["req"])
         self._slots[st["slot"]] = None
         self._cancel(st["req"], reason)

@@ -447,3 +447,181 @@ def test_paged_chunked_engine_on_card_matches_cpu(dev):
     assert fa.flash_attention_chunk_plain.calls == 0
     for a, b in zip(*outs):
         np.testing.assert_array_equal(b, a)
+
+
+# ------------------------------------------------------- int8 KV cache
+
+
+def _int8_cache(gen, shape, dev, lead=2):
+    """int8 k, v [b, t, hk, d] as layer 1 of [lead, b, t, hk, d] caches,
+    and their bf16 scales [b, t, hk] as layer slices too, as a
+    QuantKVCache holds them."""
+    k, v = (torch.randint(-127, 128, (lead,) + shape, generator=gen,
+                          device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand((lead,) + shape[:-1], generator=gen, device=dev)
+               * 0.015 + 0.005).bfloat16() for _ in range(2))
+    return k[1], v[1], ks[1], vs[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("sq,hq,hk", [
+    (1, 12, 12), (1, 12, 4), (3, 12, 4), (8, 4, 4),    # decode
+    (9, 4, 4), (100, 4, 2), (128, 12, 12)])            # chunk windows
+def test_int8_decode_and_chunk_match_plain(dev, dtype, d, sq, hq, hk):
+    """The int8 modes against their plain versions: ragged and odd
+    kv_len, grouped heads, 1..8 rows (decode) and longer windows
+    (chunk); launches count under the int8 names only."""
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + hq + hk + d)
+    b, t = 4, 200
+    k, v, ks, vs = _int8_cache(gen, (b, t, hk, d), dev)
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    kv = torch.tensor([sq, sq + 1, 77, t], dtype=torch.int32, device=dev)
+    fn, plain = (fa.flash_attention_decode, fa.flash_attention_decode_plain) \
+        if sq <= fa.MAX_DECODE_QLEN else \
+        (fa.flash_attention_chunk, fa.flash_attention_chunk_plain)
+    fa.reset_counts()
+    out = fn(q, k, v, kv, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (fn.launches_int8, fn.launches) == (1, 0)
+    assert plain.calls_int8 == 0
+    _close(out, plain(q, k, v, kv, k_scale=ks, v_scale=vs))
+
+
+def test_int8_serving_shapes_and_scalar_path(dev):
+    """The serving shapes (q [8,1,12,64] bf16, cache [8,640,12,64]), and
+    an int8 cache whose base is off a 16-byte boundary (the element-load
+    path), against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k, v, ks, vs = _int8_cache(gen, (8, 640, 12, 64), dev)
+    q = _randn(gen, (8, 1, 12, 64), torch.bfloat16, dev)
+    kv = torch.tensor([1, 1, 17, 200, 333, 512, 577, 640], dtype=torch.int32,
+                      device=dev)
+    _close(fa.flash_attention_decode(q, k, v, kv, k_scale=ks, v_scale=vs),
+           fa.flash_attention_decode_plain(q, k, v, kv, k_scale=ks,
+                                           v_scale=vs))
+    n = 2 * 90 * 2 * 64
+    base = torch.randint(-127, 128, (2, n + 1), generator=gen, device=dev,
+                         dtype=torch.int8)
+    km, vm = (base[i, 1:].view(2, 90, 2, 64) for i in range(2))
+    assert km.data_ptr() % 16
+    q = _randn(gen, (2, 3, 4, 64), torch.bfloat16, dev)
+    kv = torch.tensor([3, 90], dtype=torch.int32, device=dev)
+    _close(fa.flash_attention_decode(q, km, vm, kv, k_scale=ks[:2, :90, :2],
+                                     v_scale=vs[:2, :90, :2]),
+           fa.flash_attention_decode_plain(q, km, vm, kv,
+                                           k_scale=ks[:2, :90, :2],
+                                           v_scale=vs[:2, :90, :2]))
+
+
+def _int8_paged_from_dense(gen, k, v, ks, vs, page):
+    """The int8 rows and their scales in shuffled pages of one pool (as
+    _paged_from_dense), scale pools through the same table."""
+    kp, vp, table = _paged_from_dense(gen, k.float(), v.float(), page)
+    b, t, hk = ks.shape
+    n_pages = kp.shape[0]
+    rows = (table.long()[:, :, None] * page
+            + torch.arange(page, device=k.device)).reshape(b, -1)[:, :t]
+    pools = []
+    for src in (ks, vs):
+        pool = torch.rand((n_pages * page, hk), generator=gen,
+                          device=k.device).bfloat16()
+        pool[rows] = src
+        pools.append(pool.view(n_pages, page, hk))
+    return (kp.round().clamp(-127, 127).to(torch.int8),
+            vp.round().clamp(-127, 127).to(torch.int8), pools[0], pools[1],
+            table)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 48, 128])
+@pytest.mark.parametrize("sq,hq,hk", [(1, 12, 12), (1, 12, 4), (8, 4, 4)])
+def test_int8_paged_matches_plain_and_dense(dev, dtype, page, sq, hq, hk):
+    """The int8 paged mode against its plain version, and BITWISE equal
+    to the int8 dense mode on the same logical rows and scales, at page
+    sizes that do and do not divide the 64-column tile."""
+    gen = torch.Generator(device=dev).manual_seed(page + sq + hk)
+    b, t, d = 6, 384, 64
+    k, v, ks, vs = _int8_cache(gen, (b, t, hk, d), dev)
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    kv = torch.tensor([0, sq, 17, 200, 333, t], dtype=torch.int32,
+                      device=dev)
+    kp, vp, ksp, vsp, table = _int8_paged_from_dense(gen, k, v, ks, vs, page)
+    fa.reset_counts()
+    out = fa.flash_attention_decode_paged(q, kp, vp, table, kv, k_scale=ksp,
+                                          v_scale=vsp)
+    dense = fa.flash_attention_decode(q, k, v, kv, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_decode_paged.launches_int8 == 1
+    assert fa.flash_attention_decode_paged.launches == 0
+    assert torch.equal(out, dense)
+    assert out[0].abs().max().item() == 0.0
+    _close(out, fa.flash_attention_decode_paged_plain(
+        q, kp, vp, table, kv, k_scale=ksp, v_scale=vsp))
+
+
+def test_int8_refuses_what_it_does_not_take(dev):
+    """An int8 cache without scales raises on the card as on the CPU;
+    scales in another dtype than bf16 raise; nothing launches."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k, v, ks, vs = _int8_cache(gen, (2, 64, 2, 64), dev)
+    q = _randn(gen, (2, 1, 2, 64), torch.bfloat16, dev)
+    kv = torch.tensor([3, 64], dtype=torch.int32, device=dev)
+    fa.reset_counts()
+    with pytest.raises(ValueError, match="int8 caches need k_scale"):
+        fa.flash_attention_decode(q, k, v, kv)
+    with pytest.raises(ValueError, match="int8 caches need k_scale"):
+        fa.flash_attention_chunk(q, k, v, kv, k_scale=ks)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_decode(q, k, v, kv, k_scale=ks.float(),
+                                  v_scale=vs.float())
+    table = torch.ones((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int8 pools need k_scale"):
+        fa.flash_attention_decode_paged(q, k, v, table, kv)
+    assert fa.flash_attention_decode.launches_int8 == 0
+
+
+def test_int8_engines_on_card_match_cpu(dev):
+    """test-tiny in fp32 with kv_cache_dtype="int8": the dense engine and
+    the paged engine with chunked prefill on the card give the CPU
+    engines' tokens, through the int8 kernels and no wide decode-shaped
+    kernel or plain version."""
+    from paddle_tpu_torch.inference import Config
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.serving import ServingEngine
+    cpu = gpt("test-tiny", device="cpu",
+              generator=torch.Generator().manual_seed(0)).eval()
+    gpu = gpt("test-tiny", device=dev).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 512, n) for n in (5, 30, 12, 25, 3, 31)]
+    for serving in (dict(), dict(paged=True, kv_page_size=8,
+                                 prefill_chunk_tokens=16)):
+        outs = []
+        for m, on_card in ((cpu, False), (gpu, True)):
+            cfg = (Config().from_layer(m)
+                   .enable_generation(max_new_tokens=8,
+                                      prefill_buckets=(16, 32), max_batch=2)
+                   .enable_serving(kv_cache_dtype="int8", **serving))
+            if not on_card:
+                cfg.disable_gpu()
+            else:
+                cfg.enable_use_gpu("float32")
+            fa.reset_counts()
+            eng = ServingEngine(cfg, poll_every=2)
+            outs.append([h.tokens for h in eng.serve_forever(iter(prompts))])
+            assert int(eng._cache.clips) == 0
+        launched = [fa.flash_attention_decode.launches_int8,
+                    fa.flash_attention_decode_paged.launches_int8,
+                    fa.flash_attention_chunk.launches_int8]
+        assert launched[1 if serving else 0] > 0
+        assert not serving or launched[2] > 0
+        assert fa.flash_attention.launches > 0
+        assert (fa.flash_attention_decode.launches,
+                fa.flash_attention_decode_paged.launches,
+                fa.flash_attention_chunk.launches) == (0, 0, 0)
+        assert fa.flash_attention_decode_plain.calls_int8 == 0
+        assert fa.flash_attention_decode_paged_plain.calls_int8 == 0
+        assert fa.flash_attention_chunk_plain.calls_int8 == 0
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(b, a)

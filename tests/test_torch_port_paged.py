@@ -182,8 +182,11 @@ def test_paged_cache_ops_match_jax():
         np.testing.assert_array_equal(getattr(tc, name).numpy(),
                                       np.asarray(getattr(jc, name)))
     assert tc.page_table.tolist() == [[1, 2, 3, 0], [0] * 4, [0] * 4]
-    with pytest.raises(NotImplementedError, match="A5"):
-        PagedKVCache.create(L, B, n_pages, ps, P, H, D, cache_dtype="int8")
+    # the int8 pool is ported since (tests/test_torch_port_int8.py)
+    assert PagedKVCache.create(L, B, n_pages, ps, P, H, D,
+                               cache_dtype="int8").cache_dtype == "int8"
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        PagedKVCache.create(L, B, n_pages, ps, P, H, D, cache_dtype="int3")
 
 
 def _allocator_script(cls):
@@ -381,6 +384,9 @@ def test_paged_config_validation(pair):
     eng = ServingEngine(_config(tm, paged=True, kv_page_size=32))
     assert eng._alloc.n_pages == 2 * eng.pages_per_row + 1
     assert eng._cache.k.shape[1:3] == (eng._alloc.n_pages, 32)
-    for kw in (dict(kv_cache_dtype="int8"), dict(weight_bits=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Config().enable_serving(paged=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Config().enable_serving(paged=True, weight_bits=4)
+    eng = ServingEngine(_config(tm, paged=True, kv_page_size=32,
+                                kv_cache_dtype="int8"))
+    assert eng._cache.cache_dtype == "int8"
+    assert eng._cache.k_scale.shape == eng._cache.k.shape[:-1]

@@ -225,10 +225,13 @@ def test_engine_validates_requests_and_config(pair):
         eng.submit(list(range(17)))
     with pytest.raises(ValueError, match="max_new_tokens"):
         eng.submit([1, 2], RequestParams(max_new_tokens=9))
-    for kw in (dict(kv_cache_dtype="int8"), dict(weight_bits=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Config().enable_serving(**kw)
-    # ported since: the paged cache and chunked prefill
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Config().enable_serving(weight_bits=4)
+    # ported since: the paged cache and chunked prefill, the int8 cache
+    assert Config().enable_serving(
+        kv_cache_dtype="int8")._serving["kv_cache_dtype"] == "int8"
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        Config().enable_serving(kv_cache_dtype="int3")
     opts = Config().enable_serving(paged=True, kv_page_size=16, kv_pages=9,
                                    prefill_chunk_tokens=64)._serving
     assert (opts["paged"], opts["kv_page_size"], opts["kv_pages"],
