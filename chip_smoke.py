@@ -14,15 +14,19 @@ the kernel path and the plain path, serves 16 requests through
 batch-1 ``generate``), the same 16 and 8 shared-prefix requests on a
 paged cache (token streams equal to the dense engine's), the 16 again
 with chunked prefill, all three again on an int8 KV cache, holds the
-int8 cache's logits to the wide cache's, then trains gpt2-small with
+int8 cache's logits to the wide cache's, trains gpt2-small with
 ``bench.py``'s recipe (AdamW with fp32 masters, the fused LM-head loss,
-``TrainStep``) at batch 16 x 1024 tokens, and checks that each path
-went through its kernels and never through a plain version. Phases
+``TrainStep``) at batch 16 x 1024 tokens, then trains ResNet-50 with
+``bench.py``'s fused conv+BN recipe (NHWC, bf16, Momentum, ``TrainStep``)
+at batch 128 x 224 x 224 through the 1x1 conv + BN-stats kernels, and
+checks that each path went through its kernels and never through a
+plain version. Phases
 print one line each; the line before the last is the kernel table as
 JSON, and the last line is ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero with no result line. Imports neither JAX
 nor the JAX package.
 """
+import contextlib
 import json
 import math
 import os
@@ -73,6 +77,30 @@ LOGIT_TOL = 0.1
 TRAIN_LOSS_TOL = 1e-3        # absolute
 GRAD_NORM_TOL = 3e-2         # |g_kernel - g_plain| / |g_plain|
 GRAD_MAX_TOL = 0.1           # max|g_kernel - g_plain| / max|g_plain|
+#: H100 SXM published fp32 rate outside the tensor cores, for the
+#: elementwise part of a fused kernel's work
+PEAK_FLOPS_F32 = 67e12
+# the fused ResNet kernels (rows 13-16) in bf16 against their plain
+# versions: y and dx by the training rule above (both round the same
+# fp32 values, summed in another order); per channel the mean within
+# 1e-3*sqrt(var) + 1e-6 and the var within 1e-3*var + 1e-6 of the
+# plain's (the kernel's Chan combine of 128-row tiles against a
+# two-pass sum); the fp32 sums dw, dscale and dshift, over up to
+# 401,408 rows in another order, within 1e-3 of the tensor's largest
+# magnitude
+STATS_FRAC = 1e-3
+SUM_FRAC = 1e-3
+# ResNet-50 training at b128, kernel path against plain path from the
+# same weights: the loss (about 7.6) within 1e-2. Every gradient within
+# 5e-2 of its norm in fp32; in bf16 within max(5e-2, 4*chaos), chaos
+# being the plain path against itself under +-1-ulp input noise (the
+# JAX package's own rule, tests/test_fused_resnet.py). At this random
+# initialization the gradients are ill-conditioned: on an H100 the
+# plain path moved by 2.1% of a gradient's norm (median) under fp32
+# input noise and by 1.32 under bf16 noise, so no implementation meets
+# a fixed bound in bf16.
+RESNET_LOSS_TOL = 1e-2       # absolute
+RESNET_GRAD_TOL = 5e-2       # |g_kernel - g_plain| / |g_plain|
 
 
 def fail(msg):
@@ -785,6 +813,166 @@ def phase_train_kernels(torch, timer):
     return row, fwd_train
 
 
+_FUSED_ROWS = (  # name, prologue, backward, TPU kernel it replaces
+    ("mm_bn_stats", False, False, "paddle_tpu/kernels/fused_resnet.py:267"),
+    ("bn_relu_mm_bn_stats", True, False,
+     "paddle_tpu/kernels/fused_resnet.py:297"),
+    ("mm_bn_stats_bwd", False, True, "paddle_tpu/kernels/fused_resnet.py:192"),
+    ("bn_relu_mm_bn_stats_bwd", True, True,
+     "paddle_tpu/kernels/fused_resnet.py:225"),
+)
+# ResNet-50 at b128 224x224: layer1's widest product (the downsample
+# and conv3, 64 -> 256 over 401,408 rows) and layer4's deepest (conv1
+# 2048 -> 512, conv3 512 -> 2048, over 6,272 rows)
+_FUSED_SHAPES = {False: ((401408, 64, 256), (6272, 2048, 512)),
+                 True: ((401408, 64, 256), (6272, 512, 2048))}
+
+
+def _fused_bound(m, k, n, pro, bwd):
+    """Least time for one fused call: each input read once and each
+    output written once at the HBM rate, against the products at the
+    bf16 tensor rate plus the elementwise work at the fp32 rate."""
+    if bwd:
+        n_bytes = 2 * (2 * m * n + 2 * m * k + k * n) + 4 * k * n + 12 * n
+        flops, ew = 4 * m * k * n, 4 * m * n + (7 * m * k if pro else 0)
+        n_bytes += 16 * k if pro else 0
+    else:
+        n_bytes = 2 * (m * k + k * n + m * n) + 8 * n + (8 * k if pro else 0)
+        flops, ew = 2 * m * k * n, 3 * m * n + (3 * m * k if pro else 0)
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS + ew / PEAK_FLOPS_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_fused_resnet_kernels(torch, timer):
+    """Rows 13-16 (the 1x1 conv + BN-stats kernels and their backwards)
+    against their plain versions in bf16 at ResNet-50's layer1 and
+    layer4 shapes, each kernel twice on the same inputs (the bits must
+    repeat), then timed beside the plain version and the PyTorch
+    yardstick (cuBLAS products with torch's reductions and elementwise
+    ops) at both shapes."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+
+    def inputs(m, k, n):
+        def r(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * s
+        x = (r(m, k) + 0.5).to(bf16)
+        w2 = r(k, n, s=k ** -0.5).to(bf16)
+        perch, dvar2 = fr._stats_cotangent_coeffs(r(n), r(n), m)
+        return dict(x=x, w2=w2, scale=r(k).abs() + 0.5, shift=r(k, s=0.3),
+                    dy=r(m, n, s=1e-2).to(bf16), perch=perch, dvar2=dvar2)
+
+    def fwd_args(t, pro):
+        return (t["x"], t["scale"], t["shift"], t["w2"]) if pro \
+            else (t["x"], t["w2"])
+
+    def bwd_args(t, pro):
+        return ((t["dy"], t["y"], t["x"])
+                + ((t["scale"], t["shift"]) if pro else ())
+                + (t["w2"], t["perch"], t["dvar2"], t["mean"]))
+
+    def lib_fwd(x, *rest):
+        a = x if len(rest) == 1 else \
+            torch.relu(x.float() * rest[0] + rest[1]).to(bf16)
+        y = torch.matmul(a, rest[-1])
+        return y, torch.var_mean(y.float(), 0, correction=0)
+
+    def lib_bwd(dy, y, x, *rest):
+        scale, shift = rest[:2] if len(rest) == 6 else (None, None)
+        w2, perch, dvar2, mean = rest[-4:]
+        e = (dy.float() + perch + dvar2 * (y.float() - mean)).to(bf16)
+        if scale is None:
+            return torch.matmul(e, w2.t()), torch.matmul(x.t(), e)
+        pre = x.float() * scale + shift
+        gated = torch.where(pre > 0, torch.matmul(e, w2.t()).float(), 0.0)
+        return ((gated * scale).to(bf16),
+                torch.matmul(torch.relu(pre).to(bf16).t(), e),
+                (gated * x.float()).sum(0), gated.sum(0))
+
+    def check(name, shape, outs, refs, stats=False):
+        errs, n_bad = {}, 0
+        labels = ("y", "mean", "var") if stats else \
+            ("dx", "dw", "dscale", "dshift")
+        for i, (label, a, r) in enumerate(zip(labels, outs, refs)):
+            a, r = a.float(), r.float()
+            diff = (a - r).abs()
+            if i == 0:
+                lim = ULP_BF16 * r.abs() + SCALED_FRAC * r.abs().max()
+            elif stats and label == "mean":
+                lim = STATS_FRAC * refs[2].float().sqrt() + 1e-6
+            elif stats:
+                lim = STATS_FRAC * r + 1e-6
+            else:
+                lim = SUM_FRAC * r.abs().max().expand_as(r)
+            bad = int((~(diff <= lim)).sum())
+            errs[label] = [float(diff.max()),
+                           float(diff.max() / r.abs().max().clamp_min(1e-30)),
+                           bad]
+            n_bad += bad
+        say("kernel_check", kernel=name, shape=list(shape), dtype="bfloat16",
+            errors={k: dict(max_abs=v[0], over_max_plain=v[1], out_of_tol=v[2])
+                    for k, v in errs.items()},
+            tol=f"{labels[0]} {ULP_BF16}*|plain|+{SCALED_FRAC}*max|plain|; "
+            + ("mean 1e-3*sqrt(var)+1e-6, var 1e-3*var+1e-6" if stats else
+               f"dw/dscale/dshift {SUM_FRAC}*max|plain|"))
+        if n_bad:
+            fail(f"{name} disagrees with its plain version at {shape}")
+        return errs[labels[0]][0]
+
+    rows = {}
+    for name, pro, bwd, replaces in _FUSED_ROWS:
+        kernel = {(False, False): fr.matmul_bn_stats_fwd,
+                  (True, False): fr.bn_relu_matmul_bn_stats_fwd,
+                  (False, True): fr.matmul_bn_stats_bwd,
+                  (True, True): fr.bn_relu_matmul_bn_stats_bwd}[pro, bwd]
+        plain = fr.PLAIN_VERSIONS[fr.KERNEL_WRAPPERS.index(kernel)]
+        args_of = bwd_args if bwd else fwd_args
+        worst, by_shape = 0.0, []
+        for m, k, n in _FUSED_SHAPES[pro]:
+            sets = []
+            for _ in range(3):      # three sets: more than L2 holds
+                t = inputs(m, k, n)
+                if bwd:     # the forward's y and mean, as saved
+                    t["y"], t["mean"], _ = fr.matmul_bn_stats_fwd_plain(
+                        t["x"], t["w2"])
+                sets.append(args_of(t, pro))
+            outs = kernel(*sets[0])
+            again = kernel(*sets[0])
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                fail(f"{name} is not bitwise repeatable at {(m, k, n)}")
+            worst = max(worst, check(name, (m, k, n), outs,
+                                     plain(*sets[0]), stats=not bwd))
+            del outs, again
+            ms = timer.ms(kernel, sets)
+            plain_ms = timer.ms(plain, sets, n=5)
+            lib_ms = timer.ms(lib_bwd if bwd else lib_fwd, sets)
+            bms, by = _fused_bound(m, k, n, pro, bwd)
+            by_shape.append(dict(m=m, k=k, n=n, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=bms,
+                                 bound_by=by))
+            say("kernel_time", kernel=name, shape=[m, k, n], kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+            del sets
+            torch.cuda.empty_cache()
+        first = by_shape[0]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/fused_resnet.cu",
+            replaces=replaces,
+            shape=f"M={first['m']}, K={first['k']} -> N={first['n']} bf16 "
+                  "(ResNet-50 layer1 at b128)",
+            max_abs_err=worst, ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            library_ms=first["library_ms"], by_shape=by_shape)
+    return rows
+
+
 def phase_model(torch):
     """gpt2-small in bf16: a bucket-512 prefill of two ragged prompts
     plus 8 teacher-forced decode steps, through the kernels and through
@@ -1346,6 +1534,186 @@ def phase_train(torch):
     return launches
 
 
+def phase_train_resnet50(torch):
+    """ResNet-50 with bench.py's recipe (bench_resnet50 with
+    BENCH_FUSED_BN=1): NHWC, space-to-depth stem, the fused conv+BN
+    path, bf16, Momentum(0.1, 0.9, multi_precision=True), cross entropy
+    on fp32 logits, TrainStep, batch 128 at 224x224 from seed 0. First
+    one forward and backward through the kernels and through the plain
+    versions from the same weights, in fp32 and then in bf16 (these
+    eager forwards move BN's running statistics); then a warm-up step,
+    10 counted TrainSteps (running statistics frozen, as under the JAX
+    TrainStep) and one profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import jit, nn, optimizer
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    from paddle_tpu_torch.models.resnet import resnet50
+    dev = torch.device("cuda", 0)
+    batch, hw = 128, 224
+    model = resnet50(num_classes=1000, data_format="NHWC",
+                     stem_space_to_depth=True, fused_bn=True, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    model.train()
+    rng = np.random.RandomState(SEED)
+    img = torch.as_tensor(rng.randn(batch, 3, hw, hw).astype(np.float32),
+                          device=dev)
+    y = torch.as_tensor(rng.randint(0, 1000, (batch,)).astype(np.int64),
+                        device=dev)
+    sign = torch.as_tensor(np.sign(rng.randn(batch, 3, hw, hw)),
+                           dtype=torch.float32, device=dev)
+    ce = nn.CrossEntropyLoss()
+
+    def loss_fn(logits, labels):
+        return ce(logits.float(), labels)
+
+    def running():
+        return {k: v.clone() for k, v in model.state_dict().items()
+                if k.endswith(("._mean", "._variance"))}
+
+    def loss_and_grads(x, plain=False):
+        patch = {f.__name__: p for f, p in zip(fr.KERNEL_WRAPPERS,
+                                                fr.PLAIN_VERSIONS)}
+        with (mock.patch.multiple(fr, **patch) if plain
+              else contextlib.nullcontext()):
+            model.zero_grad(set_to_none=True)
+            loss = loss_fn(model(x), y)
+            loss.backward()
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    def gaps(a, b):
+        return {n: float((g - b[n]).norm() / b[n].norm().clamp_min(1e-30))
+                for n, g in a.items()}
+
+    names = [r[0] for r in _FUSED_ROWS]
+    per_step = [20, 16, 20, 16]   # 16 blocks: conv1 + 4 downsamples, conv3
+    before = running()
+    for dtype, ulp in ((torch.float32, 2.0 ** -23), (torch.bfloat16,
+                                                     2.0 ** -8)):
+        model.to(dtype)
+        x = img.to(dtype)
+        fr.reset_counts()
+        k_loss, k_grads = loss_and_grads(x)
+        k_counts = [f.launches for f in fr.KERNEL_WRAPPERS]
+        if dtype is torch.float32:
+            after = running()
+        fr.reset_counts()
+        p_loss, p_grads = loss_and_grads(x, plain=True)
+        p_counts = [f.calls for f in fr.PLAIN_VERSIONS] + \
+            [f.launches for f in fr.KERNEL_WRAPPERS]
+        # the plain path against itself under +-1-ulp input noise: the
+        # gradients' own conditioning floor (as tests/test_fused_resnet.py
+        # measures it for the JAX package)
+        _, n_grads = loss_and_grads((img * (1 + ulp * sign)).to(dtype),
+                                    plain=True)
+        gap, chaos = gaps(k_grads, p_grads), gaps(n_grads, p_grads)
+        over = {n: gap[n] / max(RESNET_GRAD_TOL, 4 * chaos[n]) for n in gap}
+        worst = max(over, key=over.get)
+        strict = dtype is torch.float32
+        say("resnet50_train_check", config="resnet50 NHWC s2d fused_bn",
+            dtype=str(dtype).split(".")[-1], batch=batch, image=hw,
+            kernel_loss=k_loss, plain_loss=p_loss,
+            loss_diff=abs(k_loss - p_loss), loss_tol=RESNET_LOSS_TOL,
+            kernel_launches=dict(zip(names, k_counts)),
+            plain_run_counts=p_counts,
+            grad_gap_median=float(np.median(list(gap.values()))),
+            grad_gap_max=max(gap.values()),
+            grad_chaos_median=float(np.median(list(chaos.values()))),
+            grad_chaos_max=max(chaos.values()),
+            worst=[worst, gap[worst], chaos[worst]],
+            grad_tol=(f"{RESNET_GRAD_TOL}" if strict else
+                      f"max({RESNET_GRAD_TOL}, 4*chaos)"),
+            params=len(k_grads))
+        del k_grads, p_grads, n_grads
+        if k_counts != per_step or p_counts != per_step + [0, 0, 0, 0]:
+            fail(f"resnet50 check counts: kernel path {k_counts}, plain "
+                 f"path {p_counts}")
+        if not (math.isfinite(k_loss)
+                and abs(k_loss - p_loss) <= RESNET_LOSS_TOL):
+            fail(f"resnet50 kernel and plain losses {k_loss} / {p_loss}")
+        if (max(gap.values()) > RESNET_GRAD_TOL) if strict else \
+                over[worst] > 1.0:
+            fail(f"resnet50 kernel and plain gradients differ in {dtype}: "
+                 f"{worst} {gap[worst]} (chaos {chaos[worst]})")
+    means_moved = sum(not torch.equal(before[k], after[k].to(before[k]))
+                      for k in before if k.endswith("_mean"))
+    say("resnet50_running_stats", bn_layers=len(before) // 2,
+        means_moved_by_eager_forward=means_moved)
+    if means_moved != len(before) // 2:
+        fail(f"an eager training forward moved {means_moved} of "
+             f"{len(before) // 2} BN running means")
+    x = img.to(torch.bfloat16)
+    del img, sign
+    torch.cuda.empty_cache()
+
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.parameters(),
+                             multi_precision=True)
+    step = jit.TrainStep(model, opt, loss_fn)
+    step(x, y)                                  # warm-up
+    torch.cuda.synchronize()
+    before = running()
+    torch.cuda.reset_peak_memory_stats()
+    fr.reset_counts()
+    losses, walls = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: f.launches for n, f in zip(names, fr.KERNEL_WRAPPERS)}
+    plain_calls = sum(f.calls for f in fr.PLAIN_VERSIONS)
+    peak = torch.cuda.max_memory_allocated()
+    frozen = all(torch.equal(before[k], v) for k, v in running().items())
+    losses = [float(v) for v in losses]
+    wall_ms = float(np.median(walls))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    devev = [e for e in prof.key_averages()
+             if e.device_time_total > 0 and e.cpu_time_total == 0]
+    busy_ms = sum(e.device_time_total for e in devev) / 1e3
+    groups = {"fused 1x1 (csrc/fused_resnet.cu)": 0.0,
+              "conv (cuDNN)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
+    for e in devev:
+        key = e.key.lower()
+        group = ("fused 1x1 (csrc/fused_resnet.cu)" if any(
+                    t in key for t in ("mm_stats", "stats_finish",
+                                       "column_total")) else
+                 "conv (cuDNN)" if any(t in key for t in (
+                     "conv", "cudnn", "implicit", "wgrad", "dgrad")) else
+                 "GEMM (cuBLAS)" if any(t in key for t in (
+                     "gemm", "nvjet", "cutlass", "sm90_xmma")) else "other")
+        groups[group] += e.device_time_total / 1e3
+    top = sorted(devev, key=lambda e: -e.device_time_total)[:12]
+    say("train_resnet50", config="resnet50 NHWC s2d fused_bn",
+        dtype="bfloat16", batch=batch, image=hw,
+        optimizer="Momentum(0.1, 0.9, multi_precision=True)", losses=losses,
+        step_wall_ms=walls, median_step_ms=wall_ms,
+        images_per_s=batch / (wall_ms / 1e3), peak_memory_gib=peak / 2 ** 30,
+        launches=launches, launches_per_step={k: v / 10 for k, v in
+                                              launches.items()},
+        plain_calls=plain_calls, running_stats_frozen=frozen,
+        device_busy_ms=busy_ms,
+        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        device_launches_per_step=sum(e.count for e in devev),
+        device_ms_by_group=groups,
+        top_kernels=[dict(name=e.key[:60], ms=e.device_time_total / 1e3,
+                          calls=e.count) for e in top])
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"resnet50 train losses not finite: {losses}")
+    if list(launches.values()) != [10 * c for c in per_step]:
+        fail(f"resnet50 train launches {launches}, expected {per_step} "
+             "per step")
+    if plain_calls:
+        fail(f"plain versions ran {plain_calls} times on the resnet50 path")
+    if not frozen:
+        fail("TrainStep moved BN running statistics")
+    return launches
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -1366,6 +1734,7 @@ def main():
     rows.update(phase_int8_kernels(torch, timer))
     rows["flash_bwd"], rows["flash_fwd"]["train_shape"] = \
         phase_train_kernels(torch, timer)
+    rows.update(phase_fused_resnet_kernels(torch, timer))
     model = phase_model(torch)
     prompts = _serve_prompts(model)
     paths = []
@@ -1384,6 +1753,8 @@ def main():
     del model
     torch.cuda.empty_cache()
     paths.append(("train", phase_train(torch)))
+    torch.cuda.empty_cache()
+    paths.append(("train_resnet50", phase_train_resnet50(torch)))
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths
                    if name in counts}

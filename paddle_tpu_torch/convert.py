@@ -11,9 +11,13 @@ imports no JAX; the caller produces the arrays, e.g.
 
 ``load_reference_optimizer_state(optimizer, state)`` takes the JAX
 ``Optimizer.state_dict()`` (``_step_count``, ``param_{i}`` dicts of
-moments and fp32 masters as numpy arrays, ``LR_Scheduler``) and loads
-it into the port's optimizer over the same parameter list, so a
-resumed run computes the same next step.
+moments, velocities and fp32 masters as numpy arrays, ``LR_Scheduler``)
+and loads it into the port's optimizer over the same parameter list, so
+a resumed run computes the same next step. A master that is ``None``
+(SGD and Momentum before their first update) is left out: the port
+makes it from the parameter at that update, as the JAX package does.
+Batch norm's running statistics are buffers of the model's state and
+cross with ``load_reference_state``.
 """
 from __future__ import annotations
 
@@ -73,6 +77,8 @@ def load_reference_optimizer_state(optimizer, state: Mapping) -> None:
         entry = {}
         for name, a in state[key].items():
             a = np.asarray(a)
+            if a.dtype == object and a.shape == () and a.item() is None:
+                continue       # a master not made yet (``np.asarray(None)``)
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{key}.{name}: shape {tuple(a.shape)} "
                                  f"!= {tuple(p.shape)}")

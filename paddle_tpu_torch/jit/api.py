@@ -16,6 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..nn.layers_common import frozen_running_stats
 from ..optimizer.lr import LRScheduler
 
 
@@ -40,9 +41,10 @@ class TrainStep:
     ``skip_nonfinite``, a step whose loss is not finite leaves the
     parameters and the optimizer state as they were and still returns
     the loss (this reads the loss on the host once per step). The step
-    count and a per-iteration LR schedule advance on every call, as in
-    the JAX package. ``donate`` is accepted for the JAX signature: the
-    update is in place either way.
+    count and a per-iteration LR schedule advance on every call, and
+    batch norm's running statistics stay as they were, as in the JAX
+    package (an eager training forward updates them). ``donate`` is
+    accepted for the JAX signature: the update is in place either way.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer, loss_fn: Callable,
@@ -75,7 +77,10 @@ class TrainStep:
         batch = _to_device(batch, self.device)
         for p in self._params:
             p.grad = None
-        loss = self.loss_fn(self.model(*batch[:-1]), batch[-1])
+        # the JAX package traces this forward, so batch norm leaves its
+        # running statistics as they were: freeze them here too
+        with frozen_running_stats():
+            loss = self.loss_fn(self.model(*batch[:-1]), batch[-1])
         loss.backward()
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.grad gives it (AdamW still decays it and moves its moments)

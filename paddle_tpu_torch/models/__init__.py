@@ -1,2 +1,4 @@
 from .gpt import (CONFIGS, GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
                   gpt)
+from .resnet import (ResNet, resnet18, resnet34, resnet50,  # noqa: F401
+                     resnet101, resnet152)

@@ -1,2 +1,5 @@
 from . import functional  # noqa: F401
-from .layers_common import Dropout, Embedding, LayerNorm, Linear  # noqa: F401
+from .container import Sequential  # noqa: F401
+from .layers_common import (AdaptiveAvgPool2D, BatchNorm2D,  # noqa: F401
+                            Conv2D, CrossEntropyLoss, Dropout, Embedding,
+                            LayerNorm, Linear, MaxPool2D, ReLU)

@@ -1,0 +1,4 @@
+"""``Sequential`` (the JAX package's ``nn/container.py``): children are
+named ``0``, ``1``, ..., so a block's keys read
+``layer1.0.downsample.0.weight`` in both packages."""
+from torch.nn import Sequential  # noqa: F401

@@ -1,4 +1,4 @@
-"""Normalization functionals."""
+"""Normalization functionals (the JAX package's ``nn/functional/norm.py``)."""
 from __future__ import annotations
 
 import torch
@@ -25,3 +25,47 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     if bias is not None:
         out = out + bias
     return out
+
+
+def _channel_shape(x, data_format):
+    """The channel axis of ``x`` and the shape a [C] vector broadcasts
+    in (channels at 1 for NC* layouts, last for N*C layouts)."""
+    ch = 1 if data_format.startswith("NC") and x.dim() > 1 else x.dim() - 1
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    return ch, shape
+
+
+def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
+                     epsilon: float = 1e-5, data_format: str = "NCHW"):
+    """BN with the running statistics: (x - mean) / sqrt(var + eps),
+    then weight and bias, in the promoted dtype of x and the stats."""
+    _, shape = _channel_shape(x, data_format)
+    out = (x - running_mean.reshape(shape)) / torch.sqrt(
+        running_var.reshape(shape) + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def batch_norm_train(x, weight=None, bias=None, epsilon: float = 1e-5,
+                     data_format: str = "NCHW"):
+    """BN with the batch statistics. Returns (out, batch mean, batch
+    var); the running-statistic update is the layer's. Statistics and
+    the normalization are fp32 for bf16 inputs, the normalized value is
+    cast to the input dtype, then scaled and shifted in that dtype (the
+    JAX package's order of rounding)."""
+    ch, shape = _channel_shape(x, data_format)
+    axes = tuple(a for a in range(x.dim()) if a != ch)
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    mean = xf.mean(dim=axes)
+    var = xf.var(dim=axes, unbiased=False)
+    out = ((xf - mean.reshape(shape))
+           / torch.sqrt(var.reshape(shape) + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out, mean, var

@@ -70,7 +70,8 @@ class Optimizer:
         if callable(wd) and not isinstance(wd, float):
             return wd(g, p)
         if isinstance(wd, float) and wd and not self._decoupled_decay():
-            return g + wd * p
+            # the coefficient in p's dtype, as JAX's weak-typed scalar
+            return g + torch.tensor(wd, dtype=p.dtype, device=p.device) * p
         return g
 
     @torch.no_grad()

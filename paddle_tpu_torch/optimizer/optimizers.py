@@ -1,16 +1,77 @@
-"""Adam and AdamW (the JAX package's ``optimizer/optimizers.py:124-199``).
+"""SGD, Momentum, Adam and AdamW (the JAX package's
+``optimizer/optimizers.py:28-77, 124-199``).
 
-Moments are fp32 whatever the parameter's dtype. With
+Moments and velocities are fp32 whatever the parameter's dtype. With
 ``multi_precision``, a bf16 or fp16 parameter also gets an fp32 master
-copy, made from the parameter when its state is created; the update
-runs on the master and the parameter receives its rounding. The other
-optimizers of the JAX package are not ported yet (ROADMAP A4).
+copy, made from the parameter (Adam and AdamW when the state is
+created, SGD and Momentum at their first update, where the JAX
+package's state holds ``None`` until then); the update runs on the
+master and the parameter receives its rounding. The other optimizers
+of the JAX package are not ported yet (ROADMAP A4).
 """
 from __future__ import annotations
 
 import torch
 
 from .optimizer import Optimizer
+
+
+def _low_precision(param):
+    return param.dtype in (torch.bfloat16, torch.float16)
+
+
+def _step_master(p, state, upd):
+    """master -= upd (the master made from p at the first update) and
+    p = master rounded to p's dtype."""
+    master = state.get("master")
+    if master is None:
+        master = state["master"] = p.detach().float().clone()
+    master.sub_(upd)
+    p.copy_(master)
+
+
+class SGD(Optimizer):
+    """p -= lr * g, in p's dtype (on the fp32 master with
+    ``multi_precision``)."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision=multi_precision)
+
+    def _update(self, p, g, state, lr, step):
+        if self.multi_precision and _low_precision(p):
+            _step_master(p, state, lr * g.float())
+            return
+        p.copy_(p - lr * g)
+
+
+class Momentum(Optimizer):
+    """v = momentum*v + g (fp32); p -= lr * v, or lr * (g + momentum*v)
+    with ``use_nesterov``."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision=multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, param):
+        return {"velocity": torch.zeros(param.shape, dtype=torch.float32,
+                                        device=param.device)}
+
+    def _update(self, p, g, state, lr, step):
+        g32 = g.float()
+        v = state["velocity"]
+        v.mul_(self._momentum).add_(g32)
+        upd = lr * ((g32 + self._momentum * v) if self._nesterov else v)
+        if self.multi_precision and _low_precision(p):
+            _step_master(p, state, upd)
+            return
+        p.copy_(p.float() - upd)
 
 
 class _AdamBase(Optimizer):

@@ -625,3 +625,150 @@ def test_int8_engines_on_card_match_cpu(dev):
         assert fa.flash_attention_chunk_plain.calls_int8 == 0
         for a, b in zip(*outs):
             np.testing.assert_array_equal(b, a)
+
+
+# ------------------------------------------------ fused ResNet (rows 13-16)
+#
+# Tolerances, per tensor against the plain version on the same inputs:
+# rounded outputs (y, dx) within one output ulp of the element plus 1e-3
+# of the tensor's largest magnitude (bf16: 2^-7 relative; fp32: 2^-20),
+# for fp32 sums taken in another order; the fp32 sums (dw, dscale,
+# dshift) within 1e-3 of the tensor's largest magnitude; per channel the
+# mean within 1e-3*sqrt(var) + 1e-6 and the var within 1e-3*var + 1e-6.
+
+_ULP = {torch.float32: 2.0 ** -20, torch.bfloat16: 2.0 ** -7}
+
+
+def _close_scaled(out, ref, ulp=None):
+    out, ref = out.float(), ref.float()
+    lim = (0.0 if ulp is None else ulp) * ref.abs() \
+        + 1e-3 * ref.abs().max()
+    bad = ~((out - ref).abs() <= lim)
+    assert int(bad.sum()) == 0, float((out - ref).abs().max())
+
+
+def _close_stats(mean, var, ref_mean, ref_var):
+    assert bool(((mean - ref_mean).abs()
+                 <= 1e-3 * ref_var.sqrt() + 1e-6).all())
+    assert bool(((var - ref_var).abs() <= 1e-3 * ref_var + 1e-6).all())
+
+
+def _fused_inputs(gen, m, k, n, dtype, dev):
+    def r(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * s)
+    x = (r(m, k) + 0.5).to(dtype)
+    w2 = r(k, n, s=k ** -0.5).to(dtype)
+    scale = (r(k).abs() + 0.5)
+    shift = r(k, s=0.3)
+    return x, w2, scale, shift, r(m, n).to(dtype), r(n), r(n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("m,k,n", [
+    (300, 64, 256),      # M off the 128-row tile
+    (98, 256, 64),
+    (131, 2048, 64),     # deep contraction
+    (77, 64, 2048),      # wide output
+    (1000, 256, 256),
+    (72, 40, 24),        # K, N off the 16 / 64 tiles
+])
+def test_fused_resnet_kernels_match_plain(dev, dtype, prologue, m, k, n):
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    x, w2, scale, shift, dy, dmean, dvar = _fused_inputs(gen, m, k, n, dtype,
+                                                         dev)
+    fr.reset_counts()
+    pro = (scale, shift) if prologue else ()
+    fwd = fr.bn_relu_matmul_bn_stats_fwd if prologue \
+        else fr.matmul_bn_stats_fwd
+    fwd_args = (x, *pro, w2)
+    y, mean, var = fwd(*fwd_args)
+    again = fwd(*fwd_args)
+    torch.cuda.synchronize()
+    assert fwd.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip((y, mean, var), again))
+    plain = fr.bn_relu_matmul_bn_stats_fwd_plain if prologue \
+        else fr.matmul_bn_stats_fwd_plain
+    ry, rmean, rvar = plain(*fwd_args)
+    _close_scaled(y, ry, _ULP[dtype])
+    _close_stats(mean, var, rmean, rvar)
+
+    perch, dvar2 = fr._stats_cotangent_coeffs(dmean, dvar, m)
+    bwd = fr.bn_relu_matmul_bn_stats_bwd if prologue \
+        else fr.matmul_bn_stats_bwd
+    bwd_args = (dy, ry, x, *pro, w2, perch, dvar2, rmean)
+    grads = bwd(*bwd_args)
+    again = bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert bwd.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref = (fr.bn_relu_matmul_bn_stats_bwd_plain if prologue
+           else fr.matmul_bn_stats_bwd_plain)(*bwd_args)
+    _close_scaled(grads[0], ref[0], _ULP[dtype])
+    for g, r in zip(grads[1:], ref[1:]):
+        assert g.dtype == torch.float32
+        _close_scaled(g, r)
+    # the plain versions ran only where this test called them
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == \
+        [int(not prologue), int(prologue), int(not prologue), int(prologue)]
+
+
+def test_fused_resnet_autograd_and_stride2_on_card(dev):
+    """conv1x1_bn_stats at stride 2 and bn_relu_conv1x1_bn_stats through
+    autograd, all three outputs consumed, against the same graph through
+    the plain versions."""
+    from unittest import mock
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 9, 11, 64), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    w_ds = (torch.randn((256, 64, 1, 1), generator=gen, device=dev) / 8) \
+        .to(torch.bfloat16)
+    w3 = (torch.randn((64, 256, 1, 1), generator=gen, device=dev) / 16) \
+        .to(torch.bfloat16)
+
+    def run():
+        xs = x.clone().requires_grad_()
+        ws, wt = w_ds.clone().requires_grad_(), w3.clone().requires_grad_()
+        y, m, v = fr.conv1x1_bn_stats(xs, ws, stride=2)
+        assert y.shape == (2, 5, 6, 256)
+        s, t = fr.bn_fold(None, None, m, v, 1e-5)
+        y3, m3, v3 = fr.bn_relu_conv1x1_bn_stats(y, s, t, wt)
+        loss = (y3.float() ** 2).mean() + m3.sum() + 0.5 * v3.sum()
+        loss.backward()
+        return [loss.detach(), xs.grad, ws.grad, wt.grad]
+
+    fr.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    assert [f.launches for f in fr.KERNEL_WRAPPERS] == [1, 1, 1, 1]
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == [0, 0, 0, 0]
+    with mock.patch.object(fr, "matmul_bn_stats_fwd",
+                           fr.matmul_bn_stats_fwd_plain), \
+            mock.patch.object(fr, "bn_relu_matmul_bn_stats_fwd",
+                              fr.bn_relu_matmul_bn_stats_fwd_plain), \
+            mock.patch.object(fr, "matmul_bn_stats_bwd",
+                              fr.matmul_bn_stats_bwd_plain), \
+            mock.patch.object(fr, "bn_relu_matmul_bn_stats_bwd",
+                              fr.bn_relu_matmul_bn_stats_bwd_plain):
+        ref = run()
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == [1, 1, 1, 1]
+    assert abs(float(out[0]) - float(ref[0])) <= 1e-2 * abs(float(ref[0]))
+    for g, r in zip(out[1:], ref[1:]):
+        g, r = g.float(), r.float()
+        assert float((g - r).norm() / r.norm()) < 2e-2
+    # the stride-2 rows are the only ones with a gradient
+    assert float(out[1][:, 1::2].abs().max()) == 0.0
+
+
+def test_fused_resnet_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    x = torch.zeros((64, 12), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fr.matmul_bn_stats_fwd(x, torch.zeros((12, 64), device=dev,
+                                              dtype=torch.bfloat16))
+    x = torch.zeros((64, 16), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or"):
+        fr.matmul_bn_stats_fwd(x, torch.zeros((16, 64), device=dev,
+                                              dtype=torch.float16))
