@@ -18,9 +18,10 @@ int8 cache's logits to the wide cache's, trains gpt2-small with
 ``bench.py``'s recipe (AdamW with fp32 masters, the fused LM-head loss,
 ``TrainStep``) at batch 16 x 1024 tokens, then trains ResNet-50 with
 ``bench.py``'s fused conv+BN recipe (NHWC, bf16, Momentum, ``TrainStep``)
-at batch 128 x 224 x 224 through the 1x1 conv + BN-stats kernels, and
-checks that each path went through its kernels and never through a
-plain version. Phases
+at batch 128 x 224 x 224 through the 1x1 and the 3x3 conv + BN-stats
+kernels (and times the same recipe with its 3x3s on cuDNN), and checks
+that each path went through its kernels and never through a plain
+version. Phases
 print one line each; the line before the last is the kernel table as
 JSON, and the last line is ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero with no result line. Imports neither JAX
@@ -893,36 +894,6 @@ def phase_fused_resnet_kernels(torch, timer):
                 torch.matmul(torch.relu(pre).to(bf16).t(), e),
                 (gated * x.float()).sum(0), gated.sum(0))
 
-    def check(name, shape, outs, refs, stats=False):
-        errs, n_bad = {}, 0
-        labels = ("y", "mean", "var") if stats else \
-            ("dx", "dw", "dscale", "dshift")
-        for i, (label, a, r) in enumerate(zip(labels, outs, refs)):
-            a, r = a.float(), r.float()
-            diff = (a - r).abs()
-            if i == 0:
-                lim = ULP_BF16 * r.abs() + SCALED_FRAC * r.abs().max()
-            elif stats and label == "mean":
-                lim = STATS_FRAC * refs[2].float().sqrt() + 1e-6
-            elif stats:
-                lim = STATS_FRAC * r + 1e-6
-            else:
-                lim = SUM_FRAC * r.abs().max().expand_as(r)
-            bad = int((~(diff <= lim)).sum())
-            errs[label] = [float(diff.max()),
-                           float(diff.max() / r.abs().max().clamp_min(1e-30)),
-                           bad]
-            n_bad += bad
-        say("kernel_check", kernel=name, shape=list(shape), dtype="bfloat16",
-            errors={k: dict(max_abs=v[0], over_max_plain=v[1], out_of_tol=v[2])
-                    for k, v in errs.items()},
-            tol=f"{labels[0]} {ULP_BF16}*|plain|+{SCALED_FRAC}*max|plain|; "
-            + ("mean 1e-3*sqrt(var)+1e-6, var 1e-3*var+1e-6" if stats else
-               f"dw/dscale/dshift {SUM_FRAC}*max|plain|"))
-        if n_bad:
-            fail(f"{name} disagrees with its plain version at {shape}")
-        return errs[labels[0]][0]
-
     rows = {}
     for name, pro, bwd, replaces in _FUSED_ROWS:
         kernel = {(False, False): fr.matmul_bn_stats_fwd,
@@ -945,8 +916,8 @@ def phase_fused_resnet_kernels(torch, timer):
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(outs, again)):
                 fail(f"{name} is not bitwise repeatable at {(m, k, n)}")
-            worst = max(worst, check(name, (m, k, n), outs,
-                                     plain(*sets[0]), stats=not bwd))
+            worst = max(worst, _check_fused(name, (m, k, n), outs,
+                                            plain(*sets[0]), not bwd))
             del outs, again
             ms = timer.ms(kernel, sets)
             plain_ms = timer.ms(plain, sets, n=5)
@@ -967,6 +938,176 @@ def phase_fused_resnet_kernels(torch, timer):
             replaces=replaces,
             shape=f"M={first['m']}, K={first['k']} -> N={first['n']} bf16 "
                   "(ResNet-50 layer1 at b128)",
+            max_abs_err=worst, ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            library_ms=first["library_ms"], by_shape=by_shape)
+    return rows
+
+
+_CONV3_ROWS = (  # name, backward, TPU kernel it replaces
+    ("conv3x3_bn_stats", False, "paddle_tpu/kernels/fused_resnet.py:595"),
+    ("conv3x3_bn_stats_bwd", True, "paddle_tpu/kernels/fused_resnet.py:628"),
+)
+# ResNet-50 at b128 224x224: layer1's stride-1 3x3 (56x56, 64 -> 64) and
+# layer4's (7x7, 512 -> 512)
+_CONV3_SHAPES = ((128, 56, 56, 64, 64), (128, 7, 7, 512, 512))
+
+
+def _conv3x3_bound(n, h, w, c, o, bwd):
+    """Least time for one fused 3x3 call, by the rule of
+    ``_fused_bound``: each input read once and each output written once
+    at the HBM rate, against the products at the bf16 tensor rate plus
+    the elementwise work at the fp32 rate."""
+    m, k = n * h * w, 9 * c
+    if bwd:
+        n_bytes = 2 * (2 * m * o + 2 * m * c + k * o) + 4 * k * o \
+            + 12 * o + 16 * c
+        flops, ew = 4 * m * k * o, 4 * m * o + 7 * m * c
+    else:
+        n_bytes = 2 * (m * c + k * o + m * o) + 8 * o + 8 * c
+        flops, ew = 2 * m * k * o, 3 * m * o + 3 * m * c
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS + ew / PEAK_FLOPS_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _check_fused(name, shape, outs, refs, stats):
+    """Each output of a fused kernel against its plain version by the
+    rules of rows 13-16: y and dx within ULP_BF16*|plain| +
+    SCALED_FRAC*max|plain|, per channel the mean within
+    STATS_FRAC*sqrt(var) + 1e-6 and the var within STATS_FRAC*var +
+    1e-6, the fp32 sums within SUM_FRAC*max|plain|. Fails the run on any
+    element out of bounds; returns the first output's max |error|."""
+    errs, n_bad = {}, 0
+    labels = ("y", "mean", "var") if stats else \
+        ("dx", "dw", "dscale", "dshift")
+    for i, (label, a, r) in enumerate(zip(labels, outs, refs)):
+        a, r = a.float(), r.float()
+        diff = (a - r).abs()
+        if i == 0:
+            lim = ULP_BF16 * r.abs() + SCALED_FRAC * r.abs().max()
+        elif stats and label == "mean":
+            lim = STATS_FRAC * refs[2].float().sqrt() + 1e-6
+        elif stats:
+            lim = STATS_FRAC * r + 1e-6
+        else:
+            lim = SUM_FRAC * r.abs().max().expand_as(r)
+        bad = int((~(diff <= lim)).sum())
+        errs[label] = [float(diff.max()),
+                       float(diff.max() / r.abs().max().clamp_min(1e-30)),
+                       bad]
+        n_bad += bad
+    say("kernel_check", kernel=name, shape=list(shape), dtype="bfloat16",
+        errors={k: dict(max_abs=v[0], over_max_plain=v[1], out_of_tol=v[2])
+                for k, v in errs.items()},
+        tol=f"{labels[0]} {ULP_BF16}*|plain|+{SCALED_FRAC}*max|plain|; "
+        + ("mean 1e-3*sqrt(var)+1e-6, var 1e-3*var+1e-6" if stats else
+           f"dw/dscale/dshift {SUM_FRAC}*max|plain|"))
+    if n_bad:
+        fail(f"{name} disagrees with its plain version at {shape}")
+    return errs[labels[0]][0]
+
+
+def phase_fused_conv3x3_kernels(torch, timer):
+    """Rows 17-18 (the fused 3x3 conv + BN-stats kernel and its backward)
+    against their plain versions in bf16 at ResNet-50's layer1 and
+    layer4 3x3 shapes, with a shift that makes relu(shift) > 0 on some
+    channels (the border must read 0, not relu(shift)), each kernel twice
+    on the same inputs (the bits must repeat), then timed beside the
+    plain version and the PyTorch yardstick, which the port never calls:
+    the prologue in torch, ``F.conv2d`` on channels-last bf16 (cuDNN)
+    and ``torch.var_mean``; for the backward, ``torch.autograd.grad`` of
+    the same graph."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    bf16 = torch.bfloat16
+
+    def inputs(n, h, w, c, o):
+        def r(*shape, s=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * s
+        x = (r(n, h, w, c) + 0.5).to(bf16)
+        w9 = r(9 * c, o, s=(9 * c) ** -0.5).to(bf16)
+        scale, shift = r(c).abs() + 0.5, r(c, s=0.3) + 0.1
+        y, mean, _ = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+        perch, dvar2 = fr._stats_cotangent_coeffs(r(o), r(o), n * h * w)
+        return dict(x=x, w9=w9, scale=scale, shift=shift, y=y, mean=mean,
+                    dy=r(n, h, w, o, s=1e-2).to(bf16), perch=perch,
+                    dvar2=dvar2, dmean=r(o), dvar=r(o))
+
+    def fwd_args(t):
+        return t["x"], t["scale"], t["shift"], t["w9"]
+
+    def bwd_args(t):
+        return (t["dy"], t["y"], t["x"], t["scale"], t["shift"], t["w9"],
+                t["perch"], t["dvar2"], t["mean"])
+
+    def lib_inputs(t, grad=False):
+        """x, scale, shift and the channels-last [O, C, 3, 3] weight."""
+        c, o = t["x"].shape[-1], t["w9"].shape[1]
+        w = t["w9"].reshape(3, 3, c, o).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return [v.detach().clone().requires_grad_(grad) for v in
+                (t["x"], t["scale"], t["shift"], w)]
+
+    def lib_graph(t):
+        """The yardstick's forward on t, differentiable in its inputs:
+        (outputs, inputs, cotangents) for ``lib_bwd``."""
+        ins = lib_inputs(t, grad=True)
+        return lib_fwd(*ins), ins, (t["dy"].permute(0, 3, 1, 2), t["dvar"],
+                                    t["dmean"])
+
+    def lib_fwd(x, scale, shift, w):
+        a = torch.relu(x.float() * scale + shift).to(bf16)
+        y = TF.conv2d(a.permute(0, 3, 1, 2), w, padding=1)
+        return (y, *torch.var_mean(y.float(), (0, 2, 3), correction=0))
+
+    def lib_bwd(outs, ins, cts):
+        return torch.autograd.grad(outs, ins, cts, retain_graph=True)
+
+    rows = {}
+    for name, bwd, replaces in _CONV3_ROWS:
+        kernel = fr.conv3x3_bn_stats_bwd if bwd else fr.conv3x3_bn_stats_fwd
+        plain = fr.PLAIN_VERSIONS[fr.KERNEL_WRAPPERS.index(kernel)]
+        args_of = bwd_args if bwd else fwd_args
+        worst, by_shape = 0.0, []
+        for shape in _CONV3_SHAPES:
+            sets = [inputs(*shape) for _ in range(3)]  # more than L2 holds
+            args = [args_of(t) for t in sets]
+            outs = kernel(*args[0])
+            again = kernel(*args[0])
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                fail(f"{name} is not bitwise repeatable at {shape}")
+            worst = max(worst, _check_fused(name, shape, outs,
+                                            plain(*args[0]), not bwd))
+            del outs, again
+            ms = timer.ms(kernel, args)
+            plain_ms = timer.ms(plain, args, n=5)
+            if bwd:
+                graphs = [lib_graph(t) for t in sets]
+                lib_ms = timer.ms(lib_bwd, graphs, n=10)
+                del graphs
+            else:
+                lib_ms = timer.ms(lib_fwd, [lib_inputs(t) for t in sets])
+            bms, by = _conv3x3_bound(*shape, bwd)
+            by_shape.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=bms,
+                                 bound_by=by))
+            say("kernel_time", kernel=name, shape=list(shape), kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+            del sets, args
+            torch.cuda.empty_cache()
+        first = by_shape[0]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/fused_conv3x3.cu",
+            replaces=replaces,
+            shape="x [128,56,56,64], w9 [576,64] bf16 (ResNet-50 layer1 at "
+                  "b128)",
             max_abs_err=worst, ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=first["library_ms"], by_shape=by_shape)
@@ -1543,16 +1684,20 @@ def phase_train_resnet50(torch):
     versions from the same weights, in fp32 and then in bf16 (these
     eager forwards move BN's running statistics); then a warm-up step,
     10 counted TrainSteps (running statistics frozen, as under the JAX
-    TrainStep) and one profiled."""
+    TrainStep) and one profiled, on the reference's default route (the
+    3x3 of the 13 stride-1 blocks through the fused 3x3 kernels), and
+    the same once more with the port's ``_PALLAS3X3`` set to False for
+    this run (those 3x3s on cuDNN), as the route's yardstick."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import jit, nn, optimizer
     from paddle_tpu_torch.kernels import fused_resnet as fr
-    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.models import resnet as resnet_mod
     dev = torch.device("cuda", 0)
     batch, hw = 128, 224
-    model = resnet50(num_classes=1000, data_format="NHWC",
-                     stem_space_to_depth=True, fused_bn=True, device=dev,
-                     generator=torch.Generator(device=dev).manual_seed(SEED))
+    model = resnet_mod.resnet50(
+        num_classes=1000, data_format="NHWC", stem_space_to_depth=True,
+        fused_bn=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
     model.train()
     rng = np.random.RandomState(SEED)
     img = torch.as_tensor(rng.randn(batch, 3, hw, hw).astype(np.float32),
@@ -1586,8 +1731,10 @@ def phase_train_resnet50(torch):
         return {n: float((g - b[n]).norm() / b[n].norm().clamp_min(1e-30))
                 for n, g in a.items()}
 
-    names = [r[0] for r in _FUSED_ROWS]
-    per_step = [20, 16, 20, 16]   # 16 blocks: conv1 + 4 downsamples, conv3
+    names = [r[0] for r in _FUSED_ROWS + _CONV3_ROWS]
+    # 16 blocks: conv1 + 4 downsamples, conv3; the 3x3 of the 13 stride-1
+    # blocks (the first block of layer2-4 has stride 2: cuDNN)
+    per_step = [20, 16, 20, 16, 13, 13]
     before = running()
     for dtype, ulp in ((torch.float32, 2.0 ** -23), (torch.bfloat16,
                                                      2.0 ** -8)):
@@ -1626,7 +1773,7 @@ def phase_train_resnet50(torch):
                       f"max({RESNET_GRAD_TOL}, 4*chaos)"),
             params=len(k_grads))
         del k_grads, p_grads, n_grads
-        if k_counts != per_step or p_counts != per_step + [0, 0, 0, 0]:
+        if k_counts != per_step or p_counts != per_step + [0] * 6:
             fail(f"resnet50 check counts: kernel path {k_counts}, plain "
                  f"path {p_counts}")
         if not (math.isfinite(k_loss)
@@ -1651,66 +1798,90 @@ def phase_train_resnet50(torch):
                              parameters=model.parameters(),
                              multi_precision=True)
     step = jit.TrainStep(model, opt, loss_fn)
-    step(x, y)                                  # warm-up
-    torch.cuda.synchronize()
-    before = running()
-    torch.cuda.reset_peak_memory_stats()
-    fr.reset_counts()
-    losses, walls = [], []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        losses.append(step(x, y))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    launches = {n: f.launches for n, f in zip(names, fr.KERNEL_WRAPPERS)}
-    plain_calls = sum(f.calls for f in fr.PLAIN_VERSIONS)
-    peak = torch.cuda.max_memory_allocated()
-    frozen = all(torch.equal(before[k], v) for k, v in running().items())
-    losses = [float(v) for v in losses]
-    wall_ms = float(np.median(walls))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def timed_steps(route):
+        """A warm-up step, 10 counted TrainSteps and one profiled."""
         step(x, y)
         torch.cuda.synchronize()
-    devev = [e for e in prof.key_averages()
-             if e.device_time_total > 0 and e.cpu_time_total == 0]
-    busy_ms = sum(e.device_time_total for e in devev) / 1e3
-    groups = {"fused 1x1 (csrc/fused_resnet.cu)": 0.0,
-              "conv (cuDNN)": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
-    for e in devev:
-        key = e.key.lower()
-        group = ("fused 1x1 (csrc/fused_resnet.cu)" if any(
-                    t in key for t in ("mm_stats", "stats_finish",
-                                       "column_total")) else
-                 "conv (cuDNN)" if any(t in key for t in (
-                     "conv", "cudnn", "implicit", "wgrad", "dgrad")) else
-                 "GEMM (cuBLAS)" if any(t in key for t in (
-                     "gemm", "nvjet", "cutlass", "sm90_xmma")) else "other")
-        groups[group] += e.device_time_total / 1e3
-    top = sorted(devev, key=lambda e: -e.device_time_total)[:12]
-    say("train_resnet50", config="resnet50 NHWC s2d fused_bn",
-        dtype="bfloat16", batch=batch, image=hw,
-        optimizer="Momentum(0.1, 0.9, multi_precision=True)", losses=losses,
-        step_wall_ms=walls, median_step_ms=wall_ms,
-        images_per_s=batch / (wall_ms / 1e3), peak_memory_gib=peak / 2 ** 30,
-        launches=launches, launches_per_step={k: v / 10 for k, v in
-                                              launches.items()},
-        plain_calls=plain_calls, running_stats_frozen=frozen,
-        device_busy_ms=busy_ms,
-        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-        device_launches_per_step=sum(e.count for e in devev),
-        device_ms_by_group=groups,
-        top_kernels=[dict(name=e.key[:60], ms=e.device_time_total / 1e3,
-                          calls=e.count) for e in top])
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"resnet50 train losses not finite: {losses}")
+        before = running()
+        torch.cuda.reset_peak_memory_stats()
+        fr.reset_counts()
+        losses, walls = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            losses.append(step(x, y))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = {n: f.launches for n, f in zip(names, fr.KERNEL_WRAPPERS)}
+        plain_calls = sum(f.calls for f in fr.PLAIN_VERSIONS)
+        peak = torch.cuda.max_memory_allocated()
+        frozen = all(torch.equal(before[k], v) for k, v in running().items())
+        losses = [float(v) for v in losses]
+        wall_ms = float(np.median(walls))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(x, y)
+            torch.cuda.synchronize()
+        devev = [e for e in prof.key_averages()
+                 if e.device_time_total > 0 and e.cpu_time_total == 0]
+        busy_ms = sum(e.device_time_total for e in devev) / 1e3
+        groups = dict.fromkeys((
+            "fused 1x1 (csrc/fused_resnet.cu)",
+            "fused 3x3 (csrc/fused_conv3x3.cu)",
+            "fixed-order column totals (both)", "conv (cuDNN)",
+            "GEMM (cuBLAS)", "other"), 0.0)
+        for e in devev:
+            key = e.key.lower()
+            group = ("fused 3x3 (csrc/fused_conv3x3.cu)" if any(
+                        t in key for t in ("conv3x3", "tilecounts")) else
+                     "fused 1x1 (csrc/fused_resnet.cu)" if any(
+                        t in key for t in ("mm_stats", "rowtiles")) else
+                     "fixed-order column totals (both)"
+                     if "column_total" in key else
+                     "conv (cuDNN)" if any(t in key for t in (
+                         "conv", "cudnn", "implicit", "wgrad", "dgrad")) else
+                     "GEMM (cuBLAS)" if any(t in key for t in (
+                         "gemm", "nvjet", "cutlass", "sm90_xmma")) else
+                     "other")
+            groups[group] += e.device_time_total / 1e3
+        top = sorted(devev, key=lambda e: -e.device_time_total)[:12]
+        say("train_resnet50", config="resnet50 NHWC s2d fused_bn",
+            route=route, dtype="bfloat16", batch=batch, image=hw,
+            optimizer="Momentum(0.1, 0.9, multi_precision=True)",
+            losses=losses, step_wall_ms=walls, median_step_ms=wall_ms,
+            images_per_s=batch / (wall_ms / 1e3),
+            peak_memory_gib=peak / 2 ** 30, launches=launches,
+            launches_per_step={k: v / 10 for k, v in launches.items()},
+            plain_calls=plain_calls, running_stats_frozen=frozen,
+            device_busy_ms=busy_ms,
+            device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+            device_launches_per_step=sum(e.count for e in devev),
+            device_ms_by_group=groups,
+            top_kernels=[dict(name=e.key[:60], ms=e.device_time_total / 1e3,
+                              calls=e.count) for e in top])
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"resnet50 train losses not finite ({route}): {losses}")
+        if plain_calls:
+            fail(f"plain versions ran {plain_calls} times on the resnet50 "
+                 f"path ({route})")
+        if not frozen:
+            fail(f"TrainStep moved BN running statistics ({route})")
+        return launches, wall_ms
+
+    # the main path: the reference's default route, the fused 3x3 kernels
+    launches, on_ms = timed_steps("fused 3x3 kernels")
     if list(launches.values()) != [10 * c for c in per_step]:
         fail(f"resnet50 train launches {launches}, expected {per_step} "
              "per step")
-    if plain_calls:
-        fail(f"plain versions ran {plain_calls} times on the resnet50 path")
-    if not frozen:
-        fail("TrainStep moved BN running statistics")
+    # the yardstick: the same recipe with the 3x3s on cuDNN, the port's
+    # own switch set for this run only
+    with mock.patch.object(resnet_mod, "_PALLAS3X3", False):
+        off, off_ms = timed_steps("cuDNN 3x3 (_PALLAS3X3 False)")
+    if list(off.values()) != [10 * c for c in per_step[:4]] + [0, 0]:
+        fail(f"resnet50 cuDNN-route launches {off}")
+    say("resnet50_3x3_route", fused_step_ms=on_ms,
+        fused_images_per_s=batch / (on_ms / 1e3), cudnn_step_ms=off_ms,
+        cudnn_images_per_s=batch / (off_ms / 1e3))
     return launches
 
 
@@ -1735,6 +1906,7 @@ def main():
     rows["flash_bwd"], rows["flash_fwd"]["train_shape"] = \
         phase_train_kernels(torch, timer)
     rows.update(phase_fused_resnet_kernels(torch, timer))
+    rows.update(phase_fused_conv3x3_kernels(torch, timer))
     model = phase_model(torch)
     prompts = _serve_prompts(model)
     paths = []

@@ -56,9 +56,7 @@
 // Shapes: any M >= 1; K and N multiples of 8 (row starts stay 16-byte
 // aligned). Ragged edges are masked in the kernels. Element types:
 // float32 and bfloat16 (dtype 0 / 1), the same for x, w, y, dy and dx.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_common.cuh"
 
 namespace {
 
@@ -69,75 +67,6 @@ constexpr int kTM = 8;        // rows a thread owns
 constexpr int kTN = 4;        // columns a thread owns
 constexpr int kThreads = 256; // (kBM / kTM) x (kBN / kTN)
 constexpr int kWarps = kThreads / 32;
-constexpr int kSumGroups = 16;  // row groups of the fixed-order reductions
-
-using bf16 = __nv_bfloat16;
-
-// ------------------------------------------------------------ elements
-
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x, v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-}
-
-__device__ __forceinline__ void load4(const bf16* p, float v[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(bf16* p, const float v[4]) {
-  uint2 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-  h[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// v rounded to the storage type T, back in fp32
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const bf16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// relu(x*scale + shift) rounded to T: the prologue, as the plain version
-// computes it (two roundings in fp32, then one to T)
-template <typename T>
-__device__ __forceinline__ float prologue(float x, float s, float t) {
-  return round_to(fmaxf(__fadd_rn(__fmul_rn(x, s), t), 0.f),
-                  static_cast<const T*>(nullptr));
-}
-
-// e = T(dy + perch + dvar2*(y - mean))
-template <typename T>
-__device__ __forceinline__ float effective(float dy, float y, float perch,
-                                           float dvar2, float mean) {
-  return round_to(__fadd_rn(__fadd_rn(dy, perch),
-                            __fmul_rn(dvar2, __fsub_rn(y, mean))),
-                  static_cast<const T*>(nullptr));
-}
 
 // ------------------------------------------------------------ the tile
 
@@ -185,16 +114,6 @@ __device__ __forceinline__ void column_sum(Smem& s, int tx, float v[kTN]) {
     v[j] = t;
   }
   __syncthreads();
-}
-
-// Chan's pairwise update of (count, mean, M2) with another group's
-__device__ __forceinline__ void chan(float& n_a, float& mu_a, float& q_a,
-                                     float n_b, float mu_b, float q_b) {
-  if (n_b == 0.f) return;
-  const float n = n_a + n_b, d = mu_b - mu_a, f = n_b / n;
-  mu_a += d * f;
-  q_a += q_b + d * d * n_a * f;
-  n_a = n;
 }
 
 // ------------------------------------------------------------ forward
@@ -272,49 +191,13 @@ mm_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// mean, var [N] from the row tiles' (mean, M2), tiles combined in a fixed
-// order: thread group g takes tiles g, g + 16, ... in turn, then group 0
-// takes the 16 groups in turn. var = M2 / M, clamped at 0.
-__global__ void __launch_bounds__(32 * kSumGroups)
-stats_finish_kernel(const float* __restrict__ pmean,
-                    const float* __restrict__ pm2, int tiles, int M, int N,
-                    float* __restrict__ mean, float* __restrict__ var) {
-  __shared__ float sn[kSumGroups][32], sm[kSumGroups][32], sq[kSumGroups][32];
-  const int tx = threadIdx.x, g = threadIdx.y, c = blockIdx.x * 32 + tx;
-  float n_a = 0.f, mu_a = 0.f, q_a = 0.f;
-  if (c < N) {
-    for (int t = g; t < tiles; t += kSumGroups)
-      chan(n_a, mu_a, q_a, (float)min(kBM, M - t * kBM),
-           pmean[(size_t)t * N + c], pm2[(size_t)t * N + c]);
+// the rows of row tile t, for stats_finish_kernel
+struct RowTiles {
+  int M;
+  __device__ float operator()(int t) const {
+    return (float)min(kBM, M - t * kBM);
   }
-  sn[g][tx] = n_a, sm[g][tx] = mu_a, sq[g][tx] = q_a;
-  __syncthreads();
-  if (g == 0 && c < N) {
-    for (int h = 1; h < kSumGroups; ++h)
-      chan(n_a, mu_a, q_a, sn[h][tx], sm[h][tx], sq[h][tx]);
-    mean[c] = mu_a;
-    var[c] = fmaxf(q_a / n_a, 0.f);
-  }
-}
-
-// out[c] = sum over t of part[t][c], t in a fixed order (as above)
-__global__ void __launch_bounds__(32 * kSumGroups)
-column_total_kernel(const float* __restrict__ part, int T, int C,
-                    float* __restrict__ out) {
-  __shared__ float red[kSumGroups][32];
-  const int tx = threadIdx.x, g = threadIdx.y;
-  const int64_t c = (int64_t)blockIdx.x * 32 + tx;
-  float v = 0.f;
-  if (c < C) {
-    for (int t = g; t < T; t += kSumGroups) v += part[(size_t)t * C + c];
-  }
-  red[g][tx] = v;
-  __syncthreads();
-  if (g == 0 && c < C) {
-    for (int h = 1; h < kSumGroups; ++h) v += red[h][tx];
-    out[c] = v;
-  }
-}
+};
 
 // ------------------------------------------------------------ backward
 
@@ -467,8 +350,6 @@ mm_stats_dw_kernel(const T* __restrict__ dy, const T* __restrict__ y,
 
 // ------------------------------------------------------------ launches
 
-int tiles_of(int n, int t) { return (n + t - 1) / t; }
-
 template <typename T>
 int forward(const void* x, const float* scale, const float* shift,
             const void* w, void* y, float* pmean, float* pm2, float* mean,
@@ -485,9 +366,8 @@ int forward(const void* x, const float* scale, const float* shift,
         xt, scale, shift, wt, yt, pmean, pm2, M, K, N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  stats_finish_kernel<<<tiles_of(N, 32), dim3(32, kSumGroups), 0, st>>>(
-      pmean, pm2, tiles_of(M, kBM), M, N, mean, var);
-  return cudaGetLastError();
+  return stats_finish(pmean, pm2, tiles_of(M, kBM), N, RowTiles{M}, mean,
+                      var, st);
 }
 
 template <typename T>
@@ -525,21 +405,16 @@ int backward(const void* dy, const void* y, const void* x,
         dyt, yt, perch, dvar2, mean, xt, scale, shift, out, M, K, N,
         chunk_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 sum_block(32, kSumGroups);
-  if (chunks > 1) {
-    column_total_kernel<<<tiles_of(K * N, 32), sum_block, 0, st>>>(
-        dw_part, chunks, K * N, dw);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if (chunks > 1 &&
+      (err = column_total(dw_part, chunks, K * N, dw, st)) != cudaSuccess)
+    return err;
   if (pro) {
     const int tiles = tiles_of(M, kBM);
-    column_total_kernel<<<tiles_of(K, 32), sum_block, 0, st>>>(
-        ds_part, tiles, K, dscale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    column_total_kernel<<<tiles_of(K, 32), sum_block, 0, st>>>(
-        dt_part, tiles, K, dshift);
+    if ((err = column_total(ds_part, tiles, K, dscale, st)) != cudaSuccess)
+      return err;
+    return column_total(dt_part, tiles, K, dshift, st);
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 bool shapes_ok(int M, int K, int N) {

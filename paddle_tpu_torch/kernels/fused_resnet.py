@@ -1,8 +1,9 @@
 """Fused ResNet training ops: a 1x1 convolution computed as a matrix
 product whose epilogue also gives the batch-norm statistics of its
-output, the same with a BN-apply + ReLU prologue on its input, and the
+output, the same with a BN-apply + ReLU prologue on its input, the 3x3
+stride-1 convolution with that prologue and epilogue, and the
 residual-lean BN applies around them (the JAX package's
-``kernels/fused_resnet.py``, its 1x1 part).
+``kernels/fused_resnet.py``).
 
 ``matmul_bn_stats`` and ``bn_relu_matmul_bn_stats`` are
 ``torch.autograd.Function``s (the JAX package's custom VJPs). Their
@@ -28,8 +29,15 @@ The BN applies (``bn_apply_relu_add`` ... ``bn_moments``) are plain
 PyTorch, as they are plain jnp in the JAX package; each is an autograd
 Function whose backward is the JAX rule written out, so it saves only
 the tensors that already exist and keeps the centered-form gamma
-gradient. The fused 3x3 pair (``bn_relu_conv3x3_bn_stats``) is not
-ported yet (ROADMAP B9).
+gradient.
+
+``conv3x3_bn_act_stats`` (``bn_relu_conv3x3_bn_stats`` from the Paddle
+weight) is the fused 3x3 pair: its autograd Function runs
+``conv3x3_bn_stats_fwd`` and ``conv3x3_bn_stats_bwd``, the kernels of
+``csrc/fused_conv3x3.cu`` on a card and ``*_plain`` on the CPU, with the
+same numerics (the activation rounded before the product, zero outside
+the image in the activation domain; y rounded before its statistics;
+the effective gradient rounded before both products).
 """
 from __future__ import annotations
 
@@ -45,11 +53,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"paddle_mm_bn_stats_block_rows": (_I, ()),
         "paddle_mm_bn_stats": (_I, (_P,) * 9 + (_I,) * 5 + (_P,)),
         "paddle_mm_bn_stats_bwd": (_I, (_P,) * 16 + (_I,) * 7 + (_P,))}
+_SIG3 = {"paddle_conv3x3_bn_stats": (_I, (_P,) * 10 + (_I,) * 9 + (_P,)),
+         "paddle_conv3x3_bn_stats_bwd": (_I, (_P,) * 16 + (_I,) * 11
+                                         + (_P,))}
 # the dw kernel's output tile (rows of K x columns of N) and row step, as
 # in csrc/fused_resnet.cu; its rows are cut into chunks until about
 # _DW_BLOCKS blocks (4 per SM of an H100) are in flight
 _DW_TILE_K, _DW_TILE_N, _DW_ROW_STEP = 128, 64, 16
 _DW_BLOCKS = 4 * 132
+# the 3x3 kernels' tile: at most _PIX3 output pixels (slabs of whole rows
+# of one image, or of a column tile) and _WIN3 window positions; the dw
+# kernel's block keeps a _DW3_C x _DW3_O (c, o) tile, about _DW3_BLOCKS
+# (2 per SM) in flight, its chunks' fp32 partials within _DW3_SCRATCH
+# bytes
+_PIX3, _WIN3, _DW3_C, _DW3_O = 128, 512, 64, 32
+_DW3_BLOCKS, _DW3_SCRATCH = 2 * 132, 64 * 2 ** 20
 
 
 def _wide(t):
@@ -90,16 +108,26 @@ def _prologue(x2, scale, shift):
     return pre, torch.clamp_min(pre, 0.0).to(x2.dtype)
 
 
-def _product_stats(a, w2):
-    """y = a @ w2 (fp32 sums) rounded to a's dtype, and the mean and var
-    of the rounded y per column, two-pass (shifted by the exact mean)."""
-    y = (_wide(a) @ _wide(w2)).to(a.dtype)
-    yf = _wide(y)
+def _two_pass_stats(y):
+    """Mean and var per channel (last dim) of y, two-pass (shifted by the
+    exact mean)."""
+    yf = _wide(y).reshape(-1, y.shape[-1])
     k = yf.mean(0)
     d = yf - k
-    mean, var = _finish_shifted_stats(d.sum(0), d.square().sum(0), k,
-                                      y.shape[0])
-    return y, mean, var
+    return _finish_shifted_stats(d.sum(0), d.square().sum(0), k,
+                                 yf.shape[0])
+
+
+def _product_stats(a, w2):
+    """y = a @ w2 (fp32 sums) rounded to a's dtype, and the mean and var
+    of the rounded y per column, two-pass."""
+    y = (_wide(a) @ _wide(w2)).to(a.dtype)
+    return (y, *_two_pass_stats(y))
+
+
+def _w9_oihw(w9, c):
+    """The tap-major w9 [9C, O] as a conv weight [O, C, 3, 3] (fp32)."""
+    return _wide(w9).reshape(3, 3, c, w9.shape[1]).permute(3, 2, 0, 1)
 
 
 # ----------------------------------------------------------- plain versions
@@ -143,8 +171,48 @@ def bn_relu_matmul_bn_stats_bwd_plain(dy, y, x2, scale, shift, w2, perch,
     return dx, _wide(a).t() @ e, dscale, gated.sum(0)
 
 
+def conv3x3_bn_stats_fwd_plain(x, scale, shift, w9):
+    """Plain version of the fused 3x3 forward kernel: a = relu(x*scale +
+    shift) rounded to x's dtype, y = the 3x3/s1 SAME convolution of a
+    (zero padding, fp32 sums) rounded, and the two-pass mean and var of
+    the rounded y. x [N,H,W,C], w9 [9C,O]; returns (y, mean, var)."""
+    conv3x3_bn_stats_fwd_plain.calls += 1
+    a = _prologue(x, scale, shift)[1]
+    y = torch.nn.functional.conv2d(_wide(a).permute(0, 3, 1, 2),
+                                   _w9_oihw(w9, x.shape[-1]), padding=1)
+    y = y.permute(0, 2, 3, 1).to(x.dtype)
+    return (y, *_two_pass_stats(y))
+
+
+def conv3x3_bn_stats_bwd_plain(dy, y, x, scale, shift, w9, perch, dvar2,
+                               mean):
+    """Plain version of the fused 3x3 backward kernel: e = dy_eff rounded
+    to x's dtype; da = the transposed convolution of e; gated = da where
+    pre = x*scale + shift > 0; dx = gated*scale (rounded), dscale = sum
+    gated*x, dshift = sum gated, dw [9C,O] = the weight gradient of the
+    convolution of a (recomputed from x) against e, fp32. Returns (dx,
+    dw, dscale, dshift)."""
+    conv3x3_bn_stats_bwd_plain.calls += 1
+    c, o = x.shape[-1], w9.shape[1]
+    e = _wide(_dy_effective(dy, perch, dvar2, y, mean).to(x.dtype))
+    e = e.permute(0, 3, 1, 2)
+    pre, a = _prologue(x, scale, shift)
+    wk = _w9_oihw(w9, c)
+    da = torch.nn.grad.conv2d_input(
+        (x.shape[0], c, x.shape[1], x.shape[2]), wk, e, padding=1)
+    da = da.permute(0, 2, 3, 1)
+    gated = torch.where(pre > 0, da, torch.zeros_like(da))
+    dx = (gated * scale).to(x.dtype)
+    axes = (0, 1, 2)
+    dw = torch.nn.grad.conv2d_weight(_wide(a).permute(0, 3, 1, 2),
+                                     wk.shape, e, padding=1)
+    return (dx, dw.permute(2, 3, 1, 0).reshape(9 * c, o),
+            (gated * _wide(x)).sum(axes), gated.sum(axes))
+
+
 for _fn in (matmul_bn_stats_fwd_plain, bn_relu_matmul_bn_stats_fwd_plain,
-            matmul_bn_stats_bwd_plain, bn_relu_matmul_bn_stats_bwd_plain):
+            matmul_bn_stats_bwd_plain, bn_relu_matmul_bn_stats_bwd_plain,
+            conv3x3_bn_stats_fwd_plain, conv3x3_bn_stats_bwd_plain):
     _fn.calls = 0
 
 
@@ -340,12 +408,129 @@ def bn_relu_matmul_bn_stats_bwd(dy, y, x2, scale, shift, w2, perch, dvar2,
     return out
 
 
+# ----------------------------------------------------------- 3x3 kernels
+
+def _conv3x3_tiles(n, h, w):
+    """(R, Wt, G, tiles): the 3x3 kernels' tiling of n images of h x w.
+    A slab is R rows by Wt columns of one image (rows and columns split
+    evenly), a tile G slabs of at most _PIX3 pixels and _WIN3 window
+    positions ((R+2) x (Wt+2) a slab)."""
+    wt = -(-w // -(-w // _PIX3))
+    r = -(-h // -(-h // min(h, _PIX3 // wt)))
+    slabs = n * -(-h // r) * -(-w // wt)
+    g = min(_PIX3 // (r * wt), _WIN3 // ((r + 2) * (wt + 2)), slabs)
+    return r, wt, g, -(-slabs // g)
+
+
+def _dw3_chunks(tiles, c, o):
+    """(chunks, tiles per chunk) of the 3x3 dw kernel's split over the
+    pixel tiles: enough chunks to fill the card, their fp32 partials
+    [chunks, 9C, O] within _DW3_SCRATCH bytes."""
+    blocks = -(-c // _DW3_C) * -(-o // _DW3_O)
+    chunks = max(1, min(tiles, _DW3_BLOCKS // blocks,
+                        _DW3_SCRATCH // (36 * c * o)))
+    per = -(-tiles // chunks)
+    return -(-tiles // per), per
+
+
+def _check3(x, w9, scale, shift):
+    if x.dim() != 4 or w9.dim() != 2 or w9.shape[0] != 9 * x.shape[-1]:
+        raise ValueError(f"x [N,H,W,C] and w9 [9C,O] expected, got "
+                         f"{tuple(x.shape)} and {tuple(w9.shape)}")
+    # w9's first tap [C, O] stands for the weight in the shared checks
+    _check(x.flatten(0, 2), w9[:x.shape[-1]], scale, shift)
+
+
+def _check_bwd3(dy, y, x, w9, perch, dvar2, mean):
+    shape = (*x.shape[:3], w9.shape[1])
+    for name, t in (("dy", dy), ("y", y)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{tuple(t.shape)}")
+    _check_bwd(dy.flatten(0, 2), y.flatten(0, 2), x.flatten(0, 2),
+               w9[:x.shape[-1]], perch, dvar2, mean)
+
+
+def _library3():
+    return _build.library("fused_conv3x3", _SIG3)
+
+
+def conv3x3_bn_stats_fwd(x, scale, shift, w9):
+    """(y, mean, var) of relu(x*scale + shift) -> 3x3/s1 SAME conv with
+    the tap-major w9 [9C, O], x NHWC: the kernel for CUDA tensors
+    (``paddle_conv3x3_bn_stats``), the plain version for CPU tensors."""
+    _check3(x, w9, scale, shift)
+    if x.device.type == "cpu":
+        return conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+    n, h, w, c = x.shape
+    code, _, _, o = _codes(x.flatten(0, 2), w9[:c])
+    x, w9 = _kernel_inputs([("x", x), ("w9", w9)])
+    scale, shift = _f32(scale), _f32(shift)
+    r, wt, g, tiles = _conv3x3_tiles(n, h, w)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
+    part = torch.empty((2, tiles, o), **f32)
+    count = torch.empty((tiles,), **f32)
+    stats = torch.empty((2, o), **f32)
+    with torch.cuda.device(x.device):
+        err = _library3().paddle_conv3x3_bn_stats(
+            x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w9.data_ptr(),
+            y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            count.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+            code, n, h, w, c, o, r, wt, g, _stream(x))
+    _raise_on(err, "conv3x3_bn_stats")
+    conv3x3_bn_stats_fwd.launches += 1
+    return y, stats[0], stats[1]
+
+
+def conv3x3_bn_stats_bwd(dy, y, x, scale, shift, w9, perch, dvar2, mean):
+    """(dx, dw fp32 [9C, O], dscale, dshift) of ``conv3x3_bn_act_stats``
+    from dy and the per-channel coefficients of
+    ``_stats_cotangent_coeffs``: the backward kernels for CUDA tensors
+    (``paddle_conv3x3_bn_stats_bwd``), the plain version for CPU
+    tensors."""
+    _check3(x, w9, scale, shift)
+    _check_bwd3(dy, y, x, w9, perch, dvar2, mean)
+    if x.device.type == "cpu":
+        return conv3x3_bn_stats_bwd_plain(dy, y, x, scale, shift, w9, perch,
+                                          dvar2, mean)
+    n, h, w, c = x.shape
+    code, _, _, o = _codes(x.flatten(0, 2), w9[:c])
+    dy, y, x, w9 = _kernel_inputs([("dy", dy), ("y", y), ("x", x),
+                                   ("w9", w9)])
+    perch, dvar2, mean = _f32(perch), _f32(dvar2), _f32(mean)
+    scale, shift = _f32(scale), _f32(shift)
+    r, wt, g, tiles = _conv3x3_tiles(n, h, w)
+    chunks, per = _dw3_chunks(tiles, c, o)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw = torch.empty((9 * c, o), **f32)
+    dw_part = torch.empty((chunks, 9 * c, o), **f32) if chunks > 1 else None
+    dsd = torch.empty((2, c), **f32)
+    dsd_part = torch.empty((2, tiles, c), **f32)
+    with torch.cuda.device(x.device):
+        err = _library3().paddle_conv3x3_bn_stats_bwd(
+            dy.data_ptr(), y.data_ptr(), x.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), w9.data_ptr(), perch.data_ptr(),
+            dvar2.data_ptr(), mean.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            None if dw_part is None else dw_part.data_ptr(),
+            dsd[0].data_ptr(), dsd[1].data_ptr(), dsd_part[0].data_ptr(),
+            dsd_part[1].data_ptr(), code, n, h, w, c, o, r, wt, g, chunks,
+            per, _stream(x))
+    _raise_on(err, "conv3x3_bn_stats_bwd")
+    conv3x3_bn_stats_bwd.launches += 1
+    return dx, dw, dsd[0], dsd[1]
+
+
 KERNEL_WRAPPERS = (matmul_bn_stats_fwd, bn_relu_matmul_bn_stats_fwd,
-                   matmul_bn_stats_bwd, bn_relu_matmul_bn_stats_bwd)
+                   matmul_bn_stats_bwd, bn_relu_matmul_bn_stats_bwd,
+                   conv3x3_bn_stats_fwd, conv3x3_bn_stats_bwd)
 PLAIN_VERSIONS = (matmul_bn_stats_fwd_plain,
                   bn_relu_matmul_bn_stats_fwd_plain,
                   matmul_bn_stats_bwd_plain,
-                  bn_relu_matmul_bn_stats_bwd_plain)
+                  bn_relu_matmul_bn_stats_bwd_plain,
+                  conv3x3_bn_stats_fwd_plain,
+                  conv3x3_bn_stats_bwd_plain)
 
 
 def reset_counts():
@@ -391,6 +576,23 @@ class _BnReluMatmulBnStatsFn(torch.autograd.Function):
         dx, dw, dscale, dshift = bn_relu_matmul_bn_stats_bwd(
             dy.to(x2.dtype), y, x2, scale, shift, w2, perch, dvar2, mean)
         return dx, dscale, dshift, dw.to(w2.dtype)
+
+
+class _Conv3x3BnStatsFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, w9):
+        y, mean, var = conv3x3_bn_stats_fwd(x, scale, shift, w9)
+        ctx.save_for_backward(x, scale, shift, w9, y, mean)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, scale, shift, w9, y, mean = ctx.saved_tensors
+        perch, dvar2 = _stats_cotangent_coeffs(dmean, dvar,
+                                               math.prod(x.shape[:3]))
+        dx, dw, dscale, dshift = conv3x3_bn_stats_bwd(
+            dy.to(x.dtype), y, x, scale, shift, w9, perch, dvar2, mean)
+        return dx, dscale, dshift, dw.to(w9.dtype)
 
 
 def matmul_bn_stats(x2, w2):
@@ -586,15 +788,35 @@ def bn_relu_conv1x1_bn_stats(x, scale, shift, weight):
     return y2.reshape(*shp[:-1], o), mean, var
 
 
+def conv3x3_vmem_ok(h, w, c, o, itemsize=2, budget=14 * 2 ** 20):
+    """Whether the JAX package routes a fused stride-1 block's 3x3 through
+    its fused kernel pair: the TPU backward's VMEM footprint for one image
+    (two halo windows, the fp32 dw accumulator, fp32 temporaries and the
+    double-buffered blocks) within 14 MiB. The port keeps the reference's
+    route with it; it is no limit of the CUDA kernels, which tile any
+    image."""
+    halo = (h + 2) * (w + 2)
+    img = h * w
+    windows = itemsize * halo * (o + c)
+    dw_acc = 4 * 9 * c * o
+    temps = 4 * img * (o + c)
+    streams = 2 * itemsize * img * (2 * o + 2 * c)
+    return windows + dw_acc + temps + streams < budget
+
+
 def conv3x3_bn_act_stats(x, scale, shift, w9):
-    """The fused 3x3 kernel pair (TPU kernel table rows 17-18) is not
-    ported yet."""
-    raise NotImplementedError(
-        "the fused 3x3 conv + BN-stats kernels are not ported yet "
-        "(ROADMAP B9)")
+    """relu(x*scale + shift) -> 3x3 SAME conv (NHWC, stride 1) -> BN batch
+    statistics of the output, the normalized activation never written.
+    w9 is the tap-major [9C, O] weight (rows (dh*3+dw)*C ... +C hold tap
+    (dh, dw)). Returns (y, mean [O] fp32, var [O] fp32); differentiable
+    in x, scale, shift and w9 through all three outputs."""
+    return _Conv3x3BnStatsFn.apply(x, scale, shift, w9)
 
 
 def bn_relu_conv3x3_bn_stats(x, scale, shift, weight):
-    """relu(x*scale + shift) -> 3x3/s1 conv -> BN statistics; not ported
-    yet (ROADMAP B9)."""
-    return conv3x3_bn_act_stats(x, scale, shift, weight)
+    """relu(x*scale + shift) -> 3x3/s1 SAME conv (NHWC, Paddle weight
+    layout [O, I, 3, 3]) -> BN statistics of the output: the fused middle
+    of a stride-1 bottleneck block. Returns (y, mean, var)."""
+    o, i = weight.shape[0], weight.shape[1]
+    w9 = weight.permute(2, 3, 1, 0).reshape(9 * i, o).to(x.dtype)
+    return conv3x3_bn_act_stats(x, scale, shift, w9)

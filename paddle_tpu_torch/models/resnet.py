@@ -11,9 +11,13 @@ numerically equal 4x4/s1 conv built from the same 7x7 weight.
 the matrix-product kernels of ``kernels.fused_resnet`` that give their
 output's BN statistics in the same pass (conv1, conv3, downsample) and
 apply the previous BN + ReLU while reading their input (conv3). The 3x3
-conv runs through the ordinary conv with ``bn_apply_relu`` and
-``bn_moments`` around it: the fused 3x3 kernels are not ported yet, so
-``_PALLAS3X3`` is False (the JAX package's
+of a stride-1, ungrouped block runs through the fused 3x3 kernels
+(``bn_relu_conv3x3_bn_stats``: bn1's apply + ReLU, the conv and bn2's
+statistics in one pass) exactly where the JAX package routes it: with
+``_PALLAS3X3`` True, its default, and ``conv3x3_vmem_ok`` for the
+block's shape. Any other 3x3 runs through the ordinary conv with
+``bn_apply_relu`` and ``bn_moments`` around it, as does every 3x3 with
+``_PALLAS3X3`` False (the JAX package's
 ``experiments/fused_bn_ablate.py`` configuration).
 
 Every constructor takes ``device`` (the first card unless
@@ -27,14 +31,14 @@ from torch import nn
 from ..core import device as device_mod
 from ..nn import functional as F
 from ..nn.container import Sequential
+from ..kernels.fused_resnet import conv3x3_vmem_ok
 from ..nn.functional import fused_conv as FC
 from ..nn.layers_common import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D,
                                 Linear, MaxPool2D, ReLU)
 
 # route the 3x3 of a fused stride-1 block through the fused 3x3 kernels
-# (True) or the ordinary conv (False). The kernels are not ported yet:
-# True raises in the first such block (ROADMAP B9)
-_PALLAS3X3 = False
+# (True, the JAX package's default) or the ordinary conv (False)
+_PALLAS3X3 = True
 
 
 def _stride0(conv):
@@ -115,8 +119,11 @@ class BottleneckBlock(nn.Module):
         self.bn1._update_running(m1, v1)
         s1, t1 = FC.bn_fold(self.bn1.weight, self.bn1.bias, m1, v1,
                             self.bn1.epsilon)
-        if _PALLAS3X3 and _stride0(self.conv2) == 1 and \
-                self.conv2.groups == 1:
+        _, h, w, c = y1.shape
+        if (_PALLAS3X3 and _stride0(self.conv2) == 1
+                and self.conv2.groups == 1
+                and conv3x3_vmem_ok(h, w, c, self.conv2.weight.shape[0],
+                                    y1.element_size())):
             # bn1-apply + relu + 3x3 conv + bn2 stats in one kernel
             y2, m2, v2 = FC.bn_relu_conv3x3_bn_stats(y1, s1, t1,
                                                      self.conv2.weight)

@@ -22,7 +22,9 @@ def bn_relu_conv1x1_bn_stats(x, scale, shift, weight):
 
 def bn_relu_conv3x3_bn_stats(x, scale, shift, weight):
     """relu(x*scale + shift) -> 3x3/s1 SAME conv (NHWC) -> batch
-    statistics; not ported yet (ROADMAP B9)."""
+    statistics of the output in one pass; the normalized activation is
+    never written. weight is the Paddle-layout [O, I, 3, 3] kernel.
+    Returns (y, mean, var) with fp32 statistics."""
     return _k.bn_relu_conv3x3_bn_stats(x, scale, shift, weight)
 
 

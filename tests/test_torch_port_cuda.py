@@ -34,6 +34,7 @@ def dev():
     if not ok:
         pytest.skip("needs an sm_90 GPU and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False     # fp32 plain convolutions
     return torch.device("cuda", 0)
 
 
@@ -711,7 +712,8 @@ def test_fused_resnet_kernels_match_plain(dev, dtype, prologue, m, k, n):
         _close_scaled(g, r)
     # the plain versions ran only where this test called them
     assert [f.calls for f in fr.PLAIN_VERSIONS] == \
-        [int(not prologue), int(prologue), int(not prologue), int(prologue)]
+        [int(not prologue), int(prologue), int(not prologue), int(prologue),
+         0, 0]
 
 
 def test_fused_resnet_autograd_and_stride2_on_card(dev):
@@ -742,8 +744,8 @@ def test_fused_resnet_autograd_and_stride2_on_card(dev):
     fr.reset_counts()
     out = run()
     torch.cuda.synchronize()
-    assert [f.launches for f in fr.KERNEL_WRAPPERS] == [1, 1, 1, 1]
-    assert [f.calls for f in fr.PLAIN_VERSIONS] == [0, 0, 0, 0]
+    assert [f.launches for f in fr.KERNEL_WRAPPERS] == [1, 1, 1, 1, 0, 0]
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == [0] * 6
     with mock.patch.object(fr, "matmul_bn_stats_fwd",
                            fr.matmul_bn_stats_fwd_plain), \
             mock.patch.object(fr, "bn_relu_matmul_bn_stats_fwd",
@@ -753,7 +755,7 @@ def test_fused_resnet_autograd_and_stride2_on_card(dev):
             mock.patch.object(fr, "bn_relu_matmul_bn_stats_bwd",
                               fr.bn_relu_matmul_bn_stats_bwd_plain):
         ref = run()
-    assert [f.calls for f in fr.PLAIN_VERSIONS] == [1, 1, 1, 1]
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == [1, 1, 1, 1, 0, 0]
     assert abs(float(out[0]) - float(ref[0])) <= 1e-2 * abs(float(ref[0]))
     for g, r in zip(out[1:], ref[1:]):
         g, r = g.float(), r.float()
@@ -772,3 +774,154 @@ def test_fused_resnet_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError, match="float32 or"):
         fr.matmul_bn_stats_fwd(x, torch.zeros((16, 64), device=dev,
                                               dtype=torch.float16))
+
+
+# ------------------------------------------------ fused 3x3 (rows 17-18)
+#
+# The tolerances of rows 13-16 above, per tensor against the plain
+# version on the same inputs.
+
+def _conv3x3_inputs(gen, n, h, w, c, o, dtype, dev, shift_off=0.0):
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * s
+    x = (r(n, h, w, c) + 0.3).to(dtype)
+    scale = r(c).abs() + 0.5
+    shift = r(c, s=0.3) + shift_off
+    w9 = (r(9 * c, o, s=(9 * c) ** -0.5)
+          + torch.linspace(0, 0.1, 9 * c * o, device=dev).reshape(9 * c, o)
+          ).to(dtype)
+    dy = r(n, h, w, o, s=1e-2).to(dtype)
+    return x, scale, shift, w9, dy, r(o), r(o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,o,shift_off", [
+    (2, 5, 7, 8, 16, 0.0),        # H != W, C != O, off every tile
+    (2, 6, 6, 16, 8, 0.5),        # positive shift: the border reads 0
+    (3, 1, 9, 8, 8, 0.2),         # a 1-pixel-high image
+    (2, 3, 150, 24, 40, 0.0),     # W over 128: column tiles
+    (5, 14, 14, 96, 72, -0.1),    # ragged bands, channels off 32 and 64
+    (8, 7, 7, 512, 512, 0.1),     # layer4's channels
+])
+def test_conv3x3_kernels_match_plain(dev, dtype, n, h, w, c, o, shift_off):
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(n + h + w + c + o)
+    x, scale, shift, w9, dy, dmean, dvar = _conv3x3_inputs(
+        gen, n, h, w, c, o, dtype, dev, shift_off)
+    fr.reset_counts()
+    y, mean, var = fr.conv3x3_bn_stats_fwd(x, scale, shift, w9)
+    again = fr.conv3x3_bn_stats_fwd(x, scale, shift, w9)
+    torch.cuda.synchronize()
+    assert fr.conv3x3_bn_stats_fwd.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip((y, mean, var), again))
+    ry, rmean, rvar = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+    _close_scaled(y, ry, _ULP[dtype])
+    _close_stats(mean, var, rmean, rvar)
+
+    perch, dvar2 = fr._stats_cotangent_coeffs(dmean, dvar, n * h * w)
+    args = (dy, ry, x, scale, shift, w9, perch, dvar2, rmean)
+    grads = fr.conv3x3_bn_stats_bwd(*args)
+    again = fr.conv3x3_bn_stats_bwd(*args)
+    torch.cuda.synchronize()
+    assert fr.conv3x3_bn_stats_bwd.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref = fr.conv3x3_bn_stats_bwd_plain(*args)
+    _close_scaled(grads[0], ref[0], _ULP[dtype])
+    for g, r in zip(grads[1:], ref[1:]):
+        assert g.dtype == torch.float32
+        _close_scaled(g, r)
+    # the plain versions ran only where this test called them
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == [0, 0, 0, 0, 1, 1]
+    assert [f.launches for f in fr.KERNEL_WRAPPERS] == [0, 0, 0, 0, 2, 2]
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_conv3x3_kernels_at_resnet50_layer1(dev, direction):
+    """ResNet-50 layer1's 3x3 (64 -> 64 at 56x56) at batch 32, bf16."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(56)
+    x, scale, shift, w9, dy, dmean, dvar = _conv3x3_inputs(
+        gen, 32, 56, 56, 64, 64, torch.bfloat16, dev, 0.1)
+    ry, rmean, rvar = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+    if direction == "forward":
+        y, mean, var = fr.conv3x3_bn_stats_fwd(x, scale, shift, w9)
+        _close_scaled(y, ry, _ULP[torch.bfloat16])
+        _close_stats(mean, var, rmean, rvar)
+        return
+    perch, dvar2 = fr._stats_cotangent_coeffs(dmean, dvar, 32 * 56 * 56)
+    args = (dy, ry, x, scale, shift, w9, perch, dvar2, rmean)
+    grads = fr.conv3x3_bn_stats_bwd(*args)
+    ref = fr.conv3x3_bn_stats_bwd_plain(*args)
+    _close_scaled(grads[0], ref[0], _ULP[torch.bfloat16])
+    for g, r in zip(grads[1:], ref[1:]):
+        _close_scaled(g, r)
+
+
+def test_conv3x3_border_is_zero_in_the_activation_domain(dev):
+    """shift > 0 makes relu(shift) > 0: the border must still read 0."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros((1, 3, 3, 8), device=dev, dtype=dtype)
+        scale = torch.ones(8, device=dev)
+        shift = torch.full((8,), 0.5, device=dev)
+        w9 = torch.zeros((72, 8), device=dev, dtype=dtype)
+        w9[:8] = 1.0        # tap (0, 0): the pixel up and left
+        y, _, _ = fr.conv3x3_bn_stats_fwd(x, scale, shift, w9)
+        assert float(y[0, 0, 0].abs().max()) == 0.0
+        assert float((y[0, 1, 1].float() - 4.0).abs().max()) == 0.0
+
+
+def test_conv3x3_autograd_on_card(dev):
+    """bn_relu_conv3x3_bn_stats through autograd, all three outputs
+    consumed, against the same graph through the plain versions."""
+    from unittest import mock
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((4, 10, 12, 64), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    weight = (torch.randn((32, 64, 3, 3), generator=gen, device=dev) / 24) \
+        .to(torch.bfloat16)
+    scale = torch.rand(64, generator=gen, device=dev) + 0.5
+    shift = torch.randn(64, generator=gen, device=dev) * 0.3
+
+    def run():
+        xs, ws = x.clone().requires_grad_(), weight.clone().requires_grad_()
+        ss, ts = scale.clone().requires_grad_(), shift.clone().requires_grad_()
+        y, m, v = fr.bn_relu_conv3x3_bn_stats(xs, ss, ts, ws)
+        loss = (y.float() ** 2).mean() + m.sum() + 0.5 * v.sum()
+        loss.backward()
+        return [loss.detach(), xs.grad, ws.grad, ss.grad, ts.grad]
+
+    fr.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    assert [f.launches for f in fr.KERNEL_WRAPPERS] == [0, 0, 0, 0, 1, 1]
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == [0] * 6
+    with mock.patch.object(fr, "conv3x3_bn_stats_fwd",
+                           fr.conv3x3_bn_stats_fwd_plain), \
+            mock.patch.object(fr, "conv3x3_bn_stats_bwd",
+                              fr.conv3x3_bn_stats_bwd_plain):
+        ref = run()
+    assert [f.calls for f in fr.PLAIN_VERSIONS] == [0, 0, 0, 0, 1, 1]
+    assert abs(float(out[0]) - float(ref[0])) <= 1e-2 * abs(float(ref[0]))
+    for g, r in zip(out[1:], ref[1:]):
+        g, r = g.float(), r.float()
+        assert float((g - r).norm() / r.norm()) < 2e-2
+
+
+def test_conv3x3_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    fr.reset_counts()
+    one = torch.ones(12, device=dev)
+    x = torch.zeros((1, 4, 4, 12), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fr.conv3x3_bn_stats_fwd(x, one, one, torch.zeros(
+            (108, 8), device=dev, dtype=torch.bfloat16))
+    x = torch.zeros((1, 4, 4, 16), device=dev, dtype=torch.float16)
+    one = torch.ones(16, device=dev)
+    with pytest.raises(TypeError, match="float32 or"):
+        fr.conv3x3_bn_stats_fwd(x, one, one, torch.zeros(
+            (144, 8), device=dev, dtype=torch.float16))
+    # a refused call launches nothing and runs no plain version
+    assert fr.conv3x3_bn_stats_fwd.launches == 0
+    assert fr.conv3x3_bn_stats_fwd_plain.calls == 0

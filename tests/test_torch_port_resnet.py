@@ -3,9 +3,12 @@ package's, on the CPU in fp32, seeds made with numpy.
 
 The JAX side runs its Pallas kernels in interpret mode, as its own tests
 do, under ``jax.default_matmul_precision("highest")`` (XLA:CPU runs fp32
-matmuls and convs at reduced precision otherwise), with ``_PALLAS3X3``
-set to False, the configuration the port implements. The port runs the
-plain versions of its kernels (CPU tensors).
+matmuls and convs at reduced precision otherwise). Both packages run
+their default route, ``_PALLAS3X3`` True: the 3x3 of every stride-1
+fused block goes through the fused 3x3 pair (the JAX Pallas kernels, the
+port's plain versions of rows 17-18). One test sets both flags to False
+and holds the ordinary-conv route too. The port runs the plain versions
+of its kernels (CPU tensors).
 
 Tolerances: the matrix-product ops' y, mean and var within 1e-5 and
 their gradients within 1e-4 (fp32 sums in another order, the JAX stats
@@ -20,6 +23,7 @@ that noise.
 """
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -42,13 +46,9 @@ from paddle_tpu_torch.kernels import fused_resnet as tfr
 from paddle_tpu_torch.models import resnet as tresnet
 from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.nn.functional import fused_conv as TFC
 
 HIGHEST = jax.default_matmul_precision("highest")
-
-
-@pytest.fixture(autouse=True)
-def _xla_3x3(monkeypatch):
-    monkeypatch.setattr(jresnet, "_PALLAS3X3", False)
 
 
 def _np(a):
@@ -96,8 +96,9 @@ def test_matmul_bn_stats_match_jax(m, prologue):
                                    atol=1e-4)
     # on the CPU the plain versions ran, once each way
     assert [f.calls for f in tfr.PLAIN_VERSIONS] == \
-        [int(not prologue), int(prologue), int(not prologue), int(prologue)]
-    assert [f.launches for f in tfr.KERNEL_WRAPPERS] == [0, 0, 0, 0]
+        [int(not prologue), int(prologue), int(not prologue), int(prologue),
+         0, 0]
+    assert [f.launches for f in tfr.KERNEL_WRAPPERS] == [0] * 6
 
 
 def test_conv1x1_bn_stats_stride2_matches_jax():
@@ -180,13 +181,30 @@ def test_bn_fold_matches_jax():
                                        atol=1e-6)
 
 
-def test_fused_3x3_is_not_ported_yet(monkeypatch):
-    monkeypatch.setattr(tresnet, "_PALLAS3X3", True)
-    model = tresnet.ResNet(tresnet.BottleneckBlock, [1, 1, 1, 1],
+def test_fused_3x3_routes_the_stride1_blocks():
+    """A fused ResNet(BottleneckBlock, [2,1,1,2]) in training runs the 3x3
+    of each of its three stride-1 blocks (layer1.0, layer1.1, layer4.1)
+    through the fused 3x3 pair, forward and backward once each, and
+    ``bn_moments`` only for the three stride-2 blocks, which stay on the
+    ordinary conv as in the JAX package."""
+    assert tresnet._PALLAS3X3 is True
+    model = tresnet.ResNet(tresnet.BottleneckBlock, [2, 1, 1, 2],
                            num_classes=4, data_format="NHWC", fused_bn=True,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="B9"):
-        model(torch.zeros((1, 3, 32, 32)))
+    moments = []
+
+    def counting(y):
+        moments.append(tuple(y.shape))
+        return tfr.bn_moments(y)
+
+    tfr.reset_counts()
+    with mock.patch.object(TFC, "bn_moments", counting):
+        model.train()
+        model(torch.randn((2, 3, 32, 32))).square().sum().backward()
+    assert tfr.conv3x3_bn_stats_fwd_plain.calls == 3
+    assert tfr.conv3x3_bn_stats_bwd_plain.calls == 3
+    # the stride-2 blocks' 3x3 outputs: layer2.0, layer3.0, layer4.0
+    assert moments == [(2, 4, 4, 128), (2, 2, 2, 256), (2, 1, 1, 512)]
 
 
 # ----------------------------------------------------------- the model
@@ -245,14 +263,12 @@ def trained_pair():
     """Both models after one eager training forward on the same batch
     (logits, running statistics), the port's gradients from its
     backward, the JAX gradients and the JAX path's chaos floor."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jresnet, "_PALLAS3X3", False)
-        img, lbl, noise = _batch()
-        jm, tm = _models()
-        j_grads, floor = _jax_grads(jm, (img, img * noise), lbl)
-        jm.train()
-        with HIGHEST:
-            j_logits = _np(jm(paddle.to_tensor(img)))
+    img, lbl, noise = _batch()
+    jm, tm = _models()
+    j_grads, floor = _jax_grads(jm, (img, img * noise), lbl)
+    jm.train()
+    with HIGHEST:
+        j_logits = _np(jm(paddle.to_tensor(img)))
     tm.train()
     logits = tm(torch.tensor(img))
     CrossEntropyLoss()(logits, torch.tensor(lbl)).backward()
@@ -283,6 +299,48 @@ def test_model_gradients_match_jax(trained_pair):
         rel = np.linalg.norm(param.grad.numpy() - ref) / norm
         chaos = np.linalg.norm(floor - ref) / norm
         assert rel < max(1e-2, 4.0 * chaos), (name, rel, chaos)
+
+
+def test_cudnn_route_matches_jax_xla_route(monkeypatch):
+    """With ``_PALLAS3X3`` False in both packages the fused model runs its
+    3x3s through the ordinary conv: the logits and running statistics of
+    one training forward, then one ``TrainStep``'s loss and parameters,
+    match the JAX package's on that route (tolerances as above)."""
+    monkeypatch.setattr(jresnet, "_PALLAS3X3", False)
+    monkeypatch.setattr(tresnet, "_PALLAS3X3", False)
+    img, lbl, _ = _batch(11)
+    jm, tm = _models()
+    jm.train()
+    tm.train()
+    tfr.reset_counts()
+    with HIGHEST:
+        ref = _np(jm(paddle.to_tensor(img)))
+    with torch.no_grad():
+        np.testing.assert_allclose(tm(torch.tensor(img)).numpy(), ref,
+                                   rtol=1e-4, atol=1e-4)
+    assert tfr.conv3x3_bn_stats_fwd_plain.calls == 0
+    j_stats = _stats({k: _np(v) for k, v in jm.state_dict().items()})
+    t_stats = _stats({k: v.numpy() for k, v in tm.state_dict().items()})
+    for k in j_stats:
+        np.testing.assert_allclose(t_stats[k], j_stats[k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    jopt = joptim.Momentum(learning_rate=1e-3, momentum=0.9,
+                           parameters=jm.parameters())
+    topt = toptim.Momentum(learning_rate=1e-3, momentum=0.9,
+                           parameters=tm.parameters())
+    jce, tce = jnn.CrossEntropyLoss(), CrossEntropyLoss()
+    with HIGHEST:
+        j_loss = float(paddle.jit.TrainStep(jm, jopt, lambda o, y: jce(
+            o, y))(paddle.to_tensor(img), paddle.to_tensor(lbl)))
+    t_loss = float(tjit.TrainStep(tm, topt, lambda o, y: tce(o, y))(
+        torch.tensor(img), torch.tensor(lbl)))
+    np.testing.assert_allclose(t_loss, j_loss, rtol=1e-4, atol=1e-4)
+    jparams = dict(jm.named_parameters())
+    for name, p in tm.named_parameters():
+        ref = _np(jparams[name])
+        assert np.abs(p.detach().numpy() - ref).max() <= \
+            1e-5 + 1e-4 * np.abs(ref).max(), name
+    assert tfr.conv3x3_bn_stats_fwd_plain.calls == 0
 
 
 def test_eval_and_unfused_forward_match_jax():
