@@ -19,7 +19,10 @@ int8 cache's logits to the wide cache's, trains gpt2-small with
 ``TrainStep``) at batch 16 x 1024 tokens, then trains ResNet-50 with
 ``bench.py``'s fused conv+BN recipe (NHWC, bf16, Momentum, ``TrainStep``)
 at batch 128 x 224 x 224 through the 1x1 and the 3x3 conv + BN-stats
-kernels (and times the same recipe with its 3x3s on cuDNN), and checks
+kernels (and times the same recipe with its 3x3s on cuDNN), holds the
+fused LayerNorm/RMSNorm and AdamW kernels against their plain versions
+and runs them on the trained gpt2-small's 25 LayerNorm inputs and
+gradients and on copies of its optimizer state, and checks
 that each path went through its kernels and never through a plain
 version. Phases
 print one line each; the line before the last is the kernel table as
@@ -1114,6 +1117,180 @@ def phase_fused_conv3x3_kernels(torch, timer):
     return rows
 
 
+_NORM_ROWS = (  # name, dx, TPU kernel it replaces
+    ("norm_fwd", False, "paddle_tpu/kernels/fused_norm.py:66"),
+    ("norm_dx", True, "paddle_tpu/kernels/fused_norm.py:83"),
+)
+# x [rows, D] in bf16: gpt2-small's hidden at b16 s1024, and the
+# gpt3-6.7b width (paddle_tpu/models/gpt.py:549) at 4096 tokens
+_NORM_SHAPES = ((16384, 768), (4096, 4096))
+_NORM_EPS = {False: 1e-5, True: 1e-6}     # the public functions' defaults
+
+
+def _norm_bound(rows, d, dx):
+    """Least time for one bf16 norm call: x (and dy) read once, the
+    output written once, the fp32 w (and b) read once, against the
+    elementwise work (8 operations an element forward, 14 for dx) at
+    the fp32 rate."""
+    n = rows * d
+    n_bytes = (6 if dx else 4) * n + (4 if dx else 8) * d
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = (14 if dx else 8) * n / PEAK_FLOPS_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _adamw_bound(n, p_bytes, g_bytes):
+    """Least time for AdamW on n values: p, m and v (fp32) read and
+    written and g read once, against 18 fp32 operations a value."""
+    t_bytes = n * (2 * p_bytes + 16 + g_bytes) / PEAK_BYTES
+    t_ops = 18 * n / PEAK_FLOPS_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_norm_adamw_kernels(torch, timer):
+    """Rows 8-10 against their plain versions and timed. The LayerNorm
+    and RMSNorm kernels, forward and dx, in bf16 at [16384, 768] and
+    [4096, 4096], within the training rule (y and dx within
+    ULP_BF16*|plain| + SCALED_FRAC*max|plain|), beside the PyTorch
+    yardsticks ``F.layer_norm`` / ``F.rms_norm`` and their autograd
+    backward (dx only). AdamW on the tied embedding [50257, 768] (fp32
+    master and moments, bf16 gradient) bit for bit against its plain
+    version, beside ``torch.optim.AdamW(fused=True)`` on fp32 copies.
+    The port never calls a yardstick."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.kernels import fused_adamw as fad
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+
+    def r(*shape, s=1.0, o=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * s + o
+
+    by_shape = {name: [] for name, _, _ in _NORM_ROWS}
+    worst = {name: 0.0 for name, _, _ in _NORM_ROWS}
+    for rows_, d in _NORM_SHAPES:
+        sets = [dict(x=r(rows_, d, s=2.0, o=0.5).to(bf16),
+                     dy=r(rows_, d).to(bf16), w=r(d, s=0.1, o=1.0).to(bf16),
+                     b=r(d, s=0.1).to(bf16), zero=torch.zeros(
+                         d, dtype=bf16, device=dev))
+                for _ in range(3)]          # three sets: more than L2 holds
+        for rms in (False, True):
+            eps = _NORM_EPS[rms]
+            fwd_args = [(t["x"], t["w"], t["zero" if rms else "b"], eps, rms)
+                        for t in sets]
+            dx_args = [(t["x"], t["w"], t["dy"], eps, rms) for t in sets]
+            graphs = []
+            for t in sets:
+                xg = t["x"].detach().clone().requires_grad_()
+                yg = TF.rms_norm(xg, (d,), t["w"], eps) if rms else \
+                    TF.layer_norm(xg, (d,), t["w"], t["b"], eps)
+                graphs.append((yg, xg, t["dy"]))
+            lib = {
+                False: lambda x, w, b, eps, rms: (
+                    TF.rms_norm(x, (x.shape[1],), w, eps) if rms else
+                    TF.layer_norm(x, (x.shape[1],), w, b, eps)),
+                True: lambda y, x, dy: torch.autograd.grad(
+                    y, x, dy, retain_graph=True)}
+            for name, dx, replaces in _NORM_ROWS:
+                kernel = fn.norm_dx if dx else fn.norm_fwd
+                plain = fn.norm_dx_plain if dx else fn.norm_fwd_plain
+                args = dx_args if dx else fwd_args
+                out = kernel(*args[0])
+                again = kernel(*args[0])
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    fail(f"{name} is not bitwise repeatable at {(rows_, d)}")
+                err, bad = _err_scaled(out, plain(*args[0]))
+                kind = "rms" if rms else "layer"
+                say("kernel_check", kernel=name, norm=kind, shape=[rows_, d],
+                    dtype="bfloat16", max_abs_err=err, out_of_tol=bad,
+                    tol=f"{ULP_BF16}*|plain|+{SCALED_FRAC}*max|plain|")
+                if bad:
+                    fail(f"{name} ({kind}) disagrees with its plain version "
+                         f"at {(rows_, d)}")
+                worst[name] = max(worst[name], err)
+                del out, again
+                ms = timer.ms(kernel, args)
+                plain_ms = timer.ms(plain, args, n=5)
+                lib_ms = timer.ms(lib[dx], graphs if dx else args)
+                bms, bby = _norm_bound(rows_, d, dx)
+                by_shape[name].append(dict(
+                    norm=kind, rows=rows_, d=d, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bms, bound_by=bby))
+                say("kernel_time", kernel=name, norm=kind, shape=[rows_, d],
+                    kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bms, bound_by=bby)
+            del graphs
+        del sets
+        torch.cuda.empty_cache()
+    rows = {}
+    for name, dx, replaces in _NORM_ROWS:
+        first = by_shape[name][0]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/csrc/fused_norm.cu", replaces=replaces,
+            shape="x [16384,768] bf16 LayerNorm (gpt2-small b16 s1024)",
+            max_abs_err=worst[name], ms=first["ms"],
+            plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+            bound_by=first["bound_by"], library_ms=first["library_ms"],
+            by_shape=by_shape[name])
+
+    # -- AdamW on the tied embedding
+    shape = (50257, 768)
+    hyper = dict(lr=1e-4, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 weight_decay=0.01, step=11)
+    sets = [(r(*shape, s=0.02), r(*shape).to(bf16), r(*shape, s=1e-3),
+             r(*shape, s=1e-3).square()) for _ in range(3)]
+    kern = [t.clone() for t in sets[0]]
+    plain = [t.clone() for t in sets[0]]
+    fad.fused_adamw_update(*kern, **hyper)
+    fad.fused_adamw_update_plain(*plain, **hyper)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        fail("fused_adamw_update differs from its plain version on the "
+             "[50257, 768] embedding")
+    err = float((kern[0] - plain[0]).abs().max())
+    say("kernel_check", kernel="fused_adamw", shape=list(shape),
+        dtype="float32 master, bfloat16 grad", max_abs_err=err,
+        bitwise_equal=True)
+    del kern, plain
+
+    def adamw(p, g, m, v):
+        fad.fused_adamw_update(p, g, m, v, **hyper)
+
+    def adamw_plain(p, g, m, v):
+        fad.fused_adamw_update_plain(p, g, m, v, **hyper)
+
+    ms = timer.ms(adamw, sets)
+    plain_ms = timer.ms(adamw_plain, sets, n=5)
+    libs = []
+    for p, g, m, v in sets:
+        q = torch.nn.Parameter(p.clone())
+        q.grad = g.float()
+        libs.append((torch.optim.AdamW(
+            [q], lr=hyper["lr"], betas=(hyper["beta1"], hyper["beta2"]),
+            eps=hyper["epsilon"], weight_decay=hyper["weight_decay"],
+            fused=True),))
+    lib_ms = timer.ms(lambda o: o.step(), libs)
+    del libs, sets
+    torch.cuda.empty_cache()
+    bms, bby = _adamw_bound(shape[0] * shape[1], 4, 2)
+    say("kernel_time", kernel="fused_adamw", shape=list(shape), kernel_ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=bby)
+    rows["fused_adamw"] = dict(
+        name="fused_adamw", route="cuda",
+        source="paddle_tpu_torch/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/kernels/fused_adamw.py:46",
+        shape="[50257,768] fp32 master, m, v; bf16 grad (gpt2-small's tied "
+              "embedding)",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=bby, library_ms=lib_ms)
+    return rows
+
+
 def phase_model(torch):
     """gpt2-small in bf16: a bucket-512 prefill of two ragged prompts
     plus 8 teacher-forced decode steps, through the kernels and through
@@ -1672,6 +1849,177 @@ def phase_train(torch):
         fail(f"train launches {launches}, expected 12 + 12 per step")
     if plain_calls:
         fail(f"plain versions ran {plain_calls} times on the train path")
+    return launches, (model, opt, x, y)
+
+
+def phase_train_fused_ops(torch, model, opt, x, y):
+    """The path of rows 8-10, on phase_train's gpt2-small after its 10
+    TrainSteps, through the public kernel API (the JAX package wires
+    these kernels into no layer or optimizer, so neither does the
+    port). One b16 s1024 forward and backward captures each of the 25
+    LayerNorms' input and output gradient and every parameter's bf16
+    gradient. Then, with the counts set to 0: ``fused_layer_norm``
+    forward and backward on each captured pair with that LayerNorm's
+    weight and bias, and ``fused_adamw_update`` on copies of every fp32
+    master and moment of the optimizer at its lr, betas, eps, weight
+    decay and next step. Each is gated against its plain version (the
+    norms by the training rule, AdamW bit for bit); the gaps to the
+    model's own ``F.layer_norm`` and to the port's ``AdamW`` step from
+    the same copies are printed, not gated (both round or decay
+    otherwise). Last, the AdamW sweep's device span against the port's
+    own AdamW step on the same tensors and the bytes bound."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.kernels import fused_adamw as fad
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    from paddle_tpu_torch.nn.layers_common import LayerNorm
+    lns = [(n, m) for n, m in model.named_modules()
+           if isinstance(m, LayerNorm)]
+    captured = {}
+
+    def hook(name):
+        def capture(mod, inputs, out):
+            rec = captured[name] = {"x": inputs[0].detach(),
+                                    "out": out.detach()}
+            out.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+        return capture
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in lns]
+    model.zero_grad(set_to_none=True)
+    model.loss(model(x), y).backward()
+    for h in hooks:
+        h.remove()
+    params = list(opt._parameter_list)
+    grads = [p.grad.detach() for p in params]
+    model.zero_grad(set_to_none=True)
+    states = [opt.state_for(p) for p in params]
+    if len(lns) != 25 or any("dy" not in captured[n] for n, _ in lns) or \
+            any("master" not in s for s in states):
+        fail(f"capture: {len(lns)} LayerNorms, "
+             f"{sum('dy' in c for c in captured.values())} gradients")
+    captured_bytes = sum(c[k].numel() * c[k].element_size()
+                         for c in captured.values() for k in ("x", "dy"))
+    hyper = dict(lr=opt.get_lr(), beta1=opt._beta1, beta2=opt._beta2,
+                 epsilon=opt._epsilon, weight_decay=opt._weight_decay,
+                 step=opt._step_count + 1)
+
+    def copies():
+        return [(s["master"].clone(), s["moment1"].clone(),
+                 s["moment2"].clone()) for s in states]
+
+    kernel_side = copies()
+    torch.cuda.synchronize()
+    # -- the path: every count 0 before it, read right after it
+    fn.reset_counts()
+    fad.reset_counts()
+    outs = []
+    for name, m in lns:
+        c = captured[name]
+        xs = c["x"].detach().requires_grad_()
+        ws = m.weight.detach().requires_grad_()
+        bs = m.bias.detach().requires_grad_()
+        yk = fn.fused_layer_norm(xs, ws, bs, m.epsilon)
+        outs.append((yk.detach(), *torch.autograd.grad(yk, (xs, ws, bs),
+                                                       c["dy"])))
+    for (pm, mm, vm), g in zip(kernel_side, grads):
+        fad.fused_adamw_update(pm, g, mm, vm, **hyper)
+    torch.cuda.synchronize()
+    launches = {"norm_fwd": fn.norm_fwd.launches,
+                "norm_dx": fn.norm_dx.launches,
+                "fused_adamw": fad.fused_adamw_update.launches}
+    plain_calls = sum(f.calls for f in fn.PLAIN_VERSIONS) + \
+        fad.fused_adamw_update_plain.calls
+    if launches != {"norm_fwd": 25, "norm_dx": 25,
+                    "fused_adamw": len(params)} or plain_calls:
+        fail(f"train_fused_ops launches {launches}, plain calls "
+             f"{plain_calls}")
+
+    # -- each LayerNorm against the plain versions
+    worst, n_bad, model_gap = {}, 0, 0.0
+    for (name, m), (yk, dxk, dwk, dbk) in zip(lns, outs):
+        c = captured[name]
+        d = c["x"].shape[-1]
+        x2, dy2 = c["x"].reshape(-1, d), c["dy"].reshape(-1, d)
+        w, b = m.weight.detach(), m.bias.detach()
+        refs = (fn.norm_fwd_plain(x2, w, b, m.epsilon, False),
+                fn.norm_dx_plain(x2, w, dy2, m.epsilon, False),
+                *fn.param_grads(x2, dy2, m.epsilon, False, w.dtype))
+        for label, a, r in zip(("y", "dx", "dw", "db"),
+                               (yk.reshape(-1, d), dxk.reshape(-1, d), dwk,
+                                dbk), refs):
+            a, r = a.float(), r.float()
+            diff = (a - r).abs()
+            lim = ULP_BF16 * r.abs() + SCALED_FRAC * r.abs().max() \
+                if label in ("y", "dx") else SUM_FRAC * r.abs().max()
+            n_bad += int((~(diff <= lim)).sum())
+            worst[label] = max(worst.get(label, 0.0), float(diff.max()))
+        model_gap = max(model_gap, float(
+            (yk.float() - c["out"].float()).abs().max()))
+    del outs, captured
+
+    # -- AdamW: kernel against plain bit for bit, and against AdamW's step
+    plain_side = copies()
+    for (pm, mm, vm), g in zip(plain_side, grads):
+        fad.fused_adamw_update_plain(pm, g, mm, vm, **hyper)
+    unequal = [i for i, (a, b) in enumerate(zip(kernel_side, plain_side))
+               if not all(torch.equal(u, v) for u, v in zip(a, b))]
+    del plain_side
+    ref_params = [p.detach().clone() for p in params]
+    ref_opt = optimizer.AdamW(hyper["lr"], beta1=hyper["beta1"],
+                              beta2=hyper["beta2"],
+                              epsilon=hyper["epsilon"],
+                              parameters=ref_params,
+                              weight_decay=hyper["weight_decay"],
+                              multi_precision=True)
+    for p, (pm, mm, vm) in zip(ref_params, copies()):
+        ref_opt._state[p] = {"moment1": mm, "moment2": vm, "master": pm}
+    ref_opt.apply_gradients(ref_params, grads, lr=hyper["lr"],
+                            step=hyper["step"])
+    adamw_gap = max(float((k[0] - ref_opt._state[p]["master"]).abs().max())
+                    for k, p in zip(kernel_side, ref_params))
+
+    # -- the sweep's device span against AdamW's step on the same tensors
+    def span_ms(fn_, n=5):
+        fn_()
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        s.record()
+        for _ in range(n):
+            fn_()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / n, (time.perf_counter() - t0) * 1e3 / n
+
+    def sweep():
+        for (pm, mm, vm), g in zip(kernel_side, grads):
+            fad.fused_adamw_update(pm, g, mm, vm, **hyper)
+
+    sweep_ms, sweep_wall = span_ms(sweep)
+    step_ms, step_wall = span_ms(lambda: ref_opt.apply_gradients(
+        ref_params, grads, lr=hyper["lr"], step=hyper["step"]))
+    values = sum(p.numel() for p in params)
+    n_bytes = sum(p.numel() * 26 for p in params)   # p, m, v r+w; bf16 g
+    bms, by = _adamw_bound(values, 4, 2)
+    say("train_fused_ops", config="gpt2-small", dtype="bfloat16",
+        batch=x.shape[0], seq=x.shape[1], layer_norms=len(lns),
+        captured_gib=captured_bytes / 2 ** 30,
+        launches=launches, plain_calls=plain_calls,
+        norm_max_abs_err=worst, norm_out_of_tol=n_bad,
+        norm_tol=f"y/dx {ULP_BF16}*|plain|+{SCALED_FRAC}*max|plain|; "
+                 f"dw/db {SUM_FRAC}*max|plain|",
+        max_gap_to_model_layer_norm=model_gap,
+        adamw_tensors=len(params), adamw_values=values,
+        adamw_unequal_to_plain=unequal, hyperparameters=hyper,
+        max_master_gap_to_port_adamw=adamw_gap,
+        adamw_sweep_ms=sweep_ms, adamw_sweep_host_ms=sweep_wall,
+        port_adamw_step_ms=step_ms, port_adamw_step_host_ms=step_wall,
+        adamw_bound_ms=bms, adamw_bound_by=by, adamw_bytes=n_bytes)
+    if n_bad:
+        fail(f"fused_layer_norm disagrees with its plain version on "
+             f"{n_bad} elements of the captured LayerNorms")
+    if unequal:
+        fail(f"fused_adamw_update differs from its plain version on "
+             f"parameters {unequal}")
     return launches
 
 
@@ -1907,6 +2255,7 @@ def main():
         phase_train_kernels(torch, timer)
     rows.update(phase_fused_resnet_kernels(torch, timer))
     rows.update(phase_fused_conv3x3_kernels(torch, timer))
+    rows.update(phase_norm_adamw_kernels(torch, timer))
     model = phase_model(torch)
     prompts = _serve_prompts(model)
     paths = []
@@ -1924,7 +2273,10 @@ def main():
     phase_int8_logits(torch, model)
     del model
     torch.cuda.empty_cache()
-    paths.append(("train", phase_train(torch)))
+    launches, trained = phase_train(torch)
+    paths.append(("train", launches))
+    paths.append(("train_fused_ops", phase_train_fused_ops(torch, *trained)))
+    del trained
     torch.cuda.empty_cache()
     paths.append(("train_resnet50", phase_train_resnet50(torch)))
     for name, row in rows.items():

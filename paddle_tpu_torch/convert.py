@@ -11,9 +11,12 @@ imports no JAX; the caller produces the arrays, e.g.
 
 ``load_reference_optimizer_state(optimizer, state)`` takes the JAX
 ``Optimizer.state_dict()`` (``_step_count``, ``param_{i}`` dicts of
-moments, velocities and fp32 masters as numpy arrays, ``LR_Scheduler``)
-and loads it into the port's optimizer over the same parameter list, so
-a resumed run computes the same next step. A master that is ``None``
+numpy arrays under the JAX optimizer's own keys: ``moment1``,
+``moment2``, ``velocity``, ``master``, Adagrad's ``moment``, RMSProp's
+``mean_square``, ``momentum`` and ``mean_grad``, Adamax's ``moment`` and
+``inf_norm``; and ``LR_Scheduler``) and loads it, each array in its own
+dtype, into the port's optimizer over the same parameter list, so a
+resumed run computes the same next step. A master that is ``None``
 (SGD and Momentum before their first update) is left out: the port
 makes it from the parameter at that update, as the JAX package does.
 Batch norm's running statistics are buffers of the model's state and

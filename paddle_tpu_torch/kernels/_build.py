@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel library, by source name
 SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
-           "fused_resnet", "fused_conv3x3")
+           "fused_resnet", "fused_conv3x3", "fused_norm", "fused_adamw")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -118,3 +118,10 @@ def library(name: str, signatures: Optional[Dict[str, tuple]] = None
     with _LOCK:
         _LIBS[name] = lib
     return lib
+
+
+def raise_on(err: int, what: str):
+    """Raise when a C entry point returned a CUDA error (a launch the
+    card refused never runs, and no later synchronize reports it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

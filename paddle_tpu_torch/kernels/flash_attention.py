@@ -117,11 +117,6 @@ def _kernel_args(named, head_dim):
         *strides)
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
 # -------------------------------------------------------------- prefill
 
 def _wide(t):
@@ -222,7 +217,7 @@ def _forward(query, key, value, causal, scale, return_lse):
             query.data_ptr(), key.data_ptr(), value.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(), code,
             b, hq, hk, sq, sk, d, strides, int(bool(causal)), scale, stream)
-    _raise_on(err, "flash_fwd")
+    _build.raise_on(err, "flash_fwd")
     flash_attention.launches += 1
     return out if lse is None else (out, lse)
 
@@ -361,7 +356,7 @@ def flash_attention_bwd(query, key, value, out, lse, dout,
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), code, b, hq, hk,
             sq, sk, d, strides, int(bool(causal)), scale, stream)
-    _raise_on(err, "flash_bwd")
+    _build.raise_on(err, "flash_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -545,7 +540,7 @@ def _launch_dense(entry, query, key_cache, value_cache, kv_len, scale,
             query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
             *sc_ptrs, kv_len.data_ptr(), out.data_ptr(), code, b, sq, hq,
             hk, t, d, strides, scale, stream)
-    _raise_on(err, entry)
+    _build.raise_on(err, entry)
     return out
 
 
@@ -742,7 +737,7 @@ def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
             *sc_ptrs, page_table.data_ptr(), kv_len.data_ptr(),
             out.data_ptr(), code, b, sq, hq, hk, ps, page_table.shape[1], d,
             strides, scale, stream)
-    _raise_on(err, entry)
+    _build.raise_on(err, entry)
     _count_launch(flash_attention_decode_paged, scales)
     return out
 

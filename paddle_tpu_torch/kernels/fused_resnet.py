@@ -269,11 +269,6 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
 def _codes(x2, w2):
     m, k = x2.shape
     n = w2.shape[1]
@@ -307,7 +302,7 @@ def _launch_forward(x2, w2, scale, shift, what):
             y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(), code,
             int(scale is not None), m, k, n, _stream(x2))
-    _raise_on(err, what)
+    _build.raise_on(err, what)
     return y, stats[0], stats[1]
 
 
@@ -350,7 +345,7 @@ def _launch_backward(dy, y, x2, w2, perch, dvar2, mean, scale, shift, what):
             mean.data_ptr(), dx.data_ptr(), dw.data_ptr(), ptr(dw_part),
             ptr(dsd, 0), ptr(dsd, 1), ptr(dsd_part, 0), ptr(dsd_part, 1),
             code, int(pro), m, k, n, chunks, rows, _stream(x2))
-    _raise_on(err, what)
+    _build.raise_on(err, what)
     return (dx, dw) if not pro else (dx, dw, dsd[0], dsd[1])
 
 
@@ -478,7 +473,7 @@ def conv3x3_bn_stats_fwd(x, scale, shift, w9):
             y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
             count.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             code, n, h, w, c, o, r, wt, g, _stream(x))
-    _raise_on(err, "conv3x3_bn_stats")
+    _build.raise_on(err, "conv3x3_bn_stats")
     conv3x3_bn_stats_fwd.launches += 1
     return y, stats[0], stats[1]
 
@@ -517,7 +512,7 @@ def conv3x3_bn_stats_bwd(dy, y, x, scale, shift, w9, perch, dvar2, mean):
             dsd[0].data_ptr(), dsd[1].data_ptr(), dsd_part[0].data_ptr(),
             dsd_part[1].data_ptr(), code, n, h, w, c, o, r, wt, g, chunks,
             per, _stream(x))
-    _raise_on(err, "conv3x3_bn_stats_bwd")
+    _build.raise_on(err, "conv3x3_bn_stats_bwd")
     conv3x3_bn_stats_bwd.launches += 1
     return dx, dw, dsd[0], dsd[1]
 

@@ -27,6 +27,18 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     return out
 
 
+
+def rms_norm(x, weight=None, epsilon: float = 1e-6):
+    """RMSNorm over the last dim: x / sqrt(mean(x^2) + eps), computed in
+    fp32 for bf16 inputs, cast back to the input dtype, then scaled —
+    the JAX package's order of operations."""
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    return out
+
 def _channel_shape(x, data_format):
     """The channel axis of ``x`` and the shape a [C] vector broadcasts
     in (channels at 1 for NC* layouts, last for N*C layouts)."""

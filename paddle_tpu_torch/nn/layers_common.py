@@ -110,6 +110,20 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self.normalized_shape}"
 
 
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last dim with a ``[hidden_size]`` weight of
+    ones."""
+
+    def __init__(self, hidden_size: int, epsilon: float = 1e-6, *,
+                 device=None, dtype=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = _param((hidden_size,), device, dtype, "ones")
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
+
 class Dropout(nn.Module):
     """Upscale-in-train dropout drawing its mask from the device's
     seeded generator; the identity in eval mode."""

@@ -925,3 +925,165 @@ def test_conv3x3_kernels_refuse_what_they_do_not_take(dev):
     # a refused call launches nothing and runs no plain version
     assert fr.conv3x3_bn_stats_fwd.launches == 0
     assert fr.conv3x3_bn_stats_fwd_plain.calls == 0
+
+
+# ------------------------------------------------------------ fused norms
+
+def _norm_layout(gen, rows, d, dtype, dev, layout):
+    """x [rows, d] on the card: contiguous, one element off a 16-byte
+    boundary ("misaligned": the scalar path), rows at a padded stride
+    ("strided": the vector path with ld != d) or a transposed view
+    ("transposed": copied by the wrapper)."""
+    if layout == "misaligned":
+        return _randn(gen, (rows * d + 1,), dtype, dev)[1:].view(rows, d)
+    if layout == "strided":
+        return _randn(gen, (rows, d + 8), dtype, dev)[:, :d]
+    if layout == "transposed":
+        return _randn(gen, (d, rows), dtype, dev).t()
+    return _randn(gen, (rows, d), dtype, dev)
+
+
+def _norm_pair(dev, rows, d, dtype, rms, layout="contiguous", seed=0):
+    """Forward and dx of one norm through the kernels and the plain
+    versions on the same inputs; checks the launch counts."""
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    gen = torch.Generator(device=dev).manual_seed(rows * 31 + d + seed)
+    x = _norm_layout(gen, rows, d, dtype, dev, layout) * 2 + 0.5
+    dy = _norm_layout(gen, rows, d, dtype, dev, layout)
+    w = torch.randn(d, generator=gen, device=dev) * 0.1 + 1.0
+    b = torch.randn(d, generator=gen, device=dev) * 0.1
+    fn.reset_counts()
+    y = fn.norm_fwd(x, w, b, 1e-5, rms)
+    dx = fn.norm_dx(x, w, dy, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fn.KERNEL_WRAPPERS] == [1, 1]
+    assert [f.calls for f in fn.PLAIN_VERSIONS] == [0, 0]
+    ref_y = fn.norm_fwd_plain(x, w, b, 1e-5, rms)
+    ref_dx = fn.norm_dx_plain(x, w, dy, 1e-5, rms)
+    assert y.dtype == dx.dtype == dtype
+    _close(y, ref_y)
+    _close(dx, ref_dx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("d", [64, 768, 1000, 4096])
+@pytest.mark.parametrize("rows", [1, 7, 16384])
+def test_fused_norm_kernels_match_plain(dev, dtype, rms, d, rows):
+    _norm_pair(dev, rows, d, dtype, rms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("layout", ["misaligned", "strided", "transposed"])
+@pytest.mark.parametrize("rows,d", [(7, 77), (33, 768), (5, 1000),
+                                    (9, 4096), (3, 13000)])
+def test_fused_norm_kernels_misaligned_and_strided(dev, dtype, layout, rows,
+                                                   d):
+    """Every kernel variant: odd D (no vector), a row per warp and per
+    block, staged rows and rows too wide to stage (13000: re-read)."""
+    for rms in (False, True):
+        _norm_pair(dev, rows, d, dtype, rms, layout, seed=1)
+
+
+def test_fused_norm_autograd_on_card(dev):
+    """fused_layer_norm / fused_rms_norm through autograd on the card
+    against the same graph on the CPU."""
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((4, 50, 768), generator=gen, device=dev)
+    w = torch.randn(768, generator=gen, device=dev) * 0.1 + 1.0
+    b = torch.randn(768, generator=gen, device=dev) * 0.1
+    ct = torch.randn((4, 50, 768), generator=gen, device=dev)
+    for rms in (False, True):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            xs, ws, bs = (t.detach().to(d).requires_grad_()
+                          for t in (x, w, b))
+            y = fn.fused_rms_norm(xs, ws) if rms else \
+                fn.fused_layer_norm(xs, ws, bs)
+            y.backward(ct.to(d))
+            outs.append([y.detach(), xs.grad, ws.grad,
+                         None if rms else bs.grad])
+        for got, ref in zip(*outs):
+            assert (got is None) == (ref is None)
+            if ref is not None:
+                torch.testing.assert_close(got.cpu(), ref, atol=1e-4,
+                                           rtol=1e-4)
+
+
+# ------------------------------------------------------------ fused AdamW
+
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32)])
+@pytest.mark.parametrize("n", [1, 7, 1003, 50257 * 3 + 1])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tensors", [False, True])
+def test_fused_adamw_bitwise_equal_to_plain(dev, p_dtype, g_dtype, n,
+                                            offset, tensors):
+    """Three steps, kernel and plain version from the same state: equal
+    bit for bit. ``offset`` 1 starts every array one element off its
+    allocation (the one-value path); n % 4 != 0 exercises the tail."""
+    from paddle_tpu_torch.kernels import fused_adamw as fa_
+    gen = torch.Generator(device=dev).manual_seed(n + offset)
+
+    def arr(dtype, s=1.0):
+        t = torch.randn(n + offset, generator=gen, device=dev) * s
+        return t.to(dtype)[offset:]
+
+    p, m, v = arr(p_dtype), arr(torch.float32, 0.01), arr(torch.float32, 0.01)
+    v.square_()                 # in place: the view keeps its offset
+    state = [(p.clone(), m.clone(), v.clone()) for _ in range(2)]
+    fa_.reset_counts()
+    for step in (1, 2, 3):
+        g = arr(g_dtype)
+        lr, t = 1e-3 / step, step
+        if tensors:
+            lr = torch.tensor(lr, device=dev)
+            t = torch.tensor(float(t), device=dev)
+        fa_.fused_adamw_update(state[0][0], g, state[0][1], state[0][2], lr,
+                               0.9, 0.999, 1e-8, 0.01, t)
+        fa_.fused_adamw_update_plain(state[1][0], g, state[1][1],
+                                     state[1][2], lr, 0.9, 0.999, 1e-8,
+                                     0.01, t)
+    torch.cuda.synchronize()
+    assert fa_.fused_adamw_update.launches == 3
+    assert fa_.fused_adamw_update_plain.calls == 3
+    for a, b_ in zip(*state):
+        assert torch.equal(a, b_)
+    assert not torch.equal(state[0][1], m)      # the moments did move
+
+
+def test_fused_adamw_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.kernels import fused_adamw as fa_
+    fa_.reset_counts()
+    z = dict(device=dev)
+    p, g = torch.zeros((4, 6), **z), torch.zeros((4, 6), **z)
+    m, v = torch.zeros((4, 6), **z), torch.zeros((4, 6), **z)
+    args = (1e-3, 0.9, 0.999, 1e-8, 0.01, 1)
+    with pytest.raises(TypeError, match="v must be float32"):
+        fa_.fused_adamw_update(p, g, m, v.bfloat16(), *args)
+    with pytest.raises(ValueError, match="param's shape"):
+        fa_.fused_adamw_update(p, torch.zeros((6, 4), **z), m, v, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_.fused_adamw_update(p, g, torch.zeros((6, 4), **z).t(), v, *args)
+    with pytest.raises(ValueError, match="is on"):
+        fa_.fused_adamw_update(p, g, torch.zeros((4, 6)), v, *args)
+    assert fa_.fused_adamw_update.launches == 0
+    assert fa_.fused_adamw_update_plain.calls == 0
+
+
+def test_fused_norm_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    fn.reset_counts()
+    x = torch.zeros((4, 8), device=dev, dtype=torch.float64)
+    one = torch.ones(8, device=dev)
+    with pytest.raises(TypeError, match="float32, bfloat16"):
+        fn.norm_fwd(x, one, one, 1e-5, False)
+    with pytest.raises(ValueError, match="inputs on"):
+        fn.norm_fwd(x.float(), one.cpu(), one, 1e-5, False)
+    with pytest.raises(TypeError, match="dy2"):
+        fn.norm_dx(x.float(), one, x.bfloat16(), 1e-5, True)
+    assert [f.launches for f in fn.KERNEL_WRAPPERS] == [0, 0]
+    assert [f.calls for f in fn.PLAIN_VERSIONS] == [0, 0]
