@@ -22,7 +22,10 @@ at batch 128 x 224 x 224 through the 1x1 and the 3x3 conv + BN-stats
 kernels (and times the same recipe with its 3x3s on cuDNN), holds the
 fused LayerNorm/RMSNorm and AdamW kernels against their plain versions
 and runs them on the trained gpt2-small's 25 LayerNorm inputs and
-gradients and on copies of its optimizer state, and checks
+gradients and on copies of its optimizer state, holds the fused
+linear + cross-entropy kernels against their plain versions and runs
+them on the trained gpt2-small's LM head (hidden states and tied
+embedding) beside the model's own fused loss, and checks
 that each path went through its kernels and never through a plain
 version. Phases
 print one line each; the line before the last is the kernel table as
@@ -159,6 +162,22 @@ class DeviceTimer:
         e.record()
         e.synchronize()
         return s.elapsed_time(e) / n
+
+
+def span_ms(torch, fn, n=5):
+    """Device and host-clock ms per call of ``fn`` over ``n`` calls in a
+    row after one warm call: for a step of many launches, which
+    ``DeviceTimer`` cannot hold behind its spin kernel."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n, (time.perf_counter() - t0) * 1e3 / n
 
 
 def bound_ms(n_bytes, flops):
@@ -1291,6 +1310,148 @@ def phase_norm_adamw_kernels(torch, timer):
     return rows
 
 
+_CE_ROWS = (  # name, TPU kernel it replaces
+    ("fused_ce_fwd", "paddle_tpu/kernels/fused_ce.py:101"),
+    ("fused_ce_bwd", "paddle_tpu/kernels/fused_ce.py:223"),
+)
+# (N, H, V, dtype, vocab_major): gpt2-small's LM head at b16 s1024 (the
+# probe's shape: 16 x 1023 shifted positions, tied [V, H] embedding),
+# the [H, V] layout, and fp32 at a smaller shape; N and V ragged to
+# every tile
+_CE_SHAPES = ((16368, 768, 50257, "bfloat16", True),
+              (4093, 768, 50257, "bfloat16", False),
+              (2045, 768, 8191, "float32", True))
+
+
+def _ce_bound(n, hd, vocab, elem, bwd):
+    """Least time for the fused CE on h [n, hd] and W [vocab, hd]: h and
+    W read once, y (and lse, dce) read and the outputs written once,
+    against the products at the tensor-core rate (bf16) or the fp32
+    rate: one (forward) or three (backward: the logits again, dh, dW)
+    of 2*n*vocab*hd operations."""
+    io = (n + vocab) * hd * elem      # h and W; dh and dW as much again
+    n_bytes = io + 12 * n + (io if bwd else 0)   # y, lse and ce or dce
+    flops = (6 if bwd else 2) * n * vocab * hd
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = flops / (PEAK_FLOPS if elem == 2 else PEAK_FLOPS_F32)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _ce_library(torch, h, w, y):
+    """The saved-logits forward in PyTorch calls: bf16 ``torch.matmul``,
+    ``.float()``, ``logsumexp``, ``gather``. The yardstick of rows
+    11-12; the port never calls it."""
+    logits = torch.matmul(h, w.t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(1, y.clamp_min(0)[:, None])[:, 0]
+    return torch.where(y >= 0, lse - gold, torch.zeros_like(lse))
+
+
+def phase_fused_ce_kernels(torch, timer):
+    """Rows 11-12 against their plain versions: at gpt2-small's LM head
+    (h [16368, 768], tied W [50257, 768], bf16), the [H, V] layout and
+    fp32 at a smaller shape, every 7th label -1; ce and lse within the
+    LSE rule, dh and dW by the training rule, ignored rows 0, a repeat
+    bitwise equal. Timed at the first shape beside the saved-logits
+    forward in PyTorch calls and its ``torch.autograd.grad``."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = {name: 0.0 for name, _ in _CE_ROWS}
+    rows = {}
+    for shape in _CE_SHAPES:
+        n, hd, vocab, dtype, vm = shape
+        dt = getattr(torch, dtype)
+
+        def make():
+            h = torch.randn(n, hd, generator=gen, device=dev).to(dt)
+            w = (torch.randn(vocab, hd, generator=gen, device=dev)
+                 * 0.02).to(dt)
+            y = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+            y[::7] = -1
+            dce = torch.rand(n, generator=gen, device=dev) / n
+            return h, (w if vm else w.t().contiguous()), y, dce
+
+        h, w, y, dce = make()
+        lse, ce = fc.ce_fwd(h, w, y, vm)
+        dh, dw = fc.ce_bwd(h, w, y, lse, dce, vm)
+        again = fc.ce_fwd(h, w, y, vm) + fc.ce_bwd(h, w, y, lse, dce, vm)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((lse, ce, dh, dw),
+                                                     again)):
+            fail(f"fused CE kernels not bitwise repeatable at "
+                 f"{(n, hd, vocab, dtype, vm)}")
+        del again
+        lse_p, ce_p = fc.ce_fwd_plain(h, w, y, vm)
+        dh_p, dw_p = fc.ce_bwd_plain(h, w, y, lse_p, dce, vm)
+        e_lse, b_lse = _err(lse, lse_p, LSE_ATOL, LSE_RTOL)
+        e_ce, b_ce = _err(ce, ce_p, LSE_ATOL, LSE_RTOL)
+        e_dh, b_dh = _err_scaled(dh, dh_p)
+        e_dw, b_dw = _err_scaled(dw, dw_p)
+        ignored = y < 0
+        zero_rows = bool((ce[ignored] == 0).all() and (dh[ignored] == 0).all())
+        say("kernel_check", kernel="fused_ce", shape=dict(
+            n=n, h=hd, v=vocab, vocab_major=vm), dtype=dtype,
+            max_abs_err=dict(lse=e_lse, ce=e_ce, dh=e_dh, dw=e_dw),
+            out_of_tol=dict(lse=b_lse, ce=b_ce, dh=b_dh, dw=b_dw),
+            ignored_rows_zero=zero_rows, bitwise_repeat=True,
+            tol=f"ce, lse {LSE_ATOL}+{LSE_RTOL}*|plain|; dh, dW "
+                f"{ULP_BF16}*|plain|+{SCALED_FRAC}*max|plain|")
+        if b_lse or b_ce or b_dh or b_dw or not zero_rows:
+            fail(f"fused CE kernels disagree with their plain versions at "
+                 f"{(n, hd, vocab, dtype, vm)}")
+        worst["fused_ce_fwd"] = max(worst["fused_ce_fwd"], e_ce, e_lse)
+        worst["fused_ce_bwd"] = max(worst["fused_ce_bwd"], e_dh, e_dw)
+        del lse_p, ce_p, dh_p, dw_p, dh, dw
+        if shape is not _CE_SHAPES[0]:
+            del h, w, y, dce
+            torch.cuda.empty_cache()
+            continue
+        # -- times at the LM head's shape; two input sets: W is 77 MB
+        sets = [(h, w, y, dce), make()]
+        fwd_args = [(a, b, c, vm) for a, b, c, _ in sets]
+        lses = [fc.ce_fwd(*args)[0] for args in fwd_args]
+        bwd_args = [(a, b, c, l, d, vm) for (a, b, c, d), l in zip(sets,
+                                                                 lses)]
+        ms = {"fused_ce_fwd": timer.ms(fc.ce_fwd, fwd_args, n=10),
+              "fused_ce_bwd": timer.ms(fc.ce_bwd, bwd_args, n=5)}
+        plain_ms = {"fused_ce_fwd": timer.ms(fc.ce_fwd_plain, fwd_args, n=3),
+                    "fused_ce_bwd": timer.ms(fc.ce_bwd_plain, bwd_args,
+                                             n=3)}
+        lib_fwd = timer.ms(lambda a, b, c, _: _ce_library(torch, a, b, c),
+                           fwd_args, n=10)
+        graphs = []
+        for a, b, c, d in sets:
+            hg = a.detach().requires_grad_()
+            wg = b.detach().requires_grad_()
+            graphs.append((_ce_library(torch, hg, wg, c), hg, wg, d))
+        lib_bwd = timer.ms(lambda out, hg, wg, d: torch.autograd.grad(
+            out, (hg, wg), d, retain_graph=True), graphs, n=5)
+        del graphs, sets, fwd_args, bwd_args, lses
+        torch.cuda.empty_cache()
+        lib_ms = {"fused_ce_fwd": lib_fwd, "fused_ce_bwd": lib_bwd}
+        for name, replaces in _CE_ROWS:
+            bwd = name == "fused_ce_bwd"
+            bms, bby = _ce_bound(n, hd, vocab, 2, bwd)
+            say("kernel_time", kernel=name, shape=[n, hd, vocab],
+                kernel_ms=ms[name], plain_ms=plain_ms[name],
+                library_ms=lib_ms[name], bound_ms=bms, bound_by=bby)
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="paddle_tpu_torch/csrc/fused_ce.cu",
+                replaces=replaces,
+                shape="h [16368,768], W [50257,768] bf16 (gpt2-small's LM "
+                      "head, b16 s1024)" + (", dh and dW" if bwd else ""),
+                ms=ms[name], plain_ms=plain_ms[name], bound_ms=bms,
+                bound_by=bby, library_ms=lib_ms[name])
+        del h, w, y, dce
+        torch.cuda.empty_cache()
+    for name, _ in _CE_ROWS:
+        rows[name]["max_abs_err"] = worst[name]
+    return rows
+
+
 def phase_model(torch):
     """gpt2-small in bf16: a bucket-512 prefill of two ragged prompts
     plus 8 teacher-forced decode steps, through the kernels and through
@@ -1978,24 +2139,12 @@ def phase_train_fused_ops(torch, model, opt, x, y):
                     for k, p in zip(kernel_side, ref_params))
 
     # -- the sweep's device span against AdamW's step on the same tensors
-    def span_ms(fn_, n=5):
-        fn_()
-        torch.cuda.synchronize()
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        s.record()
-        for _ in range(n):
-            fn_()
-        e.record()
-        e.synchronize()
-        return s.elapsed_time(e) / n, (time.perf_counter() - t0) * 1e3 / n
-
     def sweep():
         for (pm, mm, vm), g in zip(kernel_side, grads):
             fad.fused_adamw_update(pm, g, mm, vm, **hyper)
 
-    sweep_ms, sweep_wall = span_ms(sweep)
-    step_ms, step_wall = span_ms(lambda: ref_opt.apply_gradients(
+    sweep_ms, sweep_wall = span_ms(torch, sweep)
+    step_ms, step_wall = span_ms(torch, lambda: ref_opt.apply_gradients(
         ref_params, grads, lr=hyper["lr"], step=hyper["step"]))
     values = sum(p.numel() for p in params)
     n_bytes = sum(p.numel() * 26 for p in params)   # p, m, v r+w; bf16 g
@@ -2020,6 +2169,124 @@ def phase_train_fused_ops(torch, model, opt, x, y):
     if unequal:
         fail(f"fused_adamw_update differs from its plain version on "
              f"parameters {unequal}")
+    return launches
+
+
+# the probe's shapes (experiments/fused_ce_probe.py): (tag, batch, seq)
+_PROBE_SHAPES = (("b16-s1024", 16, 1024), ("b32-s1024", 32, 1024),
+                 ("b16-s2048", 16, 2048))
+
+
+def phase_train_fused_ce(torch, model, opt, x, y):
+    """The path of rows 11-12, the loss-head probe's
+    (``experiments/fused_ce_probe.py``), on phase_train's gpt2-small after
+    its 10 TrainSteps: one b16 s1024 forward gives the pair (final hidden
+    states, tied wte) that the fused LM loss takes; with the counts set to
+    0, ``fused_linear_ce`` on hidden[:, :-1] and the labels [:, 1:] gives
+    the mean loss over valid labels and, by autograd, d hidden and d wte.
+    Gated against the model's own ``_fused_loss`` on the same pair (its
+    saved-logits branch, as the recipe runs it) by the GPT rule. Then the
+    probe's table: value and both gradients in ms for the saved-logits
+    branch (where b*s*V*4 <= 4 GiB), the chunked branch at lm_loss_chunk
+    = max(8192 // b, 128), and the kernel, at b16-s1024 (the trained
+    hidden states), b32-s1024 and b16-s2048 (seeded random ones, as the
+    probe uses)."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.kernels import fused_linear_ce
+    dev = torch.device("cuda", 0)
+    cfg = model.cfg
+    model.eval()
+    with torch.no_grad():
+        hidden, wte = model(x)
+    model.train()
+    hidden, wte = hidden.detach(), wte.detach()
+    vocab, hd = wte.shape
+
+    def kernel_loss(hs, ys, w):
+        b, s1, _ = hs.shape
+        ce = fused_linear_ce(hs.reshape(b * s1, hd), w, ys.reshape(-1))
+        valid = (ys >= 0).float()
+        return ce.sum() / valid.sum().clamp_min(1.0)
+
+    def value_and_grads(loss_fn, hs, ys, w):
+        hg, wg = hs.detach().requires_grad_(), w.detach().requires_grad_()
+        loss = loss_fn(hg, ys, wg)
+        return (loss.detach(),) + torch.autograd.grad(loss, (hg, wg))
+
+    def branch(chunk, budget):
+        def loss_fn(hs, ys, w):
+            old = (cfg.lm_loss_chunk, cfg.lm_loss_save_logits_budget)
+            cfg.lm_loss_chunk, cfg.lm_loss_save_logits_budget = chunk, budget
+            try:       # _fused_loss shifts; pad hs and ys back by one
+                return model._fused_loss(
+                    torch.nn.functional.pad(hs, (0, 0, 0, 1)),
+                    torch.nn.functional.pad(ys, (1, 0), value=-1), w)
+            finally:
+                cfg.lm_loss_chunk, cfg.lm_loss_save_logits_budget = old
+        return loss_fn
+
+    hs, ys = hidden[:, :-1], y[:, 1:]
+    torch.cuda.synchronize()
+    # -- the path: every count 0 before it, read right after it
+    fc.reset_counts()
+    k_loss, k_dh, k_dw = value_and_grads(kernel_loss, hs, ys, wte)
+    torch.cuda.synchronize()
+    launches = {"fused_ce_fwd": fc.ce_fwd.launches,
+                "fused_ce_bwd": fc.ce_bwd.launches}
+    plain_calls = fc.ce_fwd_plain.calls + fc.ce_bwd_plain.calls
+    if launches != {"fused_ce_fwd": 1, "fused_ce_bwd": 2} or plain_calls:
+        fail(f"train_fused_ce launches {launches}, plain calls "
+             f"{plain_calls}")
+    # -- against the model's own loss on the same pair (saved logits)
+    r_loss, r_dh, r_dw = value_and_grads(
+        lambda h_, y_, w_: model._fused_loss(h_, y_, w_), hidden, y, wte)
+    r_dh = r_dh[:, :-1]
+    loss_diff = abs(float(k_loss) - float(r_loss))
+    errs = {n_: float((a.float() - b.float()).norm()
+                      / b.float().norm().clamp_min(1e-30))
+            for n_, a, b in (("d_hidden", k_dh, r_dh), ("d_wte", k_dw, r_dw))}
+    del r_dh, r_dw, k_dh, k_dw
+
+    # -- the probe's table
+    def probe_ms(fn):
+        return span_ms(torch, fn, n=3)[0]
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    table = []
+    for tag, b, s in _PROBE_SHAPES:
+        if (b, s) == tuple(x.shape):
+            hb, yb = hs, ys
+        else:
+            hb = torch.randn(b, s - 1, hd, generator=gen,
+                             device=dev).to(hidden.dtype)
+            yb = torch.randint(0, vocab, (b, s - 1), generator=gen,
+                               device=dev)
+        row = dict(shape=tag)
+        if b * (s - 1) * vocab * 4 <= 4 << 30:
+            row["saved_logits_ms"] = probe_ms(lambda: value_and_grads(
+                branch(1 << 30, 4 << 30), hb, yb, wte))
+        chunk = max(8192 // b, 128)
+        row["chunked_ms"] = probe_ms(lambda: value_and_grads(
+            branch(chunk, 0), hb, yb, wte))
+        row["chunk"] = chunk
+        row["kernel_ms"] = probe_ms(lambda: value_and_grads(
+            kernel_loss, hb, yb, wte))
+        row["kernel_bound_ms"] = 8 * hb.shape[0] * hb.shape[1] * vocab * hd \
+            / PEAK_FLOPS * 1e3
+        table.append(row)
+        del hb, yb
+        torch.cuda.empty_cache()
+    say("train_fused_ce", config="gpt2-small", dtype="bfloat16",
+        batch=x.shape[0], seq=x.shape[1], kernel_loss=float(k_loss),
+        model_loss=float(r_loss), loss_diff=loss_diff,
+        loss_tol=TRAIN_LOSS_TOL, grad_norm_err=errs,
+        grad_tol=GRAD_NORM_TOL, launches=launches, plain_calls=plain_calls,
+        probe=table)
+    if not math.isfinite(float(k_loss)) or loss_diff > TRAIN_LOSS_TOL:
+        fail(f"fused_linear_ce loss {float(k_loss)} against the model's "
+             f"{float(r_loss)}")
+    if max(errs.values()) > GRAD_NORM_TOL:
+        fail(f"fused_linear_ce gradients against the model's: {errs}")
     return launches
 
 
@@ -2256,6 +2523,7 @@ def main():
     rows.update(phase_fused_resnet_kernels(torch, timer))
     rows.update(phase_fused_conv3x3_kernels(torch, timer))
     rows.update(phase_norm_adamw_kernels(torch, timer))
+    rows.update(phase_fused_ce_kernels(torch, timer))
     model = phase_model(torch)
     prompts = _serve_prompts(model)
     paths = []
@@ -2276,6 +2544,7 @@ def main():
     launches, trained = phase_train(torch)
     paths.append(("train", launches))
     paths.append(("train_fused_ops", phase_train_fused_ops(torch, *trained)))
+    paths.append(("train_fused_ce", phase_train_fused_ce(torch, *trained)))
     del trained
     torch.cuda.empty_cache()
     paths.append(("train_resnet50", phase_train_resnet50(torch)))

@@ -21,6 +21,12 @@ resumed run computes the same next step. A master that is ``None``
 makes it from the parameter at that update, as the JAX package does.
 Batch norm's running statistics are buffers of the model's state and
 cross with ``load_reference_state``.
+
+``load_reference_hsigmoid_loss(layer, weight, bias=None)`` takes a JAX
+``HSigmoidLoss``'s ``weight`` [num_classes - 1, feature_size] and
+``bias`` [num_classes - 1] (numpy; ``bias`` None when the layer was
+built with ``bias_attr=False``) into the port's layer, as strictly. It
+is the only loss layer with parameters.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ import torch
 
 from .core.dtype import convert_dtype
 
-__all__ = ["load_reference_state", "load_reference_optimizer_state"]
+__all__ = ["load_reference_state", "load_reference_optimizer_state",
+           "load_reference_hsigmoid_loss"]
 
 
 def _as_tensor(a: np.ndarray) -> torch.Tensor:
@@ -88,3 +95,12 @@ def load_reference_optimizer_state(optimizer, state: Mapping) -> None:
             entry[name] = _as_tensor(a)
         converted[key] = entry
     optimizer.set_state_dict(converted)
+
+
+def load_reference_hsigmoid_loss(layer: torch.nn.Module, weight: np.ndarray,
+                                 bias: np.ndarray = None) -> None:
+    """Copy a JAX ``HSigmoidLoss``'s weight (and bias) into ``layer``."""
+    arrays = {"weight": weight}
+    if bias is not None:
+        arrays["bias"] = bias
+    load_reference_state(layer, arrays)

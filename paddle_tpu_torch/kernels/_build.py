@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel library, by source name
 SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
-           "fused_resnet", "fused_conv3x3", "fused_norm", "fused_adamw")
+           "fused_resnet", "fused_conv3x3", "fused_norm", "fused_adamw",
+           "fused_ce")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

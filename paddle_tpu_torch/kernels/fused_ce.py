@@ -1,0 +1,264 @@
+"""Fused LM head + cross entropy (the JAX package's
+``kernels/fused_ce.py``): the per-row cross entropy of ``softmax(h @ W)``
+against integer labels, and its gradients for h and W, without the
+[N, V] logits in device memory.
+
+``fused_linear_ce`` goes through ``_LinearCEFn``, a
+``torch.autograd.Function`` (the JAX package's custom VJP). Its forward
+runs ``ce_fwd`` and its backward ``ce_bwd``: the kernels of
+``csrc/fused_ce.cu`` for tensors on a CUDA card, the plain versions
+``ce_fwd_plain`` / ``ce_bwd_plain`` (same signatures) for tensors on the
+CPU. Nothing else picks a plain version: on the card a kernel either
+launches or raises. ``ce_fwd.launches`` counts forward launches and
+``ce_bwd.launches`` the backward's two (dh and dW), each plain version
+its calls (``ce_fwd_plain.calls``).
+
+Numerics, as in the JAX package's kernels: logits in fp32 (exact
+products of the inputs, fp32 sums); natural exp and log, ``l == 0``
+taken as 1 before the log; the gold logit is that of column y, so a
+label >= V gives gold 0 and ce = lse; rows with y < 0 give ce 0 and a
+dh row of exact zeros. In the backward ``d = (p - onehot) * s`` with
+``s = where(y >= 0, dce, 0)``, rounded to W's dtype before ``d @ W``
+and to h's before ``h^T @ d``; dh and dW are written once, in h's and
+W's dtypes. The TPU's block shapes (``block_n``, ``block_v``) are
+tiling, not semantics: they are checked and otherwise unused, and the
+kernels pick their own tiles.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+DEFAULT_BLOCK_N = 512
+DEFAULT_BLOCK_V = 1024
+#: the widest hidden size the kernels hold in shared memory
+MAX_HIDDEN = 768
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIG = {"paddle_ce_fwd": (_I, (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
+        "paddle_ce_bwd_dh": (_I, (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                                  _P)),
+        "paddle_ce_bwd_dw": (_I, (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
+                                  _P))}
+#: fp32 logits a plain version builds at once, in rows of V
+_PLAIN_CHUNK = 1 << 27
+
+
+# ----------------------------------------------------------- plain versions
+
+def _vocab_rows(w, vocab_major):
+    """W as [V, H] (a view)."""
+    return w if vocab_major else w.t()
+
+
+def _row_chunks(n, vocab):
+    step = max(1, _PLAIN_CHUNK // max(vocab, 1))
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def _gold_index(y, vocab):
+    """(hit, index): whether label y_i names a column, and y_i clamped
+    into [0, V) for a gather."""
+    hit = (y >= 0) & (y < vocab)
+    return hit, y.clamp(0, vocab - 1).long()[:, None]
+
+
+def ce_fwd_plain(h, w, y, vocab_major=True):
+    """Plain version of the forward kernel: (lse, ce) [N] fp32 of h [N, H]
+    against W ([V, H] when ``vocab_major``, else [H, V]) and labels y
+    [N]. Builds the fp32 logits in row chunks."""
+    ce_fwd_plain.calls += 1
+    wf = _vocab_rows(w, vocab_major).float()
+    n, vocab = h.shape[0], wf.shape[0]
+    lse = torch.empty((n,), dtype=torch.float32, device=h.device)
+    ce = torch.empty((n,), dtype=torch.float32, device=h.device)
+    for sl in _row_chunks(n, vocab):
+        logits = h[sl].float() @ wf.t()
+        m = logits.max(1).values
+        l = torch.exp(logits - m[:, None]).sum(1)
+        lse[sl] = m + torch.log(torch.where(l == 0, torch.ones_like(l), l))
+        yc = y[sl]
+        hit, idx = _gold_index(yc, vocab)
+        gold = torch.where(hit, logits.gather(1, idx)[:, 0],
+                           torch.zeros_like(lse[sl]))
+        ce[sl] = torch.where(yc >= 0, lse[sl] - gold, torch.zeros_like(gold))
+    return lse, ce
+
+
+def ce_bwd_plain(h, w, y, lse, dce, vocab_major=True):
+    """Plain version of the backward kernels: (dh, dW) in h's and W's
+    dtypes and shapes, from the forward's lse and the cotangent dce [N],
+    recomputing the logits in row chunks."""
+    ce_bwd_plain.calls += 1
+    wv = _vocab_rows(w, vocab_major)
+    wf = wv.float()
+    n, vocab = h.shape[0], wv.shape[0]
+    s = torch.where(y >= 0, dce.float(), torch.zeros_like(dce.float()))
+    dh = torch.empty(h.shape, dtype=h.dtype, device=h.device)
+    dw = torch.zeros(wv.shape, dtype=torch.float32, device=h.device)
+    for sl in _row_chunks(n, vocab):
+        d = torch.exp(h[sl].float() @ wf.t() - lse[sl, None])
+        hit, idx = _gold_index(y[sl], vocab)
+        rows = torch.arange(d.shape[0], device=d.device)[hit]
+        d[rows, idx[hit, 0]] -= 1.0                    # p - onehot
+        d *= s[sl, None]
+        dh[sl] = (d.to(w.dtype).float() @ wf).to(h.dtype)
+        dw += d.to(h.dtype).float().t() @ h[sl].float()
+    dw = dw.to(w.dtype)
+    return dh, (dw if vocab_major else dw.t().contiguous())
+
+
+# ----------------------------------------------------------- kernels
+
+def _check(h, w, y, vocab_major):
+    if h.dim() != 2 or w.dim() != 2 or y.dim() != 1:
+        raise ValueError(f"h [N, H], w [V, H] or [H, V] and y [N] expected, "
+                         f"got {tuple(h.shape)}, {tuple(w.shape)} and "
+                         f"{tuple(y.shape)}")
+    hd = w.shape[1] if vocab_major else w.shape[0]
+    if hd != h.shape[1] or y.shape[0] != h.shape[0]:
+        raise ValueError(f"h {tuple(h.shape)}, w {tuple(w.shape)} "
+                         f"(vocab_major={vocab_major}) and y "
+                         f"{tuple(y.shape)} do not agree")
+    if (w.shape[0] if vocab_major else w.shape[1]) < 1:
+        raise ValueError("the vocabulary is empty")
+    for t in (w, y):
+        if t.device != h.device:
+            raise ValueError(f"inputs on {h.device} and {t.device}")
+    if not (h.dtype.is_floating_point and w.dtype.is_floating_point):
+        raise TypeError(f"h and w must be float tensors, got {h.dtype} and "
+                        f"{w.dtype}")
+    if y.dtype.is_floating_point or y.dtype == torch.bool:
+        raise TypeError(f"labels must be integers, got {y.dtype}")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_linear_ce runs on CUDA or the CPU, got "
+                         f"{h.device}")
+
+
+def _kernel_operands(h, w, y, vocab_major):
+    """(code, h, W as contiguous [V, H], y as int32) for the kernels, or
+    raise on what they do not take."""
+    if h.dtype != w.dtype or h.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the fused CE kernels take h and w of one dtype, "
+                        f"float32 or bfloat16, got {h.dtype} and {w.dtype}")
+    hd = h.shape[1]
+    if hd % 8 or hd > MAX_HIDDEN:
+        raise NotImplementedError(
+            f"the fused CE kernels take a hidden size that is a multiple of "
+            f"8 up to {MAX_HIDDEN}, got {hd} (ROADMAP B8)")
+    wv = _vocab_rows(w, vocab_major).contiguous()
+    return (_DTYPE_CODES[h.dtype], h.contiguous(), wv,
+            y.to(torch.int32).contiguous())
+
+
+def _library():
+    return _build.library("fused_ce", _SIG)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ce_fwd(h, w, y, vocab_major=True):
+    """(lse, ce) [N] fp32: the kernel for CUDA tensors
+    (``paddle_ce_fwd``), the plain version for CPU tensors."""
+    _check(h, w, y, vocab_major)
+    if h.device.type == "cpu":
+        return ce_fwd_plain(h, w, y, vocab_major)
+    code, hc, wv, y32 = _kernel_operands(h, w, y, vocab_major)
+    n = h.shape[0]
+    lse = torch.empty((n,), dtype=torch.float32, device=h.device)
+    ce = torch.empty((n,), dtype=torch.float32, device=h.device)
+    if n == 0:
+        return lse, ce
+    with torch.cuda.device(h.device):
+        err = _library().paddle_ce_fwd(
+            hc.data_ptr(), wv.data_ptr(), y32.data_ptr(), lse.data_ptr(),
+            ce.data_ptr(), n, wv.shape[0], hc.shape[1], code, _stream(h))
+    _build.raise_on(err, "ce_fwd")
+    ce_fwd.launches += 1
+    return lse, ce
+
+
+def ce_bwd(h, w, y, lse, dce, vocab_major=True):
+    """(dh, dW) in h's and W's dtypes and shapes: the kernels for CUDA
+    tensors (``paddle_ce_bwd_dh``, ``paddle_ce_bwd_dw``), the plain
+    version for CPU tensors."""
+    _check(h, w, y, vocab_major)
+    if tuple(lse.shape) != tuple(y.shape) or \
+            tuple(dce.shape) != tuple(y.shape):
+        raise ValueError(f"lse and dce must be [N] = {tuple(y.shape)}, got "
+                         f"{tuple(lse.shape)} and {tuple(dce.shape)}")
+    if h.device.type == "cpu":
+        return ce_bwd_plain(h, w, y, lse, dce, vocab_major)
+    code, hc, wv, y32 = _kernel_operands(h, w, y, vocab_major)
+    lse = lse.float().contiguous()
+    s = torch.where(y >= 0, dce.float(), torch.zeros_like(dce.float()))
+    dh = torch.empty(hc.shape, dtype=h.dtype, device=h.device)
+    dw = torch.empty(wv.shape, dtype=w.dtype, device=h.device)
+    if h.shape[0] == 0:
+        dw.zero_()
+        return dh, (dw if vocab_major else dw.t().contiguous())
+    lib = _library()
+    args = (hc.data_ptr(), wv.data_ptr(), y32.data_ptr(), lse.data_ptr(),
+            s.data_ptr())
+    dims = (h.shape[0], wv.shape[0], hc.shape[1], code)
+    with torch.cuda.device(h.device):
+        err = lib.paddle_ce_bwd_dh(*args, dh.data_ptr(), *dims, _stream(h))
+        _build.raise_on(err, "ce_bwd (dh)")
+        ce_bwd.launches += 1
+        err = lib.paddle_ce_bwd_dw(*args, dw.data_ptr(), *dims, _stream(h))
+        _build.raise_on(err, "ce_bwd (dW)")
+        ce_bwd.launches += 1
+    return dh, (dw if vocab_major else dw.t().contiguous())
+
+
+KERNEL_WRAPPERS = (ce_fwd, ce_bwd)
+PLAIN_VERSIONS = (ce_fwd_plain, ce_bwd_plain)
+
+
+def reset_counts():
+    """Zero every launch and plain-call counter."""
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+    for fn in PLAIN_VERSIONS:
+        fn.calls = 0
+
+
+reset_counts()
+
+
+# ----------------------------------------------------------- autograd
+
+class _LinearCEFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, y, vocab_major):
+        lse, ce = ce_fwd(h, w, y, vocab_major)
+        ctx.save_for_backward(h, w, y, lse)
+        ctx.vocab_major = vocab_major
+        return ce
+
+    @staticmethod
+    def backward(ctx, dce):
+        h, w, y, lse = ctx.saved_tensors
+        dh, dw = ce_bwd(h, w, y, lse, dce, ctx.vocab_major)
+        return dh, dw, None, None
+
+
+def fused_linear_ce(h, w, y, vocab_major=True, block_n=DEFAULT_BLOCK_N,
+                    block_v=DEFAULT_BLOCK_V):
+    """Per-row cross entropy [N] fp32 of ``softmax(h @ W)`` against labels
+    ``y`` without materializing the [N, V] logits.
+
+    h: [N, H] activations (bf16/fp32). w: [V, H] when ``vocab_major``
+    (tied embedding layout) else [H, V]. y: [N] int labels, < 0 =
+    ignored (0 for that row). Differentiable wrt h and w; y gets no
+    gradient. ``block_n`` / ``block_v`` are the JAX kernel's tile sizes:
+    checked, and not used by the kernels here."""
+    for name, b in (("block_n", block_n), ("block_v", block_v)):
+        if isinstance(b, bool) or not isinstance(b, int) or b < 1:
+            raise ValueError(f"{name} must be a positive int, got {b!r}")
+    return _LinearCEFn.apply(h, w, y, bool(vocab_major))

@@ -1,6 +1,12 @@
 from . import functional  # noqa: F401
 from .container import Sequential  # noqa: F401
 from .layers_common import (AdaptiveAvgPool2D, BatchNorm2D,  # noqa: F401
-                            Conv2D, CrossEntropyLoss, Dropout, Embedding,
-                            LayerNorm, Linear, MaxPool2D, ReLU,
-                            RMSNorm)
+                            BCELoss, BCEWithLogitsLoss, Conv2D,
+                            CrossEntropyLoss, Dropout, Embedding, KLDivLoss,
+                            L1Loss, LayerNorm, Linear, MaxPool2D, MSELoss,
+                            NLLLoss, ReLU, RMSNorm, SmoothL1Loss)
+from .layers_wrap import (CTCLoss, CosineEmbeddingLoss,  # noqa: F401
+                          HingeEmbeddingLoss, HSigmoidLoss,
+                          MarginRankingLoss, MultiLabelSoftMarginLoss,
+                          MultiMarginLoss, SoftMarginLoss,
+                          TripletMarginLoss, TripletMarginWithDistanceLoss)

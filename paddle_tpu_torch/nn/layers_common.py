@@ -290,7 +290,8 @@ class ReLU(nn.Module):
 # ---------------------------------------------------------------- losses
 
 class CrossEntropyLoss(nn.Module):
-    """``F.cross_entropy`` with its options fixed at construction."""
+    """``F.cross_entropy`` with its options fixed at construction
+    (``weight`` and ``label_smoothing`` included)."""
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, label_smoothing=0.0):
@@ -306,3 +307,38 @@ class CrossEntropyLoss(nn.Module):
                                reduction=self.reduction,
                                soft_label=self.soft_label, axis=self.axis,
                                label_smoothing=self.label_smoothing)
+
+
+def _loss(name, fn_name, params=()):
+    """A layer whose forward is ``F.<fn_name>(*inputs, **options)``; the
+    options are ``params`` given by position or by keyword (the JAX
+    package's ``nn/layers_wrap.py`` ``_loss`` factory)."""
+
+    class _Loss(nn.Module):
+        def __init__(self, *args, **kwargs):
+            super().__init__()
+            self._kw = {}
+            for i, pname in enumerate(params):
+                if i < len(args):
+                    self._kw[pname] = args[i]
+                elif pname in kwargs:
+                    self._kw[pname] = kwargs[pname]
+
+        def forward(self, *inputs):
+            return getattr(F, fn_name)(*inputs, **self._kw)
+
+    _Loss.__name__ = name
+    _Loss.__qualname__ = name
+    return _Loss
+
+
+MSELoss = _loss("MSELoss", "mse_loss", ("reduction",))
+L1Loss = _loss("L1Loss", "l1_loss", ("reduction",))
+BCELoss = _loss("BCELoss", "binary_cross_entropy", ("weight", "reduction"))
+BCEWithLogitsLoss = _loss("BCEWithLogitsLoss",
+                          "binary_cross_entropy_with_logits",
+                          ("weight", "reduction", "pos_weight"))
+KLDivLoss = _loss("KLDivLoss", "kl_div", ("reduction",))
+SmoothL1Loss = _loss("SmoothL1Loss", "smooth_l1_loss", ("reduction", "delta"))
+NLLLoss = _loss("NLLLoss", "nll_loss", ("weight", "ignore_index",
+                                        "reduction"))

@@ -1087,3 +1087,102 @@ def test_fused_norm_kernels_refuse_what_they_do_not_take(dev):
         fn.norm_dx(x.float(), one, x.bfloat16(), 1e-5, True)
     assert [f.launches for f in fn.KERNEL_WRAPPERS] == [0, 0]
     assert [f.calls for f in fn.PLAIN_VERSIONS] == [0, 0]
+
+
+# ------------------------------------------------------------ fused CE
+
+def _ce_inputs(dev, n, hd, vocab, dtype, vocab_major, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = _randn(gen, (n, hd), dtype, dev)
+    w = (torch.randn((vocab, hd), generator=gen, device=dev) * 0.1).to(dtype)
+    if not vocab_major:
+        w = w.t().contiguous()
+    y = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    y[::7] = -1
+    if n > 3:
+        y[3] = -100
+    if n > 5:
+        y[5] = vocab + 7           # past the vocabulary: gold 0, ce = lse
+    dce = torch.rand((n,), generator=gen, device=dev)
+    return h, w, y, dce
+
+
+def _ce_close(out, ref, grad):
+    """ce and lse within 1e-4 (fp32 statistics in another order); dh and
+    dW by the training rule (one element ulp plus 1e-3 of the tensor's
+    largest magnitude), fp32 within 1e-4."""
+    if not grad or out.dtype == torch.float32:
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-4,
+                                   rtol=1e-4)
+        return
+    diff = (out.float() - ref.float()).abs()
+    lim = 2.0 ** -7 * ref.float().abs() + 1e-3 * ref.float().abs().max()
+    assert bool((diff <= lim).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vocab_major", [True, False])
+@pytest.mark.parametrize("n,hd,vocab", [(1, 8, 1), (70, 32, 150),
+                                        (333, 768, 1001), (130, 200, 517),
+                                        (64, 64, 64)])
+def test_fused_ce_kernels_match_plain(dev, dtype, vocab_major, n, hd, vocab):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, y, dce = _ce_inputs(dev, n, hd, vocab, dtype, vocab_major)
+    fc.reset_counts()
+    lse, ce = fc.ce_fwd(h, w, y, vocab_major)
+    dh, dw = fc.ce_bwd(h, w, y, lse, dce, vocab_major)
+    again = fc.ce_fwd(h, w, y, vocab_major) + \
+        fc.ce_bwd(h, w, y, lse, dce, vocab_major)
+    torch.cuda.synchronize()
+    assert (fc.ce_fwd.launches, fc.ce_bwd.launches) == (2, 4)
+    assert (fc.ce_fwd_plain.calls, fc.ce_bwd_plain.calls) == (0, 0)
+    for a, b in zip((lse, ce, dh, dw), again):
+        assert torch.equal(a, b)
+    assert dh.dtype == dtype and dw.dtype == dtype
+    assert tuple(dw.shape) == tuple(w.shape)
+    lse_p, ce_p = fc.ce_fwd_plain(h, w, y, vocab_major)
+    dh_p, dw_p = fc.ce_bwd_plain(h, w, y, lse_p, dce, vocab_major)
+    _ce_close(lse, lse_p, False)
+    _ce_close(ce, ce_p, False)
+    _ce_close(dh, dh_p, True)
+    _ce_close(dw, dw_p, True)
+    ignored = y < 0
+    assert bool((ce[ignored] == 0).all() and (dh[ignored] == 0).all())
+
+
+def test_fused_ce_autograd_on_card_matches_cpu(dev):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.kernels import fused_linear_ce
+    h, w, y, dce = _ce_inputs(dev, 97, 64, 300, torch.float32, True, seed=3)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        fc.reset_counts()
+        hg = h.detach().to(d).requires_grad_()
+        wg = w.detach().to(d).requires_grad_()
+        ce = fused_linear_ce(hg, wg, y.to(d))
+        (ce * dce.to(d)).sum().backward()
+        outs.append((ce.detach().cpu(), hg.grad.cpu(), wg.grad.cpu()))
+        if d.type == "cuda":    # the card pass ran the kernels only
+            assert [f.launches for f in fc.KERNEL_WRAPPERS] == [1, 2]
+            assert [f.calls for f in fc.PLAIN_VERSIONS] == [0, 0]
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_fused_ce_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    fc.reset_counts()
+    y = torch.zeros((4,), dtype=torch.long, device=dev)
+    with pytest.raises(TypeError, match="one dtype"):
+        fc.ce_fwd(torch.zeros((4, 8), device=dev),
+                  torch.zeros((10, 8), device=dev, dtype=torch.bfloat16), y)
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        fc.ce_fwd(torch.zeros((4, 12), device=dev),
+                  torch.zeros((10, 12), device=dev), y)
+    with pytest.raises(NotImplementedError, match="up to 768"):
+        fc.ce_fwd(torch.zeros((4, 1024), device=dev),
+                  torch.zeros((10, 1024), device=dev), y)
+    with pytest.raises(ValueError, match="inputs on"):
+        fc.ce_fwd(torch.zeros((4, 8), device=dev), torch.zeros((10, 8)), y)
+    assert [f.launches for f in fc.KERNEL_WRAPPERS] == [0, 0]
+    assert [f.calls for f in fc.PLAIN_VERSIONS] == [0, 0]

@@ -140,8 +140,15 @@ def test_cross_entropy_matches(kw):
 
 
 def test_cross_entropy_unported_options_raise():
-    x, y = torch.zeros(2, 3), torch.zeros(2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cross_entropy(x, y, weight=torch.ones(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cross_entropy(x, y, label_smoothing=0.1)
+    """``weight`` and ``label_smoothing`` raised until the loss module
+    was ported; now they run and match the JAX package."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(4, 3).astype(np.float32)
+    y = np.array([0, 2, 1, -100])
+    w = np.array([0.5, 1.0, 2.0], np.float32)
+    for jkw, tkw in (({"weight": jnp.asarray(w)}, {"weight": torch.tensor(w)}),
+                     ({"label_smoothing": 0.1}, {"label_smoothing": 0.1})):
+        ref = jax_ce(jnp.asarray(x), jnp.asarray(y), **jkw)
+        ref = np.asarray(getattr(ref, "_data", ref))
+        out = cross_entropy(torch.from_numpy(x), torch.as_tensor(y), **tkw)
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=1e-6)
