@@ -8,8 +8,10 @@ and the CUDA toolkit. It builds the hand-written kernels from
 ``paddle_tpu_torch/csrc``, holds each against its plain PyTorch version
 at the shapes the serving and training paths give it (the paged decode
 kernel also bit for bit against the dense one, in the wide and the
-int8 mode), runs gpt2-small (random weights from a seed, bf16) through
-the kernel path and the plain path, serves 16 requests through
+int8 mode; the flash forward and backward, on the tensor-core route in
+bf16, also to repeating bit for bit and to giving each batch row the
+bits of a batch-1 run), runs gpt2-small (random weights from a seed,
+bf16) through the kernel path and the plain path, serves 16 requests through
 ``ServingEngine`` on its dense cache (the first 8 streams equal to
 batch-1 ``generate``), the same 16 and 8 shared-prefix requests on a
 paged cache (token streams equal to the dense engine's), the 16 again
@@ -240,9 +242,34 @@ def _err_scaled(out, ref):
     return float(diff.max()), int(bad.sum())
 
 
+def _bitwise(torch, fa, shape, q, k, v, do=None, row=1):
+    """flash_fwd (and flash_bwd, given ``do``) repeat bit for bit over two
+    calls, and row ``row`` of the batch equals, bit for bit, the same row
+    run at batch 1 (no atomics, no sum across blocks); one line, and a
+    failure unless both hold."""
+    def run(q, k, v, do):
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        grads = () if do is None else fa.flash_attention_bwd(
+            q, k, v, out, lse, do, True)
+        return (out, lse, *grads)
+
+    first = run(q, k, v, do)
+    repeat = all(torch.equal(a, b) for a, b in zip(first, run(q, k, v, do)))
+    one = run(*(None if t is None else t[row:row + 1] for t in (q, k, v, do)))
+    batch = all(torch.equal(a, b[row:row + 1]) for a, b in zip(one, first))
+    kernels = ["flash_fwd"] + ([] if do is None else ["flash_bwd"])
+    say("kernel_bitwise", kernels=kernels, shape=shape,
+        route=fa.route(q.dtype, q.shape[-1]), repeats_bitwise=repeat,
+        row=row, row_equals_batch_1=batch)
+    if not (repeat and batch):
+        fail(f"{kernels} at {shape}: repeat {repeat}, batch invariance "
+             f"{batch}")
+
+
 def phase_kernels(torch, timer):
     """Each kernel against its plain version at the serving path's
-    shapes, in bf16, with times."""
+    shapes, in bf16, with times; flash_fwd also repeated and against
+    batch 1 at the prefill shape."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.kernels import flash_attention as fa
     dev = torch.device("cuda", 0)
@@ -264,8 +291,8 @@ def phase_kernels(torch, timer):
         torch.cuda.synchronize()
         err, n_bad = _err(out, ref)
         say("kernel_check", kernel="flash_fwd", shape=[b, s, h, d],
-            causal=True, max_abs_err=err, tol=f"{KERNEL_ATOL}+"
-            f"{KERNEL_RTOL}*|plain|", out_of_tol=n_bad)
+            causal=True, route=fa.route(bf16, d), max_abs_err=err,
+            tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad)
         if n_bad:
             fail(f"flash_fwd disagrees with its plain version at S={s}")
         worst = max(worst, err)
@@ -289,7 +316,10 @@ def phase_kernels(torch, timer):
         replaces="paddle_tpu/kernels/flash_attention.py:205",
         shape="q,k,v [1,512,12,64] bf16 causal",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+        bound_by=by, library_ms=lib_ms, flash_route=fa.route(bf16, d))
+    # the prefill shape's rows, repeated and against batch 1
+    _bitwise(torch, fa, [4, s, h, d], randn(4, s, h, d), randn(4, s, h, d),
+             randn(4, s, h, d), row=2)
 
     # -- flash decode: one decode step of the 8-slot engine (cache 640),
     # ragged lengths, some lanes at 1
@@ -331,7 +361,8 @@ def phase_kernels(torch, timer):
     for r in rows.values():
         say("kernel_time", kernel=r["name"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            **({"route": r["flash_route"]} if "flash_route" in r else {}))
     return rows, dsets
 
 
@@ -715,8 +746,9 @@ def phase_train_kernels(torch, timer):
     flash_bwd on the forward's output and LSE, in bf16 at the flagship
     shape q, k, v [16, 1024, 12, 64] causal and three more, and in fp32
     at the flagship shape. Self-attention inputs are strided views of one
-    fused qkv buffer, as the model gives them. Then flash_bwd and
-    flash_fwd timed at the flagship shape."""
+    fused qkv buffer, as the model gives them. Then, at the flagship
+    shape, both on the tensor-core route, repeated and against batch 1,
+    and flash_bwd and flash_fwd timed."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.kernels import flash_attention as fa
     dev = torch.device("cuda", 0)
@@ -740,6 +772,7 @@ def phase_train_kernels(torch, timer):
     def check(kernel, errs, tol, **shape):
         n_bad = {n: e[1] for n, e in errs.items()}
         say("kernel_check", kernel=kernel, **shape,
+            route=fa.route(getattr(torch, shape["dtype"]), 64),
             max_abs_err={n: e[0] for n, e in errs.items()},
             err_over_max_plain={n: e[2] for n, e in errs.items()},
             tol=tol, out_of_tol=n_bad)
@@ -786,7 +819,13 @@ def phase_train_kernels(torch, timer):
         del q, k, v, out, lse, do, grads, ref, ref_out, ref_lse
 
     b, s, h, d = 16, 1024, 12, 64
+    if fa.route(bf16, d) != "mma":
+        fail(f"flash attention in bf16 at head_dim {d} is not on the "
+             "tensor-core route")
     sets = [inputs(b, s, s, h, h, d, True) for _ in range(3)]
+    q, k, v, _, _, do = sets[0]
+    _bitwise(torch, fa, [b, s, h, d], q, k, v, do, row=5)
+    del q, k, v, do
     ms = timer.ms(lambda q, k, v, o, l, do: fa.flash_attention_bwd(
         q, k, v, o, l, do, True), sets)
     plain_ms = timer.ms(lambda q, k, v, o, l, do: fa.flash_attention_bwd_plain(
@@ -812,9 +851,10 @@ def phase_train_kernels(torch, timer):
                        "paddle_tpu/kernels/flash_attention.py:673"],
         shape="q,k,v,dO [16,1024,12,64] bf16 causal (delta included)",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+        bound_by=by, library_ms=lib_ms, flash_route=fa.route(bf16, d))
     say("kernel_time", kernel="flash_bwd", kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bms, bound_by=by, shape=row["shape"])
+        library_ms=lib_ms, bound_ms=bms, bound_by=by, shape=row["shape"],
+        route=row["flash_route"])
     del lib
 
     qkv = [st[:3] for st in sets]
@@ -832,7 +872,7 @@ def phase_train_kernels(torch, timer):
                      bound_by=fby)
     say("kernel_time", kernel="flash_fwd", kernel_ms=fwd_ms,
         plain_ms=fwd_plain, library_ms=fwd_lib, bound_ms=fbms, bound_by=fby,
-        shape=fwd_train["shape"])
+        shape=fwd_train["shape"], route=fa.route(bf16, d))
     return row, fwd_train
 
 

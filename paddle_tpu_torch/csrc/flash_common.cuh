@@ -1,13 +1,17 @@
-// Shared body of the flash-attention forward and decode kernels.
+// Shared fp32 body of the flash-attention decode and chunk kernels, and
+// of the forward's CUDA-core route (float32, and head_dim 256).
 //
 // One thread block owns BQ query rows of one head and streams the keys
 // and values through shared memory in tiles of kBlockK rows, keeping a
 // running row maximum m, normaliser l and fp32 output accumulator in
 // registers (online softmax, base 2: queries are pre-scaled by
-// scale * log2(e), so scores feed exp2f directly). Both kernels run this
-// ONE routine, so prefill and decode numerics cannot drift apart (the
-// JAX package keeps the same property with its shared
-// _decode_accumulate body).
+// scale * log2(e), so scores feed exp2f directly). The decode kernels
+// (flash_decode.cu, flash_decode_paged.cu: decode, chunk, paged decode)
+// run this ONE routine, so their numerics cannot drift apart (the JAX
+// package keeps the same property with its shared _decode_accumulate
+// body). The bf16 / fp16 forward at head_dim <= 128 does not: it runs on
+// the tensor cores (flash_fwd.cu, flash_mma.cuh) and rounds P to the
+// input type before P V, where this body keeps P in fp32.
 //
 // Thread layout: 128 threads = NRG row groups x NCG column groups. A
 // thread owns TR consecutive query rows; for scores it owns the TC key

@@ -1,9 +1,10 @@
 // The tensor-core and copy helpers shared by the hand-written matrix
-// kernels (fused_conv3x3.cu, the 3x3 conv + BN-stats pair, and fused_ce.cu,
-// the fused linear + cross entropy): asynchronous 16-byte copies from
+// kernels (fused_conv3x3.cu, the 3x3 conv + BN-stats pair, fused_ce.cu,
+// the fused linear + cross entropy, and the tensor-core flash-attention
+// forward and backward of flash_mma.cuh): asynchronous 16-byte copies from
 // global to shared memory (cp.async), ldmatrix fragment loads, the warp-level
-// mma.sync.m16n8k16 bf16 product with fp32 accumulation, and the same
-// fragment layout computed with fp32 FMAs for float32 inputs.
+// mma.sync.m16n8k16 bf16 and fp16 products with fp32 accumulation, and the
+// same fragment layout computed with fp32 FMAs for float32 inputs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +78,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a @ b for one m16n8k16 tile, fp16 in, fp32 accumulate
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

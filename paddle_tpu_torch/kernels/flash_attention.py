@@ -15,7 +15,10 @@ Nothing else picks a plain version: on the card a kernel either
 launches or raises. Each wrapper counts its launches in a plain integer
 attribute (``flash_attention.launches``), each plain version its calls
 (``flash_attention_plain.calls``), so a run can show which path it
-took.
+took. ``route(dtype, d)`` says which kernels the forward and backward
+take on the card: the tensor-core ones for bfloat16 and float16 at
+head_dim <= 128 (``"mma"``), the fp32 CUDA-core ones otherwise
+(``"fma"``).
 
 Layouts are the JAX package's public ones: ``[batch, seq, heads,
 head_dim]`` for queries, keys and values, ``[batch, max_len, kv_heads,
@@ -57,7 +60,7 @@ _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_int64)
 _FWD_SIG = {"paddle_flash_fwd": (_I, (
     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES, _I,
-    ctypes.c_float, _P))}
+    ctypes.c_float, _P)), "paddle_flash_route": (_I, (_I, _I))}
 _DECODE_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
                 ctypes.c_float, _P)
 # the int8 entries take the two scale pointers after k and v
@@ -96,17 +99,21 @@ def _same_device_dtype(named, dtype=True):
                             f"{ref.dtype}")
 
 
-def _kernel_args(named, head_dim):
-    """dtype code plus the (batch, seq, head) strides of every tensor;
-    raises on what the kernels do not take."""
-    ref = named[0][1]
-    if ref.dtype not in _DTYPE_CODES:
+def _check_kernel_type(dtype, head_dim):
+    if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash attention kernels take float32, bfloat16 "
-                        f"or float16, got {ref.dtype}")
+                        f"or float16, got {dtype}")
     if head_dim not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"head_dim {head_dim}: the CUDA kernels are built for "
             f"{KERNEL_HEAD_DIMS}")
+
+
+def _kernel_args(named, head_dim):
+    """dtype code plus the (batch, seq, head) strides of every tensor;
+    raises on what the kernels do not take."""
+    ref = named[0][1]
+    _check_kernel_type(ref.dtype, head_dim)
     strides = []
     for name, t in named:
         if t.stride(-1) != 1:
@@ -115,6 +122,18 @@ def _kernel_args(named, head_dim):
         strides += list(t.stride()[:3])
     return _DTYPE_CODES[ref.dtype], (ctypes.c_int64 * len(strides))(
         *strides)
+
+
+def route(dtype, d):
+    """Which kernels ``flash_attention`` and ``flash_attention_bwd`` run
+    for inputs of ``dtype`` at head_dim ``d`` on the card: ``"mma"``,
+    the tensor-core kernels (bfloat16 and float16 at head_dim <= 128),
+    or ``"fma"``, the fp32 CUDA-core kernels (float32, and head_dim
+    256). Asks the built ``csrc/flash_fwd.cu``, whose entry points make
+    the same choice before they launch."""
+    _check_kernel_type(dtype, d)
+    lib = _build.library("flash_fwd", _FWD_SIG)
+    return "mma" if lib.paddle_flash_route(_DTYPE_CODES[dtype], d) else "fma"
 
 
 # -------------------------------------------------------------- prefill

@@ -270,6 +270,78 @@ def test_flash_bwd_misaligned_and_strided(dev, dtype):
     _check_bwd(q, k, v, _randn(gen, (2, 77, 4, 64), dtype, dev), True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,hq,hk,causal", [
+    (1, 1, 12, 4, True),        # one row, one column
+    (1, 1, 6, 2, False),
+    (63, 63, 12, 4, True),      # one short of a 64-row tile
+    (64, 64, 6, 2, False),      # exactly one tile
+    (65, 65, 12, 4, True),      # one row and one column into the next
+    (127, 127, 6, 2, True),
+    (129, 129, 12, 4, False),
+    (63, 129, 12, 4, True),     # cross lengths, diagonal bottom-right
+    (65, 127, 12, 12, False),
+    (129, 65, 6, 2, True),      # sq > sk: leading rows fully masked
+    (127, 1, 6, 2, True),
+    (1, 129, 12, 4, True),      # one query row against three key tiles
+])
+def test_flash_tile_edges_match_plain(dev, dtype, d, sq, sk, hq, hk,
+                                      causal):
+    """The tensor-core forward and backward at the edges of their
+    64-row tiles, grouped-query heads 12:4 and 6:2, every head_dim they
+    take, bf16 and fp16."""
+    assert fa.route(dtype, d) == "mma"
+    gen = torch.Generator(device=dev).manual_seed(sq * 3 + sk + d + hq)
+    q, k, v, do = _bwd_inputs(gen, 2, sq, sk, hq, hk, d, dtype, dev)
+    _close(fa.flash_attention(q, k, v, causal=causal),
+           fa.flash_attention_plain(q, k, v, causal=causal))
+    dq, _, _ = _check_bwd(q, k, v, do, causal)
+    if causal and sq > sk:
+        assert dq[:, :sq - sk].abs().max().item() == 0.0
+
+
+def test_flash_route_names_the_tensor_cores(dev):
+    assert fa.route(torch.bfloat16, 64) == "mma"
+    assert fa.route(torch.float16, 128) == "mma"
+    assert fa.route(torch.float32, 64) == "fma"
+    assert fa.route(torch.bfloat16, 256) == "fma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_repeats_bit_for_bit(dev, dtype):
+    """No atomics and no cross-block sums: two calls give the same
+    bits, forward and backward."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, do = _bwd_inputs(gen, 2, 300, 300, 12, 4, 64, dtype, dev)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        runs.append((out, lse, *fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                        True)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_rows_do_not_depend_on_the_batch(dev, dtype):
+    """Row b of a batch-4 forward and backward equals, bit for bit, the
+    same row run at batch 1: a block's result depends on its own rows
+    alone (the serving engine's batch-1 equalities rely on it)."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q, k, v, do = _bwd_inputs(gen, 4, 200, 200, 12, 4, 64, dtype, dev)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    for b in range(4):
+        one = [t[b:b + 1] for t in (q, k, v, do)]
+        o1, l1 = fa.flash_attention(*one[:3], causal=True, return_lse=True)
+        g1 = fa.flash_attention_bwd(*one[:3], o1, l1, one[3], True)
+        assert torch.equal(o1, out[b:b + 1]) and torch.equal(l1, lse[b:b + 1])
+        for g, ref in zip(g1, grads):
+            assert torch.equal(g, ref[b:b + 1])
+
+
 def test_training_attention_records_the_kernel_backward(dev):
     """On the card, inputs that require a gradient give an output that
     requires one, and its backward launches the backward kernel and no
