@@ -908,17 +908,51 @@ def _fused_bound(m, k, n, pro, bwd):
                                        else "operations")
 
 
+def _split_ms(torch, fn, input_sets, n=5):
+    """Device ms per call of each kernel ``fn`` launches, by part: the
+    1x1 products ("fwd", "dx", "dw" by the kernel's Kind) and the
+    fixed-order combines ("stats_finish", "column_total"), from a
+    profile of ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*input_sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(*input_sets[i % len(input_sets)])
+        torch.cuda.synchronize()
+    def part(key):
+        for name in ("stats_finish", "column_total"):
+            if name in key:
+                return name
+        if "mm_stats_kernel<" not in key:
+            return "other"
+        kind = key.split("mm_stats_kernel<", 1)[1].split(",")[1].strip()
+        return {"0": "fwd", "1": "dx", "2": "dw"}[kind]
+
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            p = part(e.key)
+            parts[p] = parts.get(p, 0.0) + e.device_time_total / 1e3 / n
+    return parts
+
+
 def phase_fused_resnet_kernels(torch, timer):
     """Rows 13-16 (the 1x1 conv + BN-stats kernels and their backwards)
     against their plain versions in bf16 at ResNet-50's layer1 and
-    layer4 shapes, each kernel twice on the same inputs (the bits must
-    repeat), then timed beside the plain version and the PyTorch
-    yardstick (cuBLAS products with torch's reductions and elementwise
-    ops) at both shapes."""
+    layer4 shapes, on the tensor-core route, each kernel twice on the
+    same inputs (the bits must repeat), then timed beside the plain
+    version and the PyTorch yardstick (cuBLAS products with torch's
+    reductions and elementwise ops) at both shapes, with each call's
+    device time split by kernel (``_split_ms``)."""
     from paddle_tpu_torch.kernels import fused_resnet as fr
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     bf16 = torch.bfloat16
+    product_route = fr.route(bf16)
+    if product_route != "mma":
+        fail(f"the fused 1x1 kernels in bf16 are on route {product_route}, "
+             "not the tensor cores")
 
     def inputs(m, k, n):
         def r(*shape, s=1.0):
@@ -984,13 +1018,14 @@ def phase_fused_resnet_kernels(torch, timer):
             ms = timer.ms(kernel, sets)
             plain_ms = timer.ms(plain, sets, n=5)
             lib_ms = timer.ms(lib_bwd if bwd else lib_fwd, sets)
+            split = _split_ms(torch, kernel, sets)
             bms, by = _fused_bound(m, k, n, pro, bwd)
             by_shape.append(dict(m=m, k=k, n=n, ms=ms, plain_ms=plain_ms,
                                  library_ms=lib_ms, bound_ms=bms,
-                                 bound_by=by))
+                                 bound_by=by, split_ms=split))
             say("kernel_time", kernel=name, shape=[m, k, n], kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by)
+                bound_by=by, route=product_route, split_ms=split)
             del sets
             torch.cuda.empty_cache()
         first = by_shape[0]
@@ -1002,7 +1037,8 @@ def phase_fused_resnet_kernels(torch, timer):
                   "(ResNet-50 layer1 at b128)",
             max_abs_err=worst, ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-            library_ms=first["library_ms"], by_shape=by_shape)
+            library_ms=first["library_ms"], by_shape=by_shape,
+            product_route=product_route)
     return rows
 
 

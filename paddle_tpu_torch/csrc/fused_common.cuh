@@ -1,6 +1,7 @@
 // Helpers shared by the fused ResNet kernels (fused_resnet.cu, the 1x1
 // convolutions, and fused_conv3x3.cu, the 3x3): vector loads and stores of
-// 4 and 8 elements in float32 or bfloat16, the roundings the plain PyTorch
+// 2, 4 and 8 elements in float32 or bfloat16 (and 8 held as loaded, for
+// fills that keep their loads in flight), the roundings the plain PyTorch
 // versions make (the BN-apply + ReLU prologue, the effective output
 // gradient), Chan's combine of per-tile (count, mean, M2) and the
 // fixed-order column sums that finish every cross-block reduction. Nothing
@@ -77,17 +78,80 @@ __device__ __forceinline__ void store8(bf16* p, const float v[8]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+__device__ __forceinline__ void load2(const float* p, float v[2]) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  v[0] = a.x, v[1] = a.y;
+}
+__device__ __forceinline__ void load2(const bf16* p, float v[2]) {
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = a.x, v[1] = a.y;
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// 8 elements held as loaded, converted to fp32 later: a fill issues all of
+// a batch's loads before it waits on the first
+template <typename T>
+struct Vec8;
+template <>
+struct Vec8<bf16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void get(float v[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Vec8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void get(float v[8]) const {
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  }
+};
+
 // v rounded to the storage type T, back in fp32
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const bf16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// relu(x*scale + shift) rounded to T: the prologue, as the plain version
-// computes it (two roundings in fp32, then one to T)
+// relu(x*scale + shift) in fp32 (two roundings), before its rounding to
+// T: for a caller whose store to T rounds it once (store8)
+__device__ __forceinline__ float prologue_unrounded(float x, float s,
+                                                    float t) {
+  return fmaxf(__fadd_rn(__fmul_rn(x, s), t), 0.f);
+}
+
+// dy + perch + dvar2*(y - mean) in fp32, before its rounding to T
+__device__ __forceinline__ float effective_unrounded(float dy, float y,
+                                                     float perch,
+                                                     float dvar2,
+                                                     float mean) {
+  return __fadd_rn(__fadd_rn(dy, perch),
+                   __fmul_rn(dvar2, __fsub_rn(y, mean)));
+}
+
+// the prologue rounded to T, as the plain version computes it
 template <typename T>
 __device__ __forceinline__ float prologue(float x, float s, float t) {
-  return round_to(fmaxf(__fadd_rn(__fmul_rn(x, s), t), 0.f),
+  return round_to(prologue_unrounded(x, s, t),
                   static_cast<const T*>(nullptr));
 }
 
@@ -95,8 +159,7 @@ __device__ __forceinline__ float prologue(float x, float s, float t) {
 template <typename T>
 __device__ __forceinline__ float effective(float dy, float y, float perch,
                                            float dvar2, float mean) {
-  return round_to(__fadd_rn(__fadd_rn(dy, perch),
-                            __fmul_rn(dvar2, __fsub_rn(y, mean))),
+  return round_to(effective_unrounded(dy, y, perch, dvar2, mean),
                   static_cast<const T*>(nullptr));
 }
 

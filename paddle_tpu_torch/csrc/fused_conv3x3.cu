@@ -86,22 +86,6 @@ __host__ __device__ constexpr int stride_of(int cols) {
   return cols + 16 / (int)sizeof(T);
 }
 
-__device__ __forceinline__ void load2(const float* p, float v[2]) {
-  const float2 a = *reinterpret_cast<const float2*>(p);
-  v[0] = a.x, v[1] = a.y;
-}
-__device__ __forceinline__ void load2(const bf16* p, float v[2]) {
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  v[0] = a.x, v[1] = a.y;
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // ------------------------------------------------------------ geometry
 
 // A tile is G slabs; slab s of tile t is slab t*G + s of the whole batch,
@@ -163,38 +147,6 @@ __device__ __forceinline__ int64_t window_source(const Geo& g, int tile,
   if (hh < 0 || hh >= g.H || ww < 0 || ww >= g.W) return -1;
   return ((int64_t)n * g.H + hh) * g.W + ww;
 }
-
-// 8 elements held as loaded, converted to fp32 later: a fill issues all of
-// a batch's loads before it waits on the first
-template <typename T>
-struct Vec8;
-template <>
-struct Vec8<bf16> {
-  uint4 u;
-  __device__ __forceinline__ void load(const bf16* p) {
-    u = *reinterpret_cast<const uint4*>(p);
-  }
-  __device__ __forceinline__ void get(float v[8]) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x, v[2 * i + 1] = f.y;
-    }
-  }
-};
-template <>
-struct Vec8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = *reinterpret_cast<const float4*>(p);
-    b = *reinterpret_cast<const float4*>(p + 4);
-  }
-  __device__ __forceinline__ void get(float v[8]) const {
-    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  }
-};
 
 // elements of 8 a thread loads from each of kTensors tensors in a fill
 // batch: four 16-byte loads in flight

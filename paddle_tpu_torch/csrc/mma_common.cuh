@@ -1,8 +1,9 @@
 // The tensor-core and copy helpers shared by the hand-written matrix
-// kernels (fused_conv3x3.cu, the 3x3 conv + BN-stats pair, fused_ce.cu,
-// the fused linear + cross entropy, and the tensor-core flash-attention
-// forward and backward of flash_mma.cuh): asynchronous 16-byte copies from
-// global to shared memory (cp.async), ldmatrix fragment loads, the warp-level
+// kernels (fused_resnet.cu, the 1x1 conv + BN-stats pair, fused_conv3x3.cu,
+// the 3x3 pair, fused_ce.cu, the fused linear + cross entropy, and the
+// tensor-core flash-attention forward and backward of flash_mma.cuh):
+// asynchronous 16-byte copies from global to shared memory (cp.async, and
+// its commit groups), ldmatrix fragment loads, the warp-level
 // mma.sync.m16n8k16 bf16 and fp16 products with fp32 accumulation, and the
 // same fragment layout computed with fp32 FMAs for float32 inputs.
 #pragma once
@@ -40,6 +41,17 @@ __device__ __forceinline__ void cp_async8(float* dst, const float* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// close this thread's copies issued since the last commit into a group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------ products

@@ -14,7 +14,11 @@ for tensors on a CUDA card, the plain versions (``*_plain``, same
 signatures) for tensors on the CPU. Nothing else picks a plain version:
 on the card a kernel either launches or raises. Each kernel wrapper
 counts its launches (``matmul_bn_stats_fwd.launches``), each plain
-version its calls (``matmul_bn_stats_fwd_plain.calls``).
+version its calls (``matmul_bn_stats_fwd_plain.calls``). ``route(dtype)``
+names where the kernels' products run: bfloat16 on the tensor cores
+(``"mma"``), float32 on the CUDA cores (``"fma"``), one tile body for
+both; ``_geometry()`` is the tile the library exports, which sizes the
+partial buffers and the dw kernel's row chunks.
 
 Numerics, as in the JAX package: y is rounded to the input dtype before
 its statistics are taken; the activation ``a`` is rounded before the
@@ -50,16 +54,16 @@ from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"paddle_mm_bn_stats_block_rows": (_I, ()),
+_SIG = {"paddle_mm_bn_stats_geometry": (None, (_P,)),
+        "paddle_mm_bn_stats_route": (_I, (_I,)),
         "paddle_mm_bn_stats": (_I, (_P,) * 9 + (_I,) * 5 + (_P,)),
         "paddle_mm_bn_stats_bwd": (_I, (_P,) * 16 + (_I,) * 7 + (_P,))}
 _SIG3 = {"paddle_conv3x3_bn_stats": (_I, (_P,) * 10 + (_I,) * 9 + (_P,)),
          "paddle_conv3x3_bn_stats_bwd": (_I, (_P,) * 16 + (_I,) * 11
                                          + (_P,))}
-# the dw kernel's output tile (rows of K x columns of N) and row step, as
-# in csrc/fused_resnet.cu; its rows are cut into chunks until about
-# _DW_BLOCKS blocks (4 per SM of an H100) are in flight
-_DW_TILE_K, _DW_TILE_N, _DW_ROW_STEP = 128, 64, 16
+# the 1x1 dw kernel's rows are cut into chunks until about _DW_BLOCKS
+# blocks (4 per SM of an H100) are in flight; its tile comes from the
+# library (``_geometry``)
 _DW_BLOCKS = 4 * 132
 # the 3x3 kernels' tile: at most _PIX3 output pixels (slabs of whole rows
 # of one image, or of a column tile) and _WIN3 window positions; the dw
@@ -282,7 +286,35 @@ def _codes(x2, w2):
 
 
 def _f32(t):
-    return None if t is None else t.float().contiguous()
+    """``t`` as contiguous fp32 the kernels read 8 at a time (16-byte
+    aligned: a misaligned view is copied)."""
+    if t is None:
+        return None
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _geometry():
+    """The 1x1 kernels' tile geometry, as the built library exports it:
+    (statistics row tile, dw tile rows of K, dw tile columns of N, dw
+    row step)."""
+    g = (ctypes.c_int * 4)()
+    _library().paddle_mm_bn_stats_geometry(g)
+    return tuple(g)
+
+
+def route(dtype):
+    """Which products ``paddle_mm_bn_stats`` and
+    ``paddle_mm_bn_stats_bwd`` run for inputs of ``dtype`` on the card:
+    ``"mma"``, the tensor cores (bfloat16), or ``"fma"``, the fp32 CUDA
+    cores (float32), with one tile body for both. Asks the built
+    ``csrc/fused_resnet.cu``."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the fused ResNet kernels take float32 or "
+                        f"bfloat16, got {dtype}")
+    lib = _library()
+    return "mma" if lib.paddle_mm_bn_stats_route(_DTYPE_CODES[dtype]) \
+        else "fma"
 
 
 def _launch_forward(x2, w2, scale, shift, what):
@@ -290,7 +322,7 @@ def _launch_forward(x2, w2, scale, shift, what):
     x2, w = _kernel_inputs([("x2", x2), ("w2", w2)])
     scale, shift = _f32(scale), _f32(shift)
     lib = _library()
-    tiles = -(-m // lib.paddle_mm_bn_stats_block_rows())
+    tiles = -(-m // _geometry()[0])
     f32 = dict(dtype=torch.float32, device=x2.device)
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     part = torch.empty((2, tiles, n), **f32)
@@ -306,13 +338,15 @@ def _launch_forward(x2, w2, scale, shift, what):
     return y, stats[0], stats[1]
 
 
-def _dw_chunks(m, k, n):
-    """(chunks, rows per chunk) of the dw kernel's split over M: enough
-    chunks to fill the card, each a whole number of row steps."""
-    tiles = -(-k // _DW_TILE_K) * -(-n // _DW_TILE_N)
+def _dw_chunks(m, k, n, geometry):
+    """(chunks, rows per chunk) of the dw kernel's split over M for the
+    tile ``geometry`` (``_geometry()``): enough chunks to fill the card,
+    each a whole number of row steps."""
+    _, tile_k, tile_n, step = geometry
+    tiles = -(-k // tile_k) * -(-n // tile_n)
     chunks = max(1, min(-(-_DW_BLOCKS // tiles), -(-m // 64)))
     rows = -(-m // chunks)
-    rows = -(-rows // _DW_ROW_STEP) * _DW_ROW_STEP
+    rows = -(-rows // step) * step
     return -(-m // rows), rows
 
 
@@ -326,8 +360,9 @@ def _launch_backward(dy, y, x2, w2, perch, dvar2, mean, scale, shift, what):
     scale, shift = _f32(scale), _f32(shift)
     pro = scale is not None
     lib = _library()
-    tiles = -(-m // lib.paddle_mm_bn_stats_block_rows())
-    chunks, rows = _dw_chunks(m, k, n)
+    geometry = _geometry()
+    tiles = -(-m // geometry[0])
+    chunks, rows = _dw_chunks(m, k, n, geometry)
     f32 = dict(dtype=torch.float32, device=x2.device)
     dx = torch.empty((m, k), dtype=x2.dtype, device=x2.device)
     dw = torch.empty((k, n), **f32)

@@ -744,7 +744,18 @@ def _fused_inputs(gen, m, k, n, dtype, dev):
     (131, 2048, 64),     # deep contraction
     (77, 64, 2048),      # wide output
     (1000, 256, 256),
-    (72, 40, 24),        # K, N off the 16 / 64 tiles
+    (72, 40, 24),        # K, N off the 32-deep slice and 128-wide tile
+    # the tile's edges: K = 8, 24, 40 (a 32-deep slice partly empty, a
+    # 16-deep mma step half empty), M = 1, 15, 17, 129 (the 16-row
+    # fragment, the 128-row tile), N = 8 and 72 (the n8 fragment, a
+    # warp's 32 columns)
+    (1, 8, 8), (15, 24, 72), (17, 40, 8), (129, 8, 72), (129, 24, 8),
+    (17, 72, 40),
+    # ResNet-50's stages at full width, conv1 and conv3 (M cut to 3,000
+    # rows; layer4's 6,272 whole, several dw chunks)
+    (3000, 256, 64), (3000, 64, 256), (3000, 512, 128), (3000, 128, 512),
+    (3000, 1024, 256), (3000, 256, 1024), (6272, 2048, 512),
+    (6272, 512, 2048),
 ])
 def test_fused_resnet_kernels_match_plain(dev, dtype, prologue, m, k, n):
     from paddle_tpu_torch.kernels import fused_resnet as fr
@@ -786,6 +797,16 @@ def test_fused_resnet_kernels_match_plain(dev, dtype, prologue, m, k, n):
     assert [f.calls for f in fr.PLAIN_VERSIONS] == \
         [int(not prologue), int(prologue), int(not prologue), int(prologue),
          0, 0]
+
+
+def test_fused_resnet_route_names_the_tensor_cores(dev):
+    """bf16 products run on mma.sync, fp32 on the CUDA cores, through one
+    tile body; the library names the route the entry points take."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    assert fr.route(torch.bfloat16) == "mma"
+    assert fr.route(torch.float32) == "fma"
+    with pytest.raises(TypeError):
+        fr.route(torch.float16)
 
 
 def test_fused_resnet_autograd_and_stride2_on_card(dev):
