@@ -482,8 +482,16 @@ def phase_paged_chunk_kernels(torch, timer, dsets, dense_row):
         if n_bad:
             fail(f"flash_chunk disagrees with its plain version at sq={sq} "
                  f"kv_len={kv_len} {dtype}")
+    route = fa.chunk_route(torch.bfloat16, d)
+    rep = chunk_inputs(128, 12, 12, 512, torch.bfloat16)
+    repeats = bool(torch.equal(fa.flash_attention_chunk(*rep),
+                               fa.flash_attention_chunk(*rep)))
+    say("kernel_bitwise", kernels=["flash_chunk"], route=route,
+        repeats_bitwise=repeats)
+    if route != "mma" or not repeats:
+        fail(f"flash_chunk in bf16: route {route}, repeats {repeats}")
     times = {}
-    for kv_len in (256, 512):
+    for kv_len in (128, 256, 512):
         csets = [chunk_inputs(128, 12, 12, kv_len, torch.bfloat16)
                  for _ in range(8)]
         cols = torch.arange(640, device=dev)
@@ -516,8 +524,10 @@ def phase_paged_chunk_kernels(torch, timer, dsets, dense_row):
         bound_ms=t4["bound"][0], bound_by=t4["bound"][1],
         library_ms=t4["library_ms"],
         library_note="scaled_dot_product_attention with a boolean mask",
-        at_kv_len_256={k: (v if k != "bound" else v[0])
-                       for k, v in times[256].items()})
+        product_route=route,
+        **{f"at_kv_len_{kv}": {k: (v if k != "bound" else v[0])
+                               for k, v in times[kv].items()}
+           for kv in (128, 256)})
     say("kernel_time", kernel="flash_decode_paged", kernel_ms=ms,
         plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
         flash_decode_ms=dense_row["ms"],
@@ -697,8 +707,14 @@ def phase_int8_kernels(torch, timer):
         if n_bad:
             fail(f"flash_chunk_int8 disagrees with its plain version at "
                  f"sq={sq} kv_len={kv_len} {dtype}")
+    rep = chunk_inputs(128, 12, 12, 512, bf16)
+    repeats = bool(torch.equal(chunk(*rep), chunk(*rep)))
+    say("kernel_bitwise", kernels=["flash_chunk_int8"],
+        route=fa.chunk_route(bf16, d), repeats_bitwise=repeats)
+    if not repeats:
+        fail("flash_chunk_int8 is not bitwise repeatable")
     times = {}
-    for kv_len in (256, 512):
+    for kv_len in (128, 256, 512):
         csets = [chunk_inputs(128, 12, 12, kv_len, bf16) for _ in range(8)]
         cols = torch.arange(640, device=dev)
         rws = torch.arange(128, device=dev)
@@ -730,8 +746,10 @@ def phase_int8_kernels(torch, timer):
         library_ms=t4["library_ms"],
         library_note="scaled_dot_product_attention with a boolean mask over "
                      "the dequantized bf16 cache (dequantization not timed)",
-        at_kv_len_256={k: (v if k != "bound" else v[0])
-                       for k, v in times[256].items()})
+        product_route=fa.chunk_route(bf16, d),
+        **{f"at_kv_len_{kv}": {k: (v if k != "bound" else v[0])
+                               for k, v in times[kv].items()}
+           for kv in (128, 256)})
     for name in ("flash_decode_int8", "flash_decode_paged_int8"):
         r = rows[name]
         say("kernel_time", kernel=name, kernel_ms=r["ms"],
@@ -908,11 +926,38 @@ def _fused_bound(m, k, n, pro, bwd):
                                        else "operations")
 
 
+def _gemm_args(key):
+    """The template arguments of a kernel of ``csrc/conv_gemm.cuh``'s
+    tile body (``mm_stats_kernel<T, Kind, prologue, tap>``) from its
+    profiler name, or None for another kernel. ``tap`` "true" is the 3x3
+    backward's implicit GEMM route, "false" a 1x1 kernel."""
+    if "mm_stats_kernel<" not in key:
+        return None
+    return _template_args(key, "mm_stats_kernel<")
+
+
+def _template_args(key, name):
+    """The template arguments after ``name`` in a kernel's profiler name,
+    casts dropped and bools as "true"/"false" (demanglers print
+    "(bool)1" or "true")."""
+    args = []
+    for a in key.split(name, 1)[1].split(">", 1)[0].split(","):
+        a = a.strip()
+        if a.startswith("("):
+            kind, a = a[1:].split(")", 1)
+            if kind == "bool":
+                a = "true" if a == "1" else "false"
+        args.append(a)
+    return args
+
+
 def _split_ms(torch, fn, input_sets, n=5):
     """Device ms per call of each kernel ``fn`` launches, by part: the
-    1x1 products ("fwd", "dx", "dw" by the kernel's Kind) and the
-    fixed-order combines ("stats_finish", "column_total"), from a
-    profile of ``n`` calls."""
+    products ("fwd", "dx", "dw": the 1x1 and 3x3 GEMM kernels by their
+    Kind, the 3x3 window kernels by theirs), the 3x3 GEMM route's
+    pre-passes ("prep": a, e and the flipped weights) and the fixed-order
+    combines ("stats_finish", and "column_total" with the GEMM route's
+    chunk sums), from a profile of ``n`` calls."""
     from torch.profiler import ProfilerActivity, profile
     fn(*input_sets[0])
     torch.cuda.synchronize()
@@ -924,10 +969,19 @@ def _split_ms(torch, fn, input_sets, n=5):
         for name in ("stats_finish", "column_total"):
             if name in key:
                 return name
-        if "mm_stats_kernel<" not in key:
+        if "chunk_total_kernel" in key:
+            return "column_total"
+        if "conv3x3_prep_kernel" in key or "conv3x3_flip_kernel" in key:
+            return "prep"
+        if "conv3x3_dw_kernel" in key:
+            return "dw"
+        if "conv3x3_kernel<" in key:
+            dx = _template_args(key, "conv3x3_kernel<")[1] == "true"
+            return "dx" if dx else "fwd"
+        args = _gemm_args(key)
+        if args is None:
             return "other"
-        kind = key.split("mm_stats_kernel<", 1)[1].split(",")[1].strip()
-        return {"0": "fwd", "1": "dx", "2": "dw"}[kind]
+        return {"0": "fwd", "1": "dx", "2": "dw"}[args[1]]
 
     parts = {}
     for e in prof.key_averages():
@@ -1046,9 +1100,11 @@ _CONV3_ROWS = (  # name, backward, TPU kernel it replaces
     ("conv3x3_bn_stats", False, "paddle_tpu/kernels/fused_resnet.py:595"),
     ("conv3x3_bn_stats_bwd", True, "paddle_tpu/kernels/fused_resnet.py:628"),
 )
-# ResNet-50 at b128 224x224: layer1's stride-1 3x3 (56x56, 64 -> 64) and
-# layer4's (7x7, 512 -> 512)
-_CONV3_SHAPES = ((128, 56, 56, 64, 64), (128, 7, 7, 512, 512))
+# ResNet-50 at b128 224x224: the stride-1 3x3 of layer1 (56x56, 64 -> 64),
+# layer2 (28x28, 128 -> 128), layer3 (14x14, 256 -> 256) and layer4 (7x7,
+# 512 -> 512); 3, 3, 5 and 2 of them a step (13)
+_CONV3_SHAPES = ((128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
+                 (128, 14, 14, 256, 256), (128, 7, 7, 512, 512))
 
 
 def _conv3x3_bound(n, h, w, c, o, bwd):
@@ -1109,14 +1165,15 @@ def _check_fused(name, shape, outs, refs, stats):
 
 def phase_fused_conv3x3_kernels(torch, timer):
     """Rows 17-18 (the fused 3x3 conv + BN-stats kernel and its backward)
-    against their plain versions in bf16 at ResNet-50's layer1 and
-    layer4 3x3 shapes, with a shift that makes relu(shift) > 0 on some
+    against their plain versions in bf16 at ResNet-50's four stride-1
+    3x3 shapes, with a shift that makes relu(shift) > 0 on some
     channels (the border must read 0, not relu(shift)), each kernel twice
     on the same inputs (the bits must repeat), then timed beside the
     plain version and the PyTorch yardstick, which the port never calls:
     the prologue in torch, ``F.conv2d`` on channels-last bf16 (cuDNN)
     and ``torch.var_mean``; for the backward, ``torch.autograd.grad`` of
-    the same graph."""
+    the same graph. The backward's time is also split by kernel
+    (``_split_ms``), with the route the wrapper chose at each shape."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.kernels import fused_resnet as fr
     dev = torch.device("cuda", 0)
@@ -1191,12 +1248,16 @@ def phase_fused_conv3x3_kernels(torch, timer):
             else:
                 lib_ms = timer.ms(lib_fwd, [lib_inputs(t) for t in sets])
             bms, by = _conv3x3_bound(*shape, bwd)
+            extra = {}
+            if bwd:
+                extra = dict(route=fr._conv3x3_bwd_route(*shape[1:]),
+                             ms_by_kernel=_split_ms(torch, kernel, args))
             by_shape.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
                                  library_ms=lib_ms, bound_ms=bms,
-                                 bound_by=by))
+                                 bound_by=by, **extra))
             say("kernel_time", kernel=name, shape=list(shape), kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by)
+                bound_by=by, **extra)
             del sets, args
             torch.cuda.empty_cache()
         first = by_shape[0]
@@ -1393,10 +1454,14 @@ _CE_ROWS = (  # name, TPU kernel it replaces
 # (N, H, V, dtype, vocab_major): gpt2-small's LM head at b16 s1024 (the
 # probe's shape: 16 x 1023 shifted positions, tied [V, H] embedding),
 # the [H, V] layout, and fp32 at a smaller shape; N and V ragged to
-# every tile
+# every tile; then hidden sizes past one 768-column slice (gpt2-medium's
+# 1024, gpt2-xl's 1600) and one off a multiple of 8 (100, zero-padded)
 _CE_SHAPES = ((16368, 768, 50257, "bfloat16", True),
               (4093, 768, 50257, "bfloat16", False),
-              (2045, 768, 8191, "float32", True))
+              (2045, 768, 8191, "float32", True),
+              (4093, 1024, 50257, "bfloat16", True),
+              (2045, 1600, 50257, "bfloat16", False),
+              (1027, 100, 8191, "float32", True))
 
 
 def _ce_bound(n, hd, vocab, elem, bwd):
@@ -1526,6 +1591,69 @@ def phase_fused_ce_kernels(torch, timer):
     for name, _ in _CE_ROWS:
         rows[name]["max_abs_err"] = worst[name]
     return rows
+
+
+def phase_head_dims(torch):
+    """Head dims the kernels are not built for (80, as a 2560-wide model
+    over 32 heads has) take the JAX package's XLA routes on the card, as
+    in the reference: ``F.scaled_dot_product_attention`` through
+    ``sdpa_xla`` (with its autograd backward) and a
+    decode and a chunk window of ``cached_attention`` through
+    ``decode_xla``, each against the same call on the CPU, with no kernel
+    launch and no plain-version call."""
+    from paddle_tpu_torch.generation.attention import cached_attention
+    from paddle_tpu_torch.generation.kv_cache import KVCache
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional.attention import sdpa_xla
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b, s, h, d = 2, 200, 16, 80
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               for _ in range(3))
+    fa.reset_counts()
+    sdpa_xla.calls = 0
+    errs = {}
+    qg = q.clone().requires_grad_()
+    out = F.scaled_dot_product_attention(qg, k, v, is_causal=True)
+    out.square().sum().backward()
+    qc = q.cpu().requires_grad_()
+    ref = F.scaled_dot_product_attention(qc, k.cpu(), v.cpu(),
+                                         is_causal=True)
+    ref.square().sum().backward()
+    errs["sdpa"] = float((out.detach().cpu() - ref.detach()).abs().max())
+    errs["sdpa_dq"] = float((qg.grad.cpu() - qc.grad).abs().max())
+    for window in (4, 128):
+        outs = []
+        for device in (dev, torch.device("cpu")):
+            cache = KVCache.create(1, b, 640, h, d, device=device)
+            cache.k[0, :, :400] = k.repeat(1, 2, 1, 1).to(device)
+            cache.v[0, :, :400] = v.repeat(1, 2, 1, 1).to(device)
+            cache.kv_len.fill_(300)
+            outs.append(cached_attention(
+                q[:, :window].to(device), k[:, :window].to(device),
+                v[:, :window].to(device), cache, 0, decode=True,
+                causal=True)[0])
+        errs[f"decode_window_{window}"] = float(
+            (outs[0].cpu() - outs[1]).abs().max())
+    torch.cuda.synchronize()
+    launches = (fa.flash_attention.launches + fa.flash_attention_bwd.launches
+                + fa.flash_attention_decode.launches
+                + fa.flash_attention_chunk.launches)
+    plain = (fa.flash_attention_plain.calls
+             + fa.flash_attention_bwd_plain.calls
+             + fa.flash_attention_decode_plain.calls
+             + fa.flash_attention_chunk_plain.calls)
+    say("head_dims", head_dim=d, max_abs_err_vs_cpu=errs,
+        tol="1e-3 absolute (fp32 sums in another order)",
+        sdpa_xla_calls=sdpa_xla.calls,
+        decode_xla_calls=fa.decode_xla.calls, kernel_launches=launches,
+        plain_calls=plain)
+    if launches or plain or sdpa_xla.calls != 2 or fa.decode_xla.calls != 4:
+        fail(f"head_dim {d} reached a kernel or a plain version "
+             f"({launches} launches, {plain} plain calls)")
+    if not all(e <= 1e-3 for e in errs.values()):
+        fail(f"head_dim {d} on the card differs from the CPU: {errs}")
 
 
 def phase_model(torch):
@@ -2523,12 +2651,13 @@ def phase_train_resnet50(torch):
             "GEMM (cuBLAS)", "other"), 0.0)
         for e in devev:
             key = e.key.lower()
-            group = ("fused 3x3 (csrc/fused_conv3x3.cu)" if any(
+            tap = (_gemm_args(e.key) or [])[3:] == ["true"]
+            group = ("fused 3x3 (csrc/fused_conv3x3.cu)" if tap or any(
                         t in key for t in ("conv3x3", "tilecounts")) else
                      "fused 1x1 (csrc/fused_resnet.cu)" if any(
                         t in key for t in ("mm_stats", "rowtiles")) else
                      "fixed-order column totals (both)"
-                     if "column_total" in key else
+                     if "column_total" in key or "chunk_total" in key else
                      "conv (cuDNN)" if any(t in key for t in (
                          "conv", "cudnn", "implicit", "wgrad", "dgrad")) else
                      "GEMM (cuBLAS)" if any(t in key for t in (
@@ -2600,6 +2729,7 @@ def main():
     rows.update(phase_fused_conv3x3_kernels(torch, timer))
     rows.update(phase_norm_adamw_kernels(torch, timer))
     rows.update(phase_fused_ce_kernels(torch, timer))
+    phase_head_dims(torch)
     model = phase_model(torch)
     prompts = _serve_prompts(model)
     paths = []

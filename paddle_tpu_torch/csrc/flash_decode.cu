@@ -1,6 +1,7 @@
 // Flash-decode and chunk-prefill attention against a dense cache,
-// hand-written for Hopper (sm_90a); the kernel is flash_decode.cuh's,
-// with DenseCache addressing.
+// hand-written for Hopper (sm_90a): flash_decode.cuh's kernel with
+// DenseCache addressing, and for the chunk entries in bf16 / fp16 at
+// head_dim 16..128 the tensor-core kernel of flash_chunk_mma.cuh.
 //
 // paddle_flash_decode replaces the TPU kernel
 // paddle_tpu/kernels/flash_attention.py _decode_pallas (:942; Pallas
@@ -13,9 +14,13 @@
 // in its wide mode: the same contract without the 8-row cap, for the
 // serving engine's chunked prefill (a C-token window of a long prompt
 // against the batch-1 side cache the earlier chunks wrote). The TPU
-// kernel q-tiles the decode body at 128 rows; here the decode launch
-// already takes 64-row blocks over blockIdx.y, and each block stops its
-// key stream at its last row's limit.
+// kernel q-tiles the decode body at 128 rows. Here the entry chooses,
+// from (dtype, head_dim) before any launch (flash_mma.cuh's mma_route;
+// paddle_flash_chunk_route reports it): bf16 and fp16 at head_dim 16..128
+// run flash_chunk_mma.cuh's tensor-core kernel (16-row blocks whose 4
+// warps split the key range, combined in warp order); fp32 and head_dim
+// 256 run the decode launch with 64-row blocks over blockIdx.y, each
+// block stopping its key stream at its last row's limit.
 //
 // paddle_flash_decode_int8 and paddle_flash_chunk_int8 are the int8
 // modes of the same two TPU kernels (the quant branch of
@@ -35,16 +40,18 @@
 // decode shapes (8 rows, 640 cache positions, 12 heads, head_dim 64,
 // bf16) a step reads at most 15.7 MB of K/V per layer (~4.7 us at 3.35
 // TB/s) and does ~4 FLOP per byte; a 128-row chunk against 512 cached
-// positions does ~256 FLOP per byte, near the card's bf16 ridge, but
-// this kernel multiplies on CUDA cores in fp32. What the design does
+// positions does ~256 FLOP per byte, near the card's bf16 ridge, which
+// the chunk's bf16 / fp16 route takes on the tensor cores; the decode
+// body multiplies on CUDA cores in fp32. What the decode body does
 // about it: each K/V element crosses from device memory once per block,
 // in 16-byte loads coalesced along head_dim and all in flight before the
 // first is used; the q rows stay in shared memory; only the valid prefix
-// of each row is streamed. Left for later: one block per (row, kv head)
-// gives 96 decode blocks (24 chunk blocks) for 132 SMs and each waits on
-// its tile loads in turn, so this version is latency-bound; split-K
-// (flash-decoding), tensor cores and double-buffered loads are next.
-#include "flash_decode.cuh"
+// of each row is streamed. Left for later in the decode body: one block
+// per (row, kv head) gives 96 decode blocks for 132 SMs and each waits on
+// its tile loads in turn, so it is latency-bound; split-K
+// (flash-decoding) and double-buffered loads are next. The chunk's
+// tensor-core kernel already splits its keys over warps (see its note).
+#include "flash_chunk_mma.cuh"
 
 namespace {
 
@@ -64,6 +71,9 @@ int dense(bool chunk, const void* q, const void* k, const void* v,
     cache.vs_sb = st[15], cache.vs_ss = st[16], cache.vs_sh = st[17];
   }
   const int64_t qo[6] = {st[0], st[1], st[2], st[9], st[10], st[11]};
+  if (chunk && mma_route(dtype, D))
+    return dispatch_chunk_mma(dtype, int8_cache, D, q, cache, kv_len, o, B,
+                              Sq, Hq, Hk, qo, scale, stream);
   return dispatch(dtype, int8_cache, D, q, cache, kv_len, o, B, Sq, Hq, Hk,
                   qo, scale, stream);
 }
@@ -81,6 +91,12 @@ extern "C" int paddle_flash_decode(const void* q, const void* k,
                                    float scale, void* stream) {
   return dense(false, q, k, v, nullptr, nullptr, kv_len, o, dtype, B, Sq,
                Hq, Hk, T_len, D, strides, scale, stream, false);
+}
+
+// 1 when the chunk entries run (dtype, D) on flash_chunk_mma.cuh's
+// tensor-core kernel, 0 when on the shared fp32 body (dtype as below)
+extern "C" int paddle_flash_chunk_route(int dtype, int D) {
+  return paddle_flash::mma_route(dtype, D) ? 1 : 0;
 }
 
 // The same arguments; any Sq.

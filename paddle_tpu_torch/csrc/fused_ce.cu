@@ -40,6 +40,19 @@
 // dW's block walks all the row tiles of h, so no partial sums cross blocks:
 // no atomics anywhere, and the bits repeat run to run.
 //
+// Hidden sizes past kMaxH (768, the widest a tile pair holds in shared
+// memory) take the kernels' wide instantiation (kWide), which streams H
+// in slices of kMaxH through the same tiles: each tile's logits sum the
+// slices' products in fp32, in slice order, before the softmax step, the
+// owner tile reloaded with each slice. dh and dW take one kMaxH-column
+// slice of their output per block, on a second grid dimension, and each
+// such block recomputes the tile's logits over the whole H, so the
+// backward's two logit products become 2 * ceil(H / 768) (at H 1024, six
+// products in all, against the four of the narrow kernels and the three
+// a minimal backward needs). A block whose output columns are not the
+// last slice reloads the other tile's columns it multiplies. At H <= 768
+// the narrow instantiation runs, the code of the kernels before slices.
+//
 // Products: bfloat16 runs on the tensor cores through warp-level
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate; mma_common.cuh), the
 // fragments loaded with ldmatrix (transposed for the other tile in the
@@ -60,7 +73,8 @@
 // double-buffered fragments, then wgmma with TMA multicast, are the next
 // steps.
 //
-// Shapes: any N and V >= 1; H a multiple of 8, at most kMaxH (768); h, W
+// Shapes: any N and V >= 1; H a multiple of 8 (the wrapper pads another H
+// with zero columns, which add exact zeros to every product); h, W
 // contiguous, 16-byte aligned, of one element type: float32 or bfloat16
 // (dtype 0 / 1). 64-bit offsets throughout.
 #include "mma_common.cuh"
@@ -70,7 +84,7 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps: 2 over owner rows x 4 over others
 constexpr int kNI = 12;        // n8 tiles of gradient columns a warp keeps
 constexpr int kSlice = 8 * kNI;         // 96 gradient columns a warp
-constexpr int kMaxH = 8 * kSlice;       // 768
+constexpr int kMaxH = 8 * kSlice;       // 768: the widest H slice
 constexpr float kNegInf = -1e30f;
 
 enum Mode { kFwd = 0, kDh = 1, kDw = 2 };
@@ -130,6 +144,29 @@ __device__ __forceinline__ void fill(T* dst, const T* src, int64_t r0,
   }
 }
 
+// H slice sl of kMaxH columns (the last one shorter), as the wide kernels
+// stream it: columns [c0, c0 + w), w rounded up to 16
+struct HSlice {
+  int c0, w, wk;
+  __device__ __forceinline__ HSlice(int sl, int H)
+      : c0(sl * kMaxH), w(min(kMaxH, H - sl * kMaxH)),
+        wk((w + 15) / 16 * 16) {}
+};
+
+// fill() of the columns of slice hs: src offset by hs.c0, still [nrows, H]
+template <typename T>
+__device__ __forceinline__ void fill_slice(T* dst, const T* src, int64_t r0,
+                                           int rows, int64_t nrows, int H,
+                                           const HSlice& hs, int stride) {
+  const int per = hs.wk / 8;
+  for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+    const int r = i / per, c = (i - r * per) * 8;
+    const bool ok = r0 + r < nrows && c < hs.w;
+    cp_async8(dst + r * stride + c,
+              src + (ok ? (r0 + r) * H + hs.c0 + c : 0), ok);
+  }
+}
+
 // the token statistics of rows [t0, t0 + n) into slots [0, n): label (-1
 // past N) and, for the backward, lse and s (0 past N, so d is 0 there)
 template <int kMode>
@@ -149,8 +186,9 @@ __device__ __forceinline__ void token_stats(const int* y, const float* lse,
 }
 
 // acc = logits of the warp's [kLMI*16, kLNI*8] piece of the tile: the owner
-// rows os against the other rows xs over depth [0, hk)
-template <typename T, int kMode>
+// rows os against the other rows xs over depth [0, hk) (kZero), or acc +=
+// that (an H slice's share, the wide kernels)
+template <typename T, int kMode, bool kZero = true>
 __device__ __forceinline__ void tile_logits(
     float (&acc)[Tile<T, kMode>::kLMI][Tile<T, kMode>::kLNI][4],
     const T* os, const T* xs, int hk, int wm, int wn) {
@@ -159,12 +197,14 @@ __device__ __forceinline__ void tile_logits(
   const int lane = threadIdx.x & 31, g = lane >> 2;
   const int lj = lane >> 3, lr = lane & 7;
   const int m0 = wm * (G::kOwn / 2), n0 = wn * (G::kOth / 4);
+  if constexpr (kZero) {
 #pragma unroll
-  for (int mi = 0; mi < G::kLMI; ++mi)
+    for (int mi = 0; mi < G::kLMI; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < G::kLNI; ++ni)
+      for (int ni = 0; ni < G::kLNI; ++ni)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+  }
 #pragma unroll 2
   for (int ks = 0; ks < hk; ks += 16) {
     if constexpr (G::kBf) {
@@ -197,7 +237,9 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2,
   m = mn;
 }
 
-template <typename T, int kMode>
+// kWide: H > kMaxH, streamed in slices (see the note above); otherwise
+// the whole H is one tile width.
+template <typename T, int kMode, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1) ce_kernel(const CeArgs<T> a) {
   using G = Tile<T, kMode>;
   constexpr int S = G::kStride, DS = G::kDStride;
@@ -216,13 +258,16 @@ __global__ void __launch_bounds__(kThreads, 1) ce_kernel(const CeArgs<T> a) {
   const int wm = warp & 1, wn = warp >> 1, g = lane >> 2, t = lane & 3;
   const int lj = lane >> 3, lr = lane & 7;
   const int H = a.H, hk = (H + 15) / 16 * 16;
+  // the output's H slice (dh, dW): blockIdx.y; all of H when !kWide
+  const HSlice out_sl(kMode == kFwd ? 0 : (int)blockIdx.y, H);
+  const int out_c0 = kWide ? out_sl.c0 : 0, out_w = kWide ? out_sl.w : H;
   const int64_t nown = kMode == kDw ? a.V : a.N;
   const int64_t noth = kMode == kDw ? a.N : a.V;
   const int64_t own0 = (int64_t)blockIdx.x * G::kOwn;
   const T* own_src = kMode == kDw ? a.w : a.h;
   const T* oth_src = kMode == kDw ? a.h : a.w;
 
-  fill(os, own_src, own0, G::kOwn, nown, H, hk, S);
+  if constexpr (!kWide) fill(os, own_src, own0, G::kOwn, nown, H, hk, S);
   if (kMode != kDw)
     token_stats<kMode>(a.y, a.lse, a.s, own0, G::kOwn, a.N, sy, slse, ss);
 
@@ -234,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1) ce_kernel(const CeArgs<T> a) {
     for (int hh = 0; hh < 2; ++hh)
       rm[mi][hh] = kNegInf, rl[mi][hh] = 0.f, rg[mi][hh] = 0.f;
   // backward: this warp's gradient columns [col0, col0 + kSlice) of the
-  // owner's kOwn rows
+  // output slice, for the owner's kOwn rows
   float gacc[2][kNI][4];
   const int col0 = warp * kSlice;
   if constexpr (kMode != kFwd) {
@@ -249,14 +294,45 @@ __global__ void __launch_bounds__(kThreads, 1) ce_kernel(const CeArgs<T> a) {
   const int64_t tiles = tiles_of(noth, G::kOth);
   for (int64_t it = 0; it < tiles; ++it) {
     const int64_t oth0 = it * G::kOth;
-    fill(xs, oth_src, oth0, G::kOth, noth, H, hk, S);
-    if (kMode == kDw)
-      token_stats<kMode>(a.y, a.lse, a.s, oth0, G::kOth, a.N, sy, slse, ss);
-    cp_async_wait_all();
-    __syncthreads();
-
     float acc[LMI][LNI][4];
-    tile_logits<T, kMode>(acc, os, xs, hk, wm, wn);
+    if constexpr (!kWide) {
+      fill(xs, oth_src, oth0, G::kOth, noth, H, hk, S);
+      if (kMode == kDw)
+        token_stats<kMode>(a.y, a.lse, a.s, oth0, G::kOth, a.N, sy, slse,
+                           ss);
+      cp_async_wait_all();
+      __syncthreads();
+      tile_logits<T, kMode>(acc, os, xs, hk, wm, wn);
+    } else {
+      // the tile's logits summed over the H slices in order, the owner
+      // tile reloaded with each
+#pragma unroll
+      for (int mi = 0; mi < LMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < LNI; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+      const int slices = (H + kMaxH - 1) / kMaxH;
+      for (int sl = 0; sl < slices; ++sl) {
+        const HSlice hs(sl, H);
+        if (sl > 0) __syncthreads();   // every warp is done with slice sl-1
+        fill_slice(os, own_src, own0, G::kOwn, nown, H, hs, S);
+        fill_slice(xs, oth_src, oth0, G::kOth, noth, H, hs, S);
+        if (kMode == kDw && sl == 0)
+          token_stats<kMode>(a.y, a.lse, a.s, oth0, G::kOth, a.N, sy, slse,
+                             ss);
+        cp_async_wait_all();
+        __syncthreads();
+        tile_logits<T, kMode, false>(acc, os, xs, hs.wk, wm, wn);
+      }
+      if (kMode != kFwd && out_sl.c0 + out_sl.w < H) {
+        // the gradient product reads the other tile's columns of the
+        // output slice, which a later slice overwrote
+        __syncthreads();
+        fill_slice(xs, oth_src, oth0, G::kOth, noth, H, out_sl, S);
+        cp_async_wait_all();   // visible after the barrier below
+      }
+    }
 
     if constexpr (kMode == kFwd) {
 #pragma unroll
@@ -318,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1) ce_kernel(const CeArgs<T> a) {
           }
       __syncthreads();
       // gradient rows += d @ (the other tile's columns of this warp)
-      if (col0 < H) {
+      if (col0 < out_w) {
 #pragma unroll
         for (int ks = 0; ks < G::kOth; ks += 16) {
           if constexpr (G::kBf) {
@@ -378,7 +454,7 @@ __global__ void __launch_bounds__(kThreads, 1) ce_kernel(const CeArgs<T> a) {
       a.out_lse[own0 + tid] = lse;
       a.out_ce[own0 + tid] = sy[tid] >= 0 ? lse - gd : 0.f;
     }
-  } else if (col0 < H) {
+  } else if (col0 < out_w) {
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -388,26 +464,34 @@ __global__ void __launch_bounds__(kThreads, 1) ce_kernel(const CeArgs<T> a) {
 #pragma unroll
         for (int ni = 0; ni < kNI; ++ni) {
           const int col = col0 + ni * 8 + 2 * t;
-          if (col < H)
-            store2(a.out + row * H + col, gacc[mi][ni][2 * hh],
+          if (col < out_w)
+            store2(a.out + row * H + out_c0 + col, gacc[mi][ni][2 * hh],
                    gacc[mi][ni][2 * hh + 1]);
         }
       }
   }
 }
 
-template <typename T, int kMode>
-cudaError_t launch(const CeArgs<T>& a, cudaStream_t st) {
+template <typename T, int kMode, bool kWide>
+cudaError_t start(const CeArgs<T>& a, cudaStream_t st) {
   using G = Tile<T, kMode>;
-  if (a.H <= 0 || a.H % 8 != 0 || a.H > kMaxH || a.N < 1 || a.V < 1)
-    return cudaErrorInvalidValue;
+  auto kernel = ce_kernel<T, kMode, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
-      ce_kernel<T, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
   if (err != cudaSuccess) return err;
   const int64_t blocks = tiles_of(kMode == kDw ? a.V : a.N, G::kOwn);
-  ce_kernel<T, kMode><<<(unsigned)blocks, kThreads, G::kSmem, st>>>(a);
+  // dh and dW: one block per (owner tile, output H slice)
+  const int out_slices = kMode == kFwd ? 1 : (a.H + kMaxH - 1) / kMaxH;
+  kernel<<<dim3((unsigned)blocks, out_slices), kThreads, G::kSmem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int kMode>
+cudaError_t launch(const CeArgs<T>& a, cudaStream_t st) {
+  if (a.H <= 0 || a.H % 8 != 0 || a.N < 1 || a.V < 1)
+    return cudaErrorInvalidValue;
+  return a.H > kMaxH ? start<T, kMode, true>(a, st)
+                     : start<T, kMode, false>(a, st);
 }
 
 template <int kMode>

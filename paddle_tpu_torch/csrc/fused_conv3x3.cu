@@ -22,8 +22,9 @@
 //             dscale = sum gated*x, dshift = sum gated over N*H*W;
 //             dw[tap*C + c][o] = sum over pixels of a_window(tap)[c]*e[o],
 //             fp32, with a recomputed from x.
-// Neither a nor e reaches device memory: each is rebuilt from x (or dy, y)
-// while a window is loaded into shared memory.
+// On the window route neither a nor e reaches device memory: each is
+// rebuilt from x (or dy, y) while a window is loaded into shared memory.
+// On the backward's implicit GEMM route each is written once (see below).
 //
 // Design for a card whose blocks run in parallel and in no order. The TPU
 // kernel takes one image per grid step and keeps its sums in scratch across
@@ -56,20 +57,41 @@
 // as in fused_resnet.cu, so they round where the plain PyTorch version
 // rounds.
 //
+// The backward's implicit GEMM route. Where a tile's window is mostly
+// halo or padding (7x7 and 14x14 images: two whole 7x7 images fill 98 of
+// a tile's 128 rows) and its 64-channel tiles rebuild the window, and its
+// elementwise step, 8-16 times over, the host (kernels/fused_resnet.py,
+// from H, W, C and O alone) sends the backward to backward_gemm instead:
+// an elementwise pre-pass writes a = T(relu(x*scale + shift)) and e =
+// T(dy + perch + dvar2*(y - mean)) once, rounded as the windows round
+// them (so the products see the same bits), and a transposing pass the
+// taps-flipped weights [9O, C]; then dx and dw run on the 1x1 kernels'
+// tile body (conv_gemm.cuh: 128 x 128 tiles, 8 warps, a ring of three
+// cp.async groups, ldmatrix and mma.sync) with A gathered by tap: row p
+// of a slice at tap t reads pixel p shifted by t, or zeros outside the
+// image (cp.async with src-size 0). dx is M = N*H*W pixels x C with K =
+// 9*O and the gated epilogue of the 1x1 dx (dscale, dshift partials per
+// 128-pixel tile); dw is 9C x O with K = the pixels, cut into chunks
+// whose fp32 partials a column total adds. The extra bytes: a and e
+// written and read once, 2 x 6.4 MB at layer4 (about 4 us).
+//
 // What bounds them on the H100: at ResNet-50's 3x3 shapes (b128 at
 // 224x224) the products, 29.6 GFLOP per forward and 59.2 per backward at
 // every stage, bound the work at 0.030 and 0.060 ms against 989 TFLOP/s;
-// at layer1 the bytes come close (x and y, 103 MB, 0.031 ms). This version
-// is bound by neither: a slice's loads, its products and the statistics
-// run in turn within a block (no double buffering), the windows are
-// rebuilt for every 64 output channels, and mma.sync reaches about two
-// thirds of the wgmma rate at best. wgmma with TMA is the next step.
+// at layer1 the bytes come close (x and y, 103 MB, 0.031 ms). The window
+// kernels are bound by neither: a slice's loads, its products and the
+// statistics run in turn within a block (no double buffering), the
+// windows are rebuilt for every 64 output channels, and mma.sync reaches
+// about two thirds of the wgmma rate at best. The GEMM route keeps the
+// products' loads in flight and computes each a and e once; wgmma with
+// TMA is the next step for both.
 //
 // Shapes: any N, H, W >= 1; C and O multiples of 8 (rows stay 16-byte
 // aligned). Element types float32 and bfloat16 (dtype 0 / 1), the same for
 // x, w9, y, dy and dx; scale, shift and the statistics are fp32.
-#include "fused_common.cuh"
-#include "mma_common.cuh"
+#include <type_traits>
+
+#include "conv_gemm.cuh"
 
 namespace {
 
@@ -626,6 +648,173 @@ conv3x3_dw_kernel(const T* __restrict__ dy, const T* __restrict__ y,
       }
 }
 
+// ------------------------------------------------------------ GEMM route
+
+// The backward's pre-passes. a = T(relu(x*scale + shift)) [M, C] and e =
+// T(dy + perch + dvar2*(y - mean)) [M, O], 8 elements a thread, each
+// rounded to T once, by the store, as the window kernels round them in
+// their windows: the implicit GEMMs then read the same values without
+// recomputing them for every tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_prep_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                    const float* __restrict__ shift, const T* __restrict__ dy,
+                    const T* __restrict__ y, const float* __restrict__ perch,
+                    const float* __restrict__ dvar2,
+                    const float* __restrict__ mean, T* __restrict__ a_out,
+                    T* __restrict__ e_out, int64_t na8, int64_t ne8, int C,
+                    int O) {
+  const int64_t step = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+       i < na8 + ne8; i += step) {
+    float v[8], k0[8], k1[8];
+    if (i < na8) {
+      const int c = (int)(i * 8 % C);
+      load8(x + i * 8, v);
+      load8(scale + c, k0);
+      load8(shift + c, k1);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = prologue_unrounded(v[e], k0[e], k1[e]);
+      store8(a_out + i * 8, v);
+    } else {
+      const int64_t j = i - na8;
+      const int o = (int)(j * 8 % O);
+      float yv[8], k2[8];
+      load8(dy + j * 8, v);
+      load8(y + j * 8, yv);
+      load8(perch + o, k0);
+      load8(dvar2 + o, k1);
+      load8(mean + o, k2);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = effective_unrounded(v[e], yv[e], k0[e], k1[e], k2[e]);
+      store8(e_out + j * 8, v);
+    }
+  }
+}
+
+// dx's weights: wx [9O, C] with wx[t*O + o][c] = w9[(8-t)*C + c][o], the
+// taps flipped and each tap's [C, O] transposed, through 32 x 32 tiles
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_flip_kernel(const T* __restrict__ w9, T* __restrict__ wx, int C,
+                    int O) {
+  // the elements' bits (bf16 or fp32), moved as they are
+  using R = typename std::conditional<sizeof(T) == 2, uint16_t,
+                                      uint32_t>::type;
+  __shared__ R tile[32][33];
+  const R* src = reinterpret_cast<const R*>(w9);
+  R* dst = reinterpret_cast<R*>(wx);
+  const int t = blockIdx.z, o0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += kThreads / 32)
+    if (c0 + i < C && o0 + tx < O)
+      tile[i][tx] = src[((size_t)(8 - t) * C + c0 + i) * O + o0 + tx];
+  __syncthreads();
+  for (int i = ty; i < 32; i += kThreads / 32)
+    if (o0 + i < O && c0 + tx < C)
+      dst[((size_t)t * O + o0 + i) * C + c0 + tx] = tile[tx][i];
+}
+
+// out = the sum of the chunks' partials part [chunks, n] in chunk order,
+// 4 columns a thread: the GEMM route's dw, a few chunks of up to 9.4 M
+// columns, where column_total's 32-column blocks would leave the card
+// mostly idle (n a multiple of 4)
+__global__ void __launch_bounds__(kThreads)
+chunk_total_kernel(const float* __restrict__ part, int chunks, int64_t n,
+                   float* __restrict__ out) {
+  const int64_t i = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 s = *reinterpret_cast<const float4*>(part + i);
+#pragma unroll 4
+  for (int c = 1; c < chunks; ++c) {
+    const float4 v = *reinterpret_cast<const float4*>(part + c * n + i);
+    s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+  }
+  *reinterpret_cast<float4*>(out + i) = s;
+}
+
+// The backward on the implicit GEMM route: the pre-passes write a, e and
+// the flipped weights into scratch ([M, C], [M, O], [9O, C] of T); dx is
+// conv_gemm.cuh's tile body with A = e gathered by tap (M x C, K = 9O)
+// and the gated epilogue, whose per-tile dscale/dshift partials [tiles,
+// C] the column totals finish; dw is the body with A = a gathered by tap
+// (9C x O over a chunk's pixels), its chunks' partials summed by
+// chunk_total_kernel.
+template <typename T>
+int backward_gemm(const T* dy, const T* y, const T* x, const float* scale,
+                  const float* shift, const T* w9, const float* perch,
+                  const float* dvar2, const float* mean, T* dx, float* dw,
+                  float* dw_part, float* dscale, float* dshift,
+                  float* ds_part, float* dt_part, T* scratch, int N, int H,
+                  int W, int C, int O, int chunks, int chunk_rows,
+                  cudaStream_t st) {
+  namespace pg = paddle_gemm;
+  const int M = N * H * W;
+  T* a_mat = scratch;
+  T* e_mat = a_mat + (size_t)M * C;
+  T* wx = e_mat + (size_t)M * O;
+  const int64_t na8 = (int64_t)M * C / 8, ne8 = (int64_t)M * O / 8;
+  const int64_t want = (na8 + ne8 + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 8 * 132 ? want : 8 * 132);
+  conv3x3_prep_kernel<T><<<blocks, kThreads, 0, st>>>(
+      x, scale, shift, dy, y, perch, dvar2, mean, a_mat, e_mat, na8, ne8, C,
+      O);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  conv3x3_flip_kernel<T>
+      <<<dim3(tiles_of(O, 32), tiles_of(C, 32), 9), kThreads, 0, st>>>(
+          w9, wx, C, O);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // dx [M, C]: A = e gathered by tap (a.dy), B = the flipped weights,
+  // the gate reading x, scale and shift
+  const pg::FastDiv div_h = pg::FastDiv::of(H), div_w = pg::FastDiv::of(W);
+  pg::TapArgs<T> a;
+  a.x = x, a.scale = scale, a.shift = shift, a.w = wx, a.dy = e_mat;
+  a.y = nullptr, a.perch = a.dvar2 = a.mean = nullptr;
+  a.out = dx, a.p0 = ds_part, a.p1 = dt_part;
+  a.M = M, a.K = C, a.N = 9 * O, a.chunk_rows = 0;
+  a.img_h = H, a.img_w = W, a.taps_ld = O;
+  a.div_h = div_h, a.div_w = div_w, a.div_ld = pg::FastDiv::of(O);
+  auto kdx = pg::mm_stats_kernel<T, pg::kDx, true, true>;
+  constexpr size_t kDxBytes = pg::Layout<T, pg::kDx, true, true>::kBytes;
+  if ((err = cudaFuncSetAttribute(
+           kdx, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)kDxBytes)) != cudaSuccess)
+    return err;
+  kdx<<<dim3(tiles_of(C, pg::kBN), tiles_of(M, pg::kBM)), pg::kThreads,
+        kDxBytes, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // dw [9C, O]: A = a gathered by tap (a.x, depth-major), B = e (a.dy),
+  // over each chunk's pixels
+  a.x = a_mat, a.scale = a.shift = nullptr, a.w = nullptr, a.dy = e_mat;
+  a.out = chunks == 1 ? (void*)dw : (void*)dw_part;
+  a.p0 = a.p1 = nullptr;
+  a.M = M, a.K = 9 * C, a.N = O, a.chunk_rows = chunk_rows;
+  a.taps_ld = C, a.div_ld = pg::FastDiv::of(C);
+  auto kdw = pg::mm_stats_kernel<T, pg::kDw, false, true>;
+  constexpr size_t kDwBytes = pg::Layout<T, pg::kDw, false, true>::kBytes;
+  if ((err = cudaFuncSetAttribute(
+           kdw, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)kDwBytes)) != cudaSuccess)
+    return err;
+  kdw<<<dim3(tiles_of(O, pg::kBN), tiles_of(9 * C, pg::kBM), chunks),
+        pg::kThreads, kDwBytes, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (chunks > 1) {
+    const int64_t n = (int64_t)9 * C * O;
+    chunk_total_kernel<<<(unsigned)((n / 4 + kThreads - 1) / kThreads),
+                         kThreads, 0, st>>>(dw_part, chunks, n, dw);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int tiles = tiles_of(M, pg::kBM);
+  if ((err = column_total(ds_part, tiles, C, dscale, st)) != cudaSuccess)
+    return err;
+  return column_total(dt_part, tiles, C, dshift, st);
+}
+
 // ------------------------------------------------------------ launches
 
 // each tile's pixel count, for stats_finish_kernel
@@ -735,25 +924,60 @@ extern "C" int paddle_conv3x3_bn_stats(
 }
 
 // Backward. dy, y [N,H,W,O]; x [N,H,W,C]; w9 [9C,O]; scale, shift fp32
-// [C]; perch, dvar2, mean fp32 [O]; the tiling as for the forward.
-// Outputs dx [N,H,W,C] (the input dtype), dw fp32 [9C,O], dscale, dshift
-// fp32 [C]. Scratch: dw_part fp32 [chunks, 9C, O] when chunks > 1;
-// ds_part, dt_part fp32 [tiles, C]. The dw kernel's chunk c takes tiles
-// c*tiles_per_chunk ... (c+1)*tiles_per_chunk - 1, and chunks *
-// tiles_per_chunk >= tiles. Returns the cudaError_t of the launches.
+// [C]; perch, dvar2, mean fp32 [O]. Outputs dx [N,H,W,C] (the input
+// dtype), dw fp32 [9C,O], dscale, dshift fp32 [C]. route, chosen by the
+// caller from (H, W, C, O):
+//   0, the window kernels: R, Wt, G the tiling as for the forward; the dw
+//      kernel's chunk c takes tiles c*per ... (c+1)*per - 1, chunks * per
+//      >= tiles. Scratch: dw_part fp32 [chunks, 9C, O] when chunks > 1;
+//      ds_part, dt_part fp32 [tiles, C]; scratch unused.
+//   1, the implicit GEMMs (backward_gemm) on the 1x1 kernels' tile,
+//      whose geometry fused_resnet.cu's paddle_mm_bn_stats_geometry
+//      exports: R, Wt, G unused; per is a chunk's pixels, a multiple of
+//      its g[3], chunks * per >= N*H*W. Scratch: dw_part fp32 [chunks,
+//      9C, O] when chunks > 1; ds_part, dt_part fp32 [ceil(N*H*W /
+//      g[0]), C]; scratch of the input dtype, N*H*W*(C + O) + 9*O*C
+//      elements.
+// Returns the cudaError_t of the launches.
 extern "C" int paddle_conv3x3_bn_stats_bwd(
     const void* dy, const void* y, const void* x, const float* scale,
     const float* shift, const void* w9, const float* perch,
     const float* dvar2, const float* mean, void* dx, float* dw,
     float* dw_part, float* dscale, float* dshift, float* ds_part,
-    float* dt_part, int dtype, int N, int H, int W, int C, int O, int R,
-    int Wt, int G, int chunks, int tiles_per_chunk, void* stream) {
+    float* dt_part, void* scratch, int dtype, int route, int N, int H, int W,
+    int C, int O, int R, int Wt, int G, int chunks, int per, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    const int64_t M = (int64_t)N * H * W;
+    if (N < 1 || H < 1 || W < 1 || M > INT32_MAX / 9 || !channels_ok(C, O) ||
+        chunks < 1 || chunks > 65535 || per < 1 || per % paddle_gemm::kBK ||
+        (int64_t)chunks * per < M || scratch == nullptr)
+      return cudaErrorInvalidValue;
+    if (dtype == 0)
+      return backward_gemm<float>(
+          static_cast<const float*>(dy), static_cast<const float*>(y),
+          static_cast<const float*>(x), scale, shift,
+          static_cast<const float*>(w9), perch, dvar2, mean,
+          static_cast<float*>(dx), dw, dw_part, dscale, dshift, ds_part,
+          dt_part, static_cast<float*>(scratch), N, H, W, C, O, chunks, per,
+          st);
+    if (dtype == 1)
+      return backward_gemm<bf16>(
+          static_cast<const bf16*>(dy), static_cast<const bf16*>(y),
+          static_cast<const bf16*>(x), scale, shift,
+          static_cast<const bf16*>(w9), perch, dvar2, mean,
+          static_cast<bf16*>(dx), dw, dw_part, dscale, dshift, ds_part,
+          dt_part, static_cast<bf16*>(scratch), N, H, W, C, O, chunks, per,
+          st);
+    return cudaErrorInvalidValue;
+  }
+  if (route != 0) return cudaErrorInvalidValue;
+  const int tiles_per_chunk = per;
   Geo g{N, H, W, R, Wt, G, 0, 0};
   const int tiles = tiles_for(g);
   if (!tiles || !channels_ok(C, O) || chunks < 1 || tiles_per_chunk < 1 ||
       (int64_t)chunks * tiles_per_chunk < tiles || chunks > 65535)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const ConvArgs<float> a{
         static_cast<const float*>(dy), static_cast<const float*>(y), perch,

@@ -9,12 +9,16 @@ step), else to the decode kernel. On an int8 cache (``QuantKVCache``,
 ``QuantPagedKVCache``) the write quantizes, and the layer's scale slices
 ride into the same three kernels, which dequantize inside the tile.
 Prefill attends the fresh wide k/v, so the prompt's own attention never
-sees the quantization, as in the JAX package.
+sees the quantization, as in the JAX package. A head_dim the kernels are
+not built for (``KERNEL_HEAD_DIMS``) takes the JAX package's XLA routes
+instead, on every device: ``decode_xla`` for every decode-shaped window
+(paged pools gathered first), ``sdpa_xla`` (through
+``F.scaled_dot_product_attention``) for prefill.
 """
 from __future__ import annotations
 
-from ..kernels.flash_attention import (MAX_DECODE_QLEN,
-                                       flash_attention_chunk,
+from ..kernels.flash_attention import (KERNEL_HEAD_DIMS, MAX_DECODE_QLEN,
+                                       decode_xla, flash_attention_chunk,
                                        flash_attention_decode,
                                        flash_attention_decode_paged)
 from ..nn import functional as F
@@ -35,7 +39,11 @@ def cached_attention(q, k, v, cache, layer_idx, *, decode: bool,
     mask_len = cache.kv_len + q.shape[1]    # includes the new rows
     scales = {} if getattr(cache, "k_scale", None) is None else dict(
         k_scale=cache.k_scale[layer_idx], v_scale=cache.v_scale[layer_idx])
-    if getattr(cache, "page_table", None) is not None:
+    page_table = getattr(cache, "page_table", None)
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        out = decode_xla(q, cache.k[layer_idx], cache.v[layer_idx], mask_len,
+                         page_table=page_table, **scales)
+    elif page_table is not None:
         out = flash_attention_decode_paged(q, cache.k[layer_idx],
                                            cache.v[layer_idx],
                                            cache.page_table, mask_len,

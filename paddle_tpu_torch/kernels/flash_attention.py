@@ -18,7 +18,11 @@ attribute (``flash_attention.launches``), each plain version its calls
 took. ``route(dtype, d)`` says which kernels the forward and backward
 take on the card: the tensor-core ones for bfloat16 and float16 at
 head_dim <= 128 (``"mma"``), the fp32 CUDA-core ones otherwise
-(``"fma"``).
+(``"fma"``); ``chunk_route(dtype, d)`` says the same of the chunk
+kernel. The wrappers take the head dims in ``KERNEL_HEAD_DIMS`` and
+raise on others; ``decode_xla``, the JAX package's XLA decode path, is
+the route the callers (``generation.attention.cached_attention``) take
+for those, before any launch.
 
 Layouts are the JAX package's public ones: ``[batch, seq, heads,
 head_dim]`` for queries, keys and values, ``[batch, max_len, kv_heads,
@@ -67,6 +71,7 @@ _DECODE_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
 _DECODE_INT8_ARGS = _DECODE_ARGS[:3] + (_P, _P) + _DECODE_ARGS[3:]
 _DECODE_SIG = {"paddle_flash_decode": (_I, _DECODE_ARGS),
                "paddle_flash_chunk": (_I, _DECODE_ARGS),
+               "paddle_flash_chunk_route": (_I, (_I, _I)),
                "paddle_flash_decode_int8": (_I, _DECODE_INT8_ARGS),
                "paddle_flash_chunk_int8": (_I, _DECODE_INT8_ARGS)}
 _PAGED_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -134,6 +139,20 @@ def route(dtype, d):
     _check_kernel_type(dtype, d)
     lib = _build.library("flash_fwd", _FWD_SIG)
     return "mma" if lib.paddle_flash_route(_DTYPE_CODES[dtype], d) else "fma"
+
+
+def chunk_route(dtype, d):
+    """Which kernel ``flash_attention_chunk`` runs for queries of
+    ``dtype`` at head_dim ``d`` on the card (wide or int8 cache alike):
+    ``"mma"``, the tensor-core chunk kernel (bfloat16 and float16 at
+    head_dim <= 128), or ``"fma"``, the shared fp32 body of the decode
+    kernels (float32, and head_dim 256). Asks the built
+    ``csrc/flash_decode.cu``, whose chunk entries make the same choice
+    before they launch."""
+    _check_kernel_type(dtype, d)
+    lib = _build.library("flash_decode", _DECODE_SIG)
+    return "mma" if lib.paddle_flash_chunk_route(_DTYPE_CODES[dtype], d) \
+        else "fma"
 
 
 # -------------------------------------------------------------- prefill
@@ -454,6 +473,69 @@ def flash_attention_chunk_plain(query, key_cache, value_cache, kv_len,
 
 flash_attention_chunk_plain.calls = 0
 flash_attention_chunk_plain.calls_int8 = 0
+
+#: the JAX package's masking constant in ``_decode_xla``: large-negative
+#: instead of -inf, so a row with no visible column averages every
+#: column instead of giving zeros (the kernels give zeros)
+_NEG_INF = -1e30
+
+
+def decode_xla(query, key_cache, value_cache, kv_len,
+               scale: Optional[float] = None, *, k_scale=None, v_scale=None,
+               page_table=None):
+    """The JAX package's XLA decode path (``_decode_xla``), in plain
+    PyTorch, for the head dims the kernels are not built for: the route
+    ``flash_attention_decode``, ``flash_attention_chunk`` and
+    ``flash_attention_decode_paged`` take there, on every device. Not a
+    kernel's plain version: ``cached_attention`` dispatches to it on
+    ``head_dim not in KERNEL_HEAD_DIMS`` before any launch, and it counts
+    its own calls (``decode_xla.calls``).
+
+    Layouts and masking are the decode functions' (query row i of batch
+    row b attends columns ``<= kv_len[b] - q_len + i``, grouped heads by
+    index). With ``page_table`` the caches are page pools, gathered into
+    the logical rows first, as the reference's paged fallback does.
+    Numerics are the reference's: fp32 scores, masked with -1e30; the
+    softmax weights rounded to the cache's dtype before ``p @ v`` in that
+    dtype; an int8 cache scales the score columns by ``k_scale`` and the
+    normalised weights by ``v_scale`` before ``p @ v`` in fp32; the
+    output in the query's dtype."""
+    decode_xla.calls += 1
+    b, sq, hq, d = query.shape
+    if page_table is not None:
+        n_slots = page_table.shape[1]
+        ps, hk = key_cache.shape[1], key_cache.shape[2]
+        idx = page_table.to(device=key_cache.device, dtype=torch.long)
+        key_cache = key_cache[idx].reshape(b, n_slots * ps, hk, d)
+        value_cache = value_cache[idx].reshape(b, n_slots * ps, hk, d)
+        if k_scale is not None:
+            k_scale = k_scale[idx].reshape(b, n_slots * ps, hk)
+            v_scale = v_scale[idx].reshape(b, n_slots * ps, hk)
+    t, hk = key_cache.shape[1], key_cache.shape[2]
+    g = hq // hk
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    qf = query.float().reshape(b, sq, hk, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, key_cache.float()) * scale
+    if k_scale is not None:
+        s = s * _column_scales(k_scale)
+    rows = torch.arange(sq, device=query.device)[None, :, None]
+    cols = torch.arange(t, device=query.device)[None, None, :]
+    lim = kv_len.to(device=query.device, dtype=torch.int64)
+    visible = cols - rows <= (lim - sq)[:, None, None]       # [b, sq, t]
+    s = torch.where(visible[:, None, None], s, _NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0, torch.ones_like(l), l)
+    if v_scale is not None:
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p * _column_scales(v_scale),
+                           value_cache.float())
+    else:
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(value_cache.dtype),
+                           value_cache)
+    return out.reshape(b, sq, hq, d).to(query.dtype)
+
+
+decode_xla.calls = 0
 
 
 def _check_cache_dtypes(named):
@@ -780,3 +862,4 @@ def reset_counts():
     for fn in (flash_attention_decode_plain, flash_attention_chunk_plain,
                flash_attention_decode_paged_plain):
         fn.calls_int8 = 0
+    decode_xla.calls = 0

@@ -34,8 +34,6 @@ from . import _build
 
 DEFAULT_BLOCK_N = 512
 DEFAULT_BLOCK_V = 1024
-#: the widest hidden size the kernels hold in shared memory
-MAX_HIDDEN = 768
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"paddle_ce_fwd": (_I, (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
@@ -139,19 +137,26 @@ def _check(h, w, y, vocab_major):
 
 
 def _kernel_operands(h, w, y, vocab_major):
-    """(code, h, W as contiguous [V, H], y as int32) for the kernels, or
-    raise on what they do not take."""
+    """(code, h, W as contiguous [V, H8], y as int32) for the kernels, or
+    raise on what they do not take. The kernels' rows are whole 16-byte
+    chunks, so a hidden size that is not a multiple of 8 is padded to
+    one, H8, with zero columns: they add exact zeros to every logit, and
+    the gradients' padding columns are cut off again (``_unpad``)."""
     if h.dtype != w.dtype or h.dtype not in _DTYPE_CODES:
         raise TypeError(f"the fused CE kernels take h and w of one dtype, "
                         f"float32 or bfloat16, got {h.dtype} and {w.dtype}")
-    hd = h.shape[1]
-    if hd % 8 or hd > MAX_HIDDEN:
-        raise NotImplementedError(
-            f"the fused CE kernels take a hidden size that is a multiple of "
-            f"8 up to {MAX_HIDDEN}, got {hd} (ROADMAP B8)")
-    wv = _vocab_rows(w, vocab_major).contiguous()
-    return (_DTYPE_CODES[h.dtype], h.contiguous(), wv,
+    wv = _vocab_rows(w, vocab_major)
+    pad = -h.shape[1] % 8
+    if pad:
+        h = torch.nn.functional.pad(h, (0, pad))
+        wv = torch.nn.functional.pad(wv, (0, pad))
+    return (_DTYPE_CODES[h.dtype], h.contiguous(), wv.contiguous(),
             y.to(torch.int32).contiguous())
+
+
+def _unpad(g, hd):
+    """A gradient [rows, H8] of the kernels cut back to the hidden size."""
+    return g if g.shape[1] == hd else g[:, :hd].contiguous()
 
 
 def _library():
@@ -201,7 +206,9 @@ def ce_bwd(h, w, y, lse, dce, vocab_major=True):
     dw = torch.empty(wv.shape, dtype=w.dtype, device=h.device)
     if h.shape[0] == 0:
         dw.zero_()
-        return dh, (dw if vocab_major else dw.t().contiguous())
+        dw = _unpad(dw, h.shape[1])
+        return _unpad(dh, h.shape[1]), (dw if vocab_major
+                                        else dw.t().contiguous())
     lib = _library()
     args = (hc.data_ptr(), wv.data_ptr(), y32.data_ptr(), lse.data_ptr(),
             s.data_ptr())
@@ -213,6 +220,7 @@ def ce_bwd(h, w, y, lse, dce, vocab_major=True):
         err = lib.paddle_ce_bwd_dw(*args, dw.data_ptr(), *dims, _stream(h))
         _build.raise_on(err, "ce_bwd (dW)")
         ce_bwd.launches += 1
+    dh, dw = _unpad(dh, h.shape[1]), _unpad(dw, h.shape[1])
     return dh, (dw if vocab_major else dw.t().contiguous())
 
 

@@ -41,7 +41,10 @@ weight) is the fused 3x3 pair: its autograd Function runs
 ``csrc/fused_conv3x3.cu`` on a card and ``*_plain`` on the CPU, with the
 same numerics (the activation rounded before the product, zero outside
 the image in the activation domain; y rounded before its statistics;
-the effective gradient rounded before both products).
+the effective gradient rounded before both products). The backward has
+two routes, chosen on the host from (H, W, C, O) alone
+(``_conv3x3_bwd_route``): the window kernels, or the implicit GEMMs on
+the 1x1 kernels' tile body after a pre-pass that writes a and e once.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ _SIG = {"paddle_mm_bn_stats_geometry": (None, (_P,)),
         "paddle_mm_bn_stats": (_I, (_P,) * 9 + (_I,) * 5 + (_P,)),
         "paddle_mm_bn_stats_bwd": (_I, (_P,) * 16 + (_I,) * 7 + (_P,))}
 _SIG3 = {"paddle_conv3x3_bn_stats": (_I, (_P,) * 10 + (_I,) * 9 + (_P,)),
-         "paddle_conv3x3_bn_stats_bwd": (_I, (_P,) * 16 + (_I,) * 11
+         "paddle_conv3x3_bn_stats_bwd": (_I, (_P,) * 17 + (_I,) * 12
                                          + (_P,))}
 # the 1x1 dw kernel's rows are cut into chunks until about _DW_BLOCKS
 # blocks (4 per SM of an H100) are in flight; its tile comes from the
@@ -72,6 +75,11 @@ _DW_BLOCKS = 4 * 132
 # bytes
 _PIX3, _WIN3, _DW3_C, _DW3_O = 128, 512, 64, 32
 _DW3_BLOCKS, _DW3_SCRATCH = 2 * 132, 64 * 2 ** 20
+# the 3x3 backward's implicit GEMM route (``_conv3x3_bwd_route``): images
+# of at most _GEMM3_MAX_HW pixels, with at least _GEMM3_MIN_CH channels in
+# and out (its 128-wide tiles: a 64-channel side idles half of them)
+_GEMM3_MAX_HW, _GEMM3_MIN_CH = 28 * 28, 128
+_ROUTES3 = {"window": 0, "gemm": 1}
 
 
 def _wide(t):
@@ -463,6 +471,34 @@ def _dw3_chunks(tiles, c, o):
     return -(-tiles // per), per
 
 
+def _conv3x3_bwd_route(h, w, c, o):
+    """The 3x3 backward's route for h x w images, c -> o channels:
+    ``"gemm"``, the implicit GEMMs on the 1x1 kernels' tile body
+    (``csrc/conv_gemm.cuh``) after a pre-pass that writes a and e once,
+    where a window tile would be mostly halo and padding and rebuild its
+    window for every 64 output channels; ``"window"``, the window kernels,
+    elsewhere (ResNet-50's layer1, 56x56 at 64 channels)."""
+    if h * w <= _GEMM3_MAX_HW and min(c, o) >= _GEMM3_MIN_CH:
+        return "gemm"
+    return "window"
+
+
+def _conv3x3_bwd_plan(n, h, w, c, o, route, geometry=None):
+    """(R, Wt, G, chunks, per, partial tiles) of the 3x3 backward on
+    ``route``: the window kernels' tiling, their dw chunks of ``per``
+    pixel tiles and one dscale/dshift partial row a tile; or, for the GEMM
+    route, which runs the 1x1 kernels' tile (``_geometry()``), chunks of
+    ``per`` pixels (``_dw_chunks`` over the [9C, O] dw) and a partial
+    row per row tile."""
+    if route == "window":
+        r, wt, g, tiles = _conv3x3_tiles(n, h, w)
+        return (r, wt, g, *_dw3_chunks(tiles, c, o), tiles)
+    m = n * h * w
+    geometry = _geometry() if geometry is None else geometry
+    return (0, 0, 0, *_dw_chunks(m, 9 * c, o, geometry),
+            -(-m // geometry[0]))
+
+
 def _check3(x, w9, scale, shift):
     if x.dim() != 4 or w9.dim() != 2 or w9.shape[0] != 9 * x.shape[-1]:
         raise ValueError(f"x [N,H,W,C] and w9 [9C,O] expected, got "
@@ -525,19 +561,31 @@ def conv3x3_bn_stats_bwd(dy, y, x, scale, shift, w9, perch, dvar2, mean):
         return conv3x3_bn_stats_bwd_plain(dy, y, x, scale, shift, w9, perch,
                                           dvar2, mean)
     n, h, w, c = x.shape
+    out = _launch_bwd3(dy, y, x, scale, shift, w9, perch, dvar2, mean,
+                       _conv3x3_bwd_route(h, w, c, w9.shape[1]))
+    conv3x3_bn_stats_bwd.launches += 1
+    return out
+
+
+def _launch_bwd3(dy, y, x, scale, shift, w9, perch, dvar2, mean, route):
+    """``paddle_conv3x3_bn_stats_bwd`` on checked CUDA tensors, on
+    ``route`` ("window" or "gemm"); returns (dx, dw, dscale, dshift)."""
+    n, h, w, c = x.shape
     code, _, _, o = _codes(x.flatten(0, 2), w9[:c])
     dy, y, x, w9 = _kernel_inputs([("dy", dy), ("y", y), ("x", x),
                                    ("w9", w9)])
     perch, dvar2, mean = _f32(perch), _f32(dvar2), _f32(mean)
     scale, shift = _f32(scale), _f32(shift)
-    r, wt, g, tiles = _conv3x3_tiles(n, h, w)
-    chunks, per = _dw3_chunks(tiles, c, o)
+    r, wt, g, chunks, per, tiles = _conv3x3_bwd_plan(n, h, w, c, o, route)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw = torch.empty((9 * c, o), **f32)
     dw_part = torch.empty((chunks, 9 * c, o), **f32) if chunks > 1 else None
     dsd = torch.empty((2, c), **f32)
     dsd_part = torch.empty((2, tiles, c), **f32)
+    # the GEMM route's a [M, C], e [M, O] and flipped weights [9O, C]
+    scratch = torch.empty((n * h * w * (c + o) + 9 * o * c,), dtype=x.dtype,
+                          device=x.device) if route == "gemm" else None
     with torch.cuda.device(x.device):
         err = _library3().paddle_conv3x3_bn_stats_bwd(
             dy.data_ptr(), y.data_ptr(), x.data_ptr(), scale.data_ptr(),
@@ -545,10 +593,11 @@ def conv3x3_bn_stats_bwd(dy, y, x, scale, shift, w9, perch, dvar2, mean):
             dvar2.data_ptr(), mean.data_ptr(), dx.data_ptr(), dw.data_ptr(),
             None if dw_part is None else dw_part.data_ptr(),
             dsd[0].data_ptr(), dsd[1].data_ptr(), dsd_part[0].data_ptr(),
-            dsd_part[1].data_ptr(), code, n, h, w, c, o, r, wt, g, chunks,
-            per, _stream(x))
+            dsd_part[1].data_ptr(),
+            None if scratch is None else scratch.data_ptr(), code,
+            _ROUTES3[route], n, h, w, c, o, r, wt, g, chunks, per,
+            _stream(x))
     _build.raise_on(err, "conv3x3_bn_stats_bwd")
-    conv3x3_bn_stats_bwd.launches += 1
     return dx, dw, dsd[0], dsd[1]
 
 

@@ -1269,13 +1269,224 @@ def test_fused_ce_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(TypeError, match="one dtype"):
         fc.ce_fwd(torch.zeros((4, 8), device=dev),
                   torch.zeros((10, 8), device=dev, dtype=torch.bfloat16), y)
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        fc.ce_fwd(torch.zeros((4, 12), device=dev),
-                  torch.zeros((10, 12), device=dev), y)
-    with pytest.raises(NotImplementedError, match="up to 768"):
-        fc.ce_fwd(torch.zeros((4, 1024), device=dev),
-                  torch.zeros((10, 1024), device=dev), y)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.ce_fwd(torch.zeros((4, 8), device=dev, dtype=torch.float16),
+                  torch.zeros((10, 8), device=dev, dtype=torch.float16), y)
     with pytest.raises(ValueError, match="inputs on"):
         fc.ce_fwd(torch.zeros((4, 8), device=dev), torch.zeros((10, 8)), y)
     assert [f.launches for f in fc.KERNEL_WRAPPERS] == [0, 0]
     assert [f.calls for f in fc.PLAIN_VERSIONS] == [0, 0]
+
+
+# ------------------------------------------------ tensor-core chunk kernel
+#
+# The serving rule (1e-2 + 1e-2 |plain| in bf16 and fp16): the kernel
+# rounds P to the query's type once before P V.
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("sq", [9, 100, 128])
+@pytest.mark.parametrize("hq,hk", [(4, 2), (12, 12)])
+def test_flash_chunk_mma_matches_plain(dev, dtype, int8, sq, hq, hk):
+    """The tensor-core chunk kernel against its plain version, wide and
+    int8, at kv_len = sq, 256, 512 and a ragged limit (one row below sq:
+    its leading rows see nothing and give zeros), read through a layer
+    slice of a [2, b, 640, hk, 64] cache; two calls give the same bits,
+    and each row the bits of a batch-1 call."""
+    gen = torch.Generator(device=dev).manual_seed(sq * 3 + hq + hk + int8)
+    b, t, d = 5, 640, 64
+    if int8:
+        k, v, ks, vs = _int8_cache(gen, (b, t, hk, d), dev)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k = _randn(gen, (2, b, t, hk, d), dtype, dev)[1]
+        v = _randn(gen, (2, b, t, hk, d), dtype, dev)[1]
+        scales = {}
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    kv = torch.tensor([sq, 256, 512, sq - 3, 333], dtype=torch.int32,
+                      device=dev)
+    assert fa.chunk_route(dtype, d) == "mma"
+    fa.reset_counts()
+    out = fa.flash_attention_chunk(q, k, v, kv, **scales)
+    again = fa.flash_attention_chunk(q, k, v, kv, **scales)
+    one = fa.flash_attention_chunk(
+        q[3:4], k[3:4], v[3:4], kv[3:4],
+        **{n: sc[3:4] for n, sc in scales.items()})
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_chunk.launches_int8 if int8 else \
+        fa.flash_attention_chunk.launches
+    assert launches == 3
+    assert (fa.flash_attention_chunk_plain.calls,
+            fa.flash_attention_chunk_plain.calls_int8) == (0, 0)
+    assert torch.equal(out, again) and torch.equal(out[3:4], one)
+    assert out[3, :3].abs().max().item() == 0.0
+    _close(out, fa.flash_attention_chunk_plain(q, k, v, kv, **scales))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_flash_chunk_mma_other_head_dims(dev, dtype, d):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    b, t, sq, hq, hk = 2, 300, 70, 6, 3
+    k = _randn(gen, (b, t, hk, d), dtype, dev)
+    v = _randn(gen, (b, t, hk, d), dtype, dev)
+    q = _randn(gen, (b, sq, hq, d), dtype, dev)
+    kv = torch.tensor([sq + 11, t], dtype=torch.int32, device=dev)
+    _close(fa.flash_attention_chunk(q, k, v, kv),
+           fa.flash_attention_chunk_plain(q, k, v, kv))
+    ki, vi, ks, vs = _int8_cache(gen, (b, t, hk, d), dev)
+    _close(fa.flash_attention_chunk(q, ki, vi, kv, k_scale=ks, v_scale=vs),
+           fa.flash_attention_chunk_plain(q, ki, vi, kv, k_scale=ks,
+                                          v_scale=vs))
+
+
+def test_flash_chunk_mma_misaligned_cache(dev):
+    """A cache whose rows are not 16-byte aligned takes the element
+    loads."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    k = _misaligned(gen, (2, 90, 2, 64), torch.bfloat16, dev)
+    v = _misaligned(gen, (2, 90, 2, 64), torch.bfloat16, dev)
+    q = _randn(gen, (2, 20, 4, 64), torch.bfloat16, dev)
+    kv = torch.tensor([25, 90], dtype=torch.int32, device=dev)
+    _close(fa.flash_attention_chunk(q, k, v, kv),
+           fa.flash_attention_chunk_plain(q, k, v, kv))
+
+
+def test_flash_chunk_route_names_the_tensor_cores(dev):
+    assert fa.chunk_route(torch.bfloat16, 64) == "mma"
+    assert fa.chunk_route(torch.float16, 16) == "mma"
+    assert fa.chunk_route(torch.float32, 64) == "fma"
+    assert fa.chunk_route(torch.bfloat16, 256) == "fma"
+
+
+# ---------------------------------------- fused 3x3 backward, both routes
+
+@pytest.mark.parametrize("route", ["window", "gemm"])
+@pytest.mark.parametrize("n,h,w,c,o", [
+    (32, 56, 56, 64, 64),       # ResNet-50 layer1's 3x3 at batch 32
+    (16, 28, 28, 128, 128),     # layer2
+    (32, 14, 14, 256, 256),     # layer3
+    (64, 7, 7, 512, 512),       # layer4
+])
+def test_conv3x3_backward_routes_at_resnet50_shapes(dev, route, n, h, w, c,
+                                                    o):
+    """Each route of row 18 against the plain version by the training
+    rule, in bf16, its bits repeated; the wrapper's own route among them."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(h + c)
+    x, scale, shift, w9, dy, dmean, dvar = _conv3x3_inputs(
+        gen, n, h, w, c, o, torch.bfloat16, dev, 0.1)
+    ry, rmean, _ = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+    perch, dvar2 = fr._stats_cotangent_coeffs(dmean, dvar, n * h * w)
+    args = (dy, ry, x, scale, shift, w9, perch, dvar2, rmean)
+    grads = fr._launch_bwd3(*args, route)
+    again = fr._launch_bwd3(*args, route)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref = fr.conv3x3_bn_stats_bwd_plain(*args)
+    _close_scaled(grads[0], ref[0], _ULP[torch.bfloat16])
+    for g, r in zip(grads[1:], ref[1:]):
+        _close_scaled(g, r)
+
+
+@pytest.mark.parametrize("n,h,w,c,o", [(3, 7, 5, 128, 136),
+                                       (2, 9, 9, 136, 128)])
+def test_conv3x3_gemm_route_fp32_and_ragged(dev, n, h, w, c, o):
+    """The GEMM route in fp32 (its indexing at one fp32 ulp) at shapes off
+    its tiles: pixels off 128, channels off 32 and 128."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(n * h * w)
+    x, scale, shift, w9, dy, dmean, dvar = _conv3x3_inputs(
+        gen, n, h, w, c, o, torch.float32, dev, 0.2)
+    ry, rmean, _ = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+    perch, dvar2 = fr._stats_cotangent_coeffs(dmean, dvar, n * h * w)
+    args = (dy, ry, x, scale, shift, w9, perch, dvar2, rmean)
+    assert fr._conv3x3_bwd_route(h, w, c, o) == "gemm"
+    fr.reset_counts()
+    grads = fr.conv3x3_bn_stats_bwd(*args)
+    assert fr.conv3x3_bn_stats_bwd.launches == 1
+    ref = fr.conv3x3_bn_stats_bwd_plain(*args)
+    _close_scaled(grads[0], ref[0], _ULP[torch.float32])
+    for g, r in zip(grads[1:], ref[1:]):
+        _close_scaled(g, r)
+
+
+# ------------------------------------------- fused CE at any hidden size
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vocab_major", [True, False])
+@pytest.mark.parametrize("hd", [100, 1024, 1600])
+def test_fused_ce_any_hidden_size_matches_plain(dev, dtype, vocab_major,
+                                                hd):
+    """Hidden sizes past one 768-column slice (streamed in slices) and
+    off a multiple of 8 (zero-padded by the wrapper), by the fused-CE
+    rule; bits repeat."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, y, dce = _ce_inputs(dev, 150, hd, 1001, dtype, vocab_major,
+                              seed=hd)
+    fc.reset_counts()
+    lse, ce = fc.ce_fwd(h, w, y, vocab_major)
+    dh, dw = fc.ce_bwd(h, w, y, lse, dce, vocab_major)
+    again = fc.ce_fwd(h, w, y, vocab_major) + \
+        fc.ce_bwd(h, w, y, lse, dce, vocab_major)
+    torch.cuda.synchronize()
+    assert (fc.ce_fwd.launches, fc.ce_bwd.launches) == (2, 4)
+    assert (fc.ce_fwd_plain.calls, fc.ce_bwd_plain.calls) == (0, 0)
+    for a, b in zip((lse, ce, dh, dw), again):
+        assert torch.equal(a, b)
+    assert tuple(dh.shape) == tuple(h.shape)
+    assert tuple(dw.shape) == tuple(w.shape)
+    lse_p, ce_p = fc.ce_fwd_plain(h, w, y, vocab_major)
+    dh_p, dw_p = fc.ce_bwd_plain(h, w, y, lse_p, dce, vocab_major)
+    _ce_close(lse, lse_p, False)
+    _ce_close(ce, ce_p, False)
+    _ce_close(dh, dh_p, True)
+    _ce_close(dw, dw_p, True)
+
+
+# ----------------------------- head dims the kernels are not built for
+
+def test_sdpa_and_cached_attention_at_head_dim_80(dev):
+    """F.scaled_dot_product_attention and every window of
+    cached_attention at head_dim 80 take the JAX package's XLA routes on
+    the card: the CPU's results, no kernel launch, no plain-version
+    call, no exception."""
+    from paddle_tpu_torch.generation.attention import cached_attention
+    from paddle_tpu_torch.generation.kv_cache import KVCache
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional.attention import sdpa_xla
+    gen = torch.Generator(device=dev).manual_seed(80)
+    d = 80
+    q, k, v = (_randn(gen, (2, 24, 4, d), torch.float32, dev)
+               for _ in range(3))
+    fa.reset_counts()
+    sdpa_xla.calls = 0
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         training=False)
+    ref = F.scaled_dot_product_attention(q.cpu(), k.cpu(), v.cpu(),
+                                         is_causal=True, training=False)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+    for window in (3, 12):
+        caches = []
+        for device in (dev, torch.device("cpu")):
+            cache = KVCache.create(1, 2, 64, 4, d, device=device)
+            cache.k.copy_(_randn(gen, cache.k.shape, torch.float32, dev))
+            cache.v.copy_(_randn(gen, cache.v.shape, torch.float32, dev))
+            cache.kv_len.copy_(torch.tensor([5, 30]))
+            caches.append(cache)
+        caches[1].k.copy_(caches[0].k.cpu())
+        caches[1].v.copy_(caches[0].v.cpu())
+        qs = q[:, :window]
+        got, _ = cached_attention(qs, k[:, :window], v[:, :window],
+                                  caches[0], 0, decode=True, causal=True)
+        want, _ = cached_attention(qs.cpu(), k[:, :window].cpu(),
+                                   v[:, :window].cpu(), caches[1], 0,
+                                   decode=True, causal=True)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.cuda.synchronize()
+    assert sdpa_xla.calls == 2 and fa.decode_xla.calls == 4
+    assert (fa.flash_attention.launches, fa.flash_attention_decode.launches,
+            fa.flash_attention_chunk.launches) == (0, 0, 0)
+    assert (fa.flash_attention_plain.calls,
+            fa.flash_attention_decode_plain.calls,
+            fa.flash_attention_chunk_plain.calls) == (0, 0, 0)

@@ -15,8 +15,10 @@ import torch
 
 from paddle_tpu_torch.kernels import fused_resnet as fr
 
-_SOURCE = (Path(fr.__file__).resolve().parent.parent / "csrc"
-           / "fused_resnet.cu")
+_CSRC = Path(fr.__file__).resolve().parent.parent / "csrc"
+_SOURCE = _CSRC / "fused_resnet.cu"
+# the tile body and its constants, which fused_resnet.cu includes
+_BODY = _CSRC / "conv_gemm.cuh"
 
 # (M, K, N) of every 1x1 convolution of ResNet-50 at b128 224x224 (the
 # stride on the 3x3, so a stage's first conv1 runs at the previous
@@ -34,10 +36,12 @@ _RESNET50_1X1 = [
 
 def _source_geometry():
     """``paddle_mm_bn_stats_geometry``'s four values, read from the
-    kernel source: the constants it writes into g[0..3]."""
+    kernel source: the constants (of the tile body it includes) it writes
+    into g[0..3]."""
     src = _SOURCE.read_text()
     consts = {k: int(v) for k, v in
-              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+              re.findall(r"constexpr int (k\w+) = (\d+);",
+                         _BODY.read_text())}
     body = re.search(r"paddle_mm_bn_stats_geometry\(int\* g\) \{(.*?)\}",
                      src, re.S).group(1)
     slots = dict(re.findall(r"g\[(\d)\] = (k\w+)", body))
