@@ -1283,15 +1283,18 @@ _NORM_SHAPES = ((16384, 768), (4096, 4096))
 _NORM_EPS = {False: 1e-5, True: 1e-6}     # the public functions' defaults
 
 
+def _norm_bytes(rows, d, dx):
+    """Bytes one bf16 norm call must move: x (and dy) read once, the
+    output written once, the bf16 w (and b) read once."""
+    return (6 if dx else 4) * rows * d + (2 if dx else 4) * d
+
+
 def _norm_bound(rows, d, dx):
-    """Least time for one bf16 norm call: x (and dy) read once, the
-    output written once, the fp32 w (and b) read once, against the
-    elementwise work (8 operations an element forward, 14 for dx) at
-    the fp32 rate."""
-    n = rows * d
-    n_bytes = (6 if dx else 4) * n + (4 if dx else 8) * d
-    t_bytes = n_bytes / PEAK_BYTES
-    t_ops = (14 if dx else 8) * n / PEAK_FLOPS_F32
+    """Least time for one bf16 norm call: its bytes (``_norm_bytes``)
+    against the elementwise work (8 operations an element forward, 14
+    for dx) at the fp32 rate."""
+    t_bytes = _norm_bytes(rows, d, dx) / PEAK_BYTES
+    t_ops = (14 if dx else 8) * rows * d / PEAK_FLOPS_F32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1378,7 +1381,9 @@ def phase_norm_adamw_kernels(torch, timer):
                     library_ms=lib_ms, bound_ms=bms, bound_by=bby))
                 say("kernel_time", kernel=name, norm=kind, shape=[rows_, d],
                     kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bms, bound_by=bby)
+                    bound_ms=bms, bound_by=bby,
+                    tb_per_s=_norm_bytes(rows_, d, dx) / ms / 1e9,
+                    share_of_bound=bms / ms)
             del graphs
         del sets
         torch.cuda.empty_cache()

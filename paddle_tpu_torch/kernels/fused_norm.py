@@ -31,10 +31,10 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_SIG = {"paddle_norm_fwd": (_I, (_P, _P, _P, _P, _L, _I, _L, _F, _I, _I,
-                                 _P)),
+_SIG = {"paddle_norm_fwd": (_I, (_P, _P, _P, _P, _L, _I, _L, _F, _I, _I, _I,
+                                 _I, _P)),
         "paddle_norm_dx": (_I, (_P, _P, _P, _P, _L, _I, _L, _L, _F, _I, _I,
-                                _P))}
+                                _I, _P))}
 
 
 def _wide(t):
@@ -126,6 +126,16 @@ def _code(x2):
     return _DTYPE_CODES[x2.dtype]
 
 
+def _param(t):
+    """A weight or bias [D] as the kernels read it, and its dtype code:
+    fp32, bf16 and fp16 as they are (the kernels widen them to fp32,
+    which is exact), any other float dtype (float64) cast to fp32 here;
+    a copy only when that cast or a stride other than 1 needs one."""
+    if t.dtype not in _DTYPE_CODES:
+        t = t.float()
+    return t.contiguous(), _DTYPE_CODES[t.dtype]
+
+
 def _library():
     return _build.library("fused_norm", _SIG)
 
@@ -137,21 +147,22 @@ def _stream(t):
 def norm_fwd(x2, w, b, eps, rms):
     """y [rows, D] of the row-wise LayerNorm (``rms`` False) or RMSNorm of
     x2 [rows, D] with w and b [D]: the kernel for CUDA tensors
-    (``paddle_norm_fwd``), the plain version for CPU tensors."""
+    (``paddle_norm_fwd``, one launch: w and b in their own dtype, see
+    ``_param``), the plain version for CPU tensors."""
     _check(x2, w, b)
     if x2.device.type == "cpu":
         return norm_fwd_plain(x2, w, b, eps, rms)
     code = _code(x2)
     x2, ldx = _rows(x2)
-    wf, bf = w.float().contiguous(), b.float().contiguous()
+    (w, wcode), (b, bcode) = _param(w), _param(b)
     y = torch.empty(x2.shape, dtype=x2.dtype, device=x2.device)
     if y.numel() == 0:
         return y
     with torch.cuda.device(x2.device):
         err = _library().paddle_norm_fwd(
-            x2.data_ptr(), wf.data_ptr(), bf.data_ptr(), y.data_ptr(),
+            x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             x2.shape[0], x2.shape[1], ldx, float(eps), int(rms), code,
-            _stream(x2))
+            wcode, bcode, _stream(x2))
     _build.raise_on(err, "norm_fwd")
     norm_fwd.launches += 1
     return y
@@ -167,15 +178,15 @@ def norm_dx(x2, w, dy2, eps, rms):
     code = _code(x2)
     x2, ldx = _rows(x2)
     dy2, lddy = _rows(dy2)
-    wf = w.float().contiguous()
+    w, wcode = _param(w)
     dx = torch.empty(x2.shape, dtype=x2.dtype, device=x2.device)
     if dx.numel() == 0:
         return dx
     with torch.cuda.device(x2.device):
         err = _library().paddle_norm_dx(
-            x2.data_ptr(), wf.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+            x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
             x2.shape[0], x2.shape[1], ldx, lddy, float(eps), int(rms), code,
-            _stream(x2))
+            wcode, _stream(x2))
     _build.raise_on(err, "norm_dx")
     norm_dx.launches += 1
     return dx

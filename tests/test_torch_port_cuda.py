@@ -1061,8 +1061,9 @@ def _norm_pair(dev, rows, d, dtype, rms, layout="contiguous", seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rms", [False, True])
 @pytest.mark.parametrize("d", [64, 768, 1000, 4096])
-@pytest.mark.parametrize("rows", [1, 7, 16384])
+@pytest.mark.parametrize("rows", [1, 7, 4099, 16384])
 def test_fused_norm_kernels_match_plain(dev, dtype, rms, d, rows):
+    """4099 rows (a prime) are a multiple of no persistent grid."""
     _norm_pair(dev, rows, d, dtype, rms)
 
 
@@ -1070,13 +1071,93 @@ def test_fused_norm_kernels_match_plain(dev, dtype, rms, d, rows):
                                    torch.float16])
 @pytest.mark.parametrize("layout", ["misaligned", "strided", "transposed"])
 @pytest.mark.parametrize("rows,d", [(7, 77), (33, 768), (5, 1000),
-                                    (9, 4096), (3, 13000)])
+                                    (9, 4096), (4, 8192), (3, 13000),
+                                    (2, 20000)])
 def test_fused_norm_kernels_misaligned_and_strided(dev, dtype, layout, rows,
                                                    d):
-    """Every kernel variant: odd D (no vector), a row per warp and per
-    block, staged rows and rows too wide to stage (13000: re-read)."""
+    """Every kernel variant: odd D (one element at a time), a row per
+    warp and per block (8192 bf16: the widest block), rows too wide for
+    a block's registers (13000, 20000: re-read)."""
     for rms in (False, True):
         _norm_pair(dev, rows, d, dtype, rms, layout, seed=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16,
+                                     torch.float16])
+@pytest.mark.parametrize("d", [77, 768, 4096, 20000])
+def test_fused_norm_params_in_their_own_dtype(dev, dtype, p_dtype, d):
+    """w and b in any of the three dtypes give the bits of the same call
+    with ``w.float()`` and ``b.float()``: the kernels widen them exactly."""
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = _randn(gen, (33, d), dtype, dev) * 2 + 0.5
+    dy = _randn(gen, (33, d), dtype, dev)
+    w = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1.0).to(p_dtype)
+    b = (torch.randn(d, generator=gen, device=dev) * 0.1).to(p_dtype)
+    for rms in (False, True):
+        fn.reset_counts()
+        y = fn.norm_fwd(x, w, b, 1e-5, rms)
+        dx = fn.norm_dx(x, w, dy, 1e-5, rms)
+        assert [f.launches for f in fn.KERNEL_WRAPPERS] == [1, 1]
+        assert torch.equal(y, fn.norm_fwd(x, w.float(), b.float(), 1e-5, rms))
+        assert torch.equal(dx, fn.norm_dx(x, w.float(), dy, 1e-5, rms))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [77, 768, 4096, 13000])
+def test_fused_norm_rows_do_not_depend_on_the_call(dev, dtype, d):
+    """A row's bits depend on D and the dtypes only: the same rows in a
+    call of 16384 rows, of 7, of 1, and one element off a 16-byte
+    boundary (the one-element loads) are equal bit for bit."""
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    gen = torch.Generator(device=dev).manual_seed(d + 5)
+    x = _randn(gen, (16384, d), dtype, dev) * 2 + 0.5
+    dy = _randn(gen, (16384, d), dtype, dev)
+    w = torch.randn(d, generator=gen, device=dev) * 0.1 + 1.0
+    b = torch.randn(d, generator=gen, device=dev) * 0.1
+
+    def off(t):     # t's values, one element off a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    for rms in (False, True):
+        y = fn.norm_fwd(x, w, b, 1e-5, rms)
+        dx = fn.norm_dx(x, w, dy, 1e-5, rms)
+        for n in (7, 1):
+            assert torch.equal(fn.norm_fwd(x[:n], w, b, 1e-5, rms), y[:n])
+            assert torch.equal(fn.norm_dx(x[:n], w, dy[:n], 1e-5, rms),
+                               dx[:n])
+        assert torch.equal(fn.norm_fwd(off(x[:7]), w, b, 1e-5, rms), y[:7])
+        assert torch.equal(fn.norm_dx(off(x[:7]), w, off(dy[:7]), 1e-5, rms),
+                           dx[:7])
+
+
+@pytest.mark.parametrize("d", [768, 4096])
+def test_fused_norm_one_launch_per_call_in_bf16(dev, d):
+    """With x, w and b in bf16, each wrapper call runs one kernel on the
+    card and nothing else (no cast of w or b)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x, dy = (_randn(gen, (256, d), torch.bfloat16, dev) for _ in range(2))
+    w, b = (_randn(gen, (d,), torch.bfloat16, dev) for _ in range(2))
+    calls = {"norm_fwd_rows": lambda rms: fn.norm_fwd(x, w, b, 1e-5, rms),
+             "norm_dx_rows": lambda rms: fn.norm_dx(x, w, dy, 1e-5, rms)}
+    for name, call in calls.items():
+        for rms in (False, True):
+            call(rms)                      # built and loaded
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call(rms)
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            assert len(kernels) == 1 and name in kernels[0], kernels
 
 
 def test_fused_norm_autograd_on_card(dev):

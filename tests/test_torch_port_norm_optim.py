@@ -176,6 +176,43 @@ def test_norm_kernel_inputs_are_checked():
                     False)
 
 
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1),
+                                        (torch.float16, 2)])
+def test_norm_kernel_params_keep_their_dtype(dtype, code):
+    """The kernels take w and b in fp32, bf16 or fp16 as they are: no
+    copy, so no cast launched beside the kernel; float64 is cast to fp32
+    and a strided view made contiguous."""
+    w = torch.randn(8).to(dtype)
+    got, got_code = tfn._param(w)
+    assert got.data_ptr() == w.data_ptr() and got_code == code
+    view = torch.randn(16).to(dtype)[::2]
+    got, got_code = tfn._param(view)
+    assert got.is_contiguous() and got_code == code
+    assert torch.equal(got, view)
+    got, got_code = tfn._param(w.double())
+    assert got.dtype == torch.float32 and got_code == 0
+    assert torch.equal(got, w.double().float())
+
+
+def test_norm_kernel_signatures_match_the_source():
+    """``_SIG``'s ctypes types are the C entry points' parameters, read
+    from ``csrc/fused_norm.cu``, one for one."""
+    import ctypes
+    import re
+    from pathlib import Path
+    src = (Path(tfn.__file__).parents[1] / "csrc" /
+           "fused_norm.cu").read_text()
+    kinds = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+    for name, (restype, argtypes) in tfn._SIG.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m is not None and restype is ctypes.c_int, name
+        params = [re.sub(r"\s*\w+$", "", p.strip()).replace("const ", "")
+                  .replace(" *", "*") for p in m.group(1).split(",")]
+        assert [kinds[p] for p in params] == list(argtypes), (name, params)
+
+
 # ------------------------------------------------------------ fused AdamW
 
 _ADAMW = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.01)
