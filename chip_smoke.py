@@ -188,6 +188,36 @@ def bound_ms(n_bytes, flops):
                                        else "operations")
 
 
+def decode_bytes(kv_lens, h, d, int8, page=None):
+    """Bytes a decode call must move (TPU kernel table rows 5 and 7):
+    each row's valid K/V prefix (int8: and its bf16 scales), one bf16 q
+    and o row per head, kv_len, and with ``page`` the table entries of
+    the pages read."""
+    n_kv, b = sum(kv_lens), len(kv_lens)
+    kv_bytes = 2 * n_kv * h * d + 2 * n_kv * h * 2 if int8 \
+        else 2 * n_kv * h * d * 2
+    pages = 0 if page is None else sum(-(-k // page) for k in kv_lens)
+    return kv_bytes + 2 * b * h * d * 2 + b * 4 + pages * 4
+
+
+def decode_timing(timer, call, sets, kv_lens, h, d, int8, page=None,
+                  lib_call=None, lib_sets=None):
+    """A decode kernel's device ms on ``sets``, one PyTorch call's on
+    ``lib_sets`` (None without one), the bytes bound and the kernel's
+    share of it."""
+    ms = timer.ms(call, sets)
+    bms, by = bound_ms(decode_bytes(kv_lens, h, d, int8, page),
+                       4 * sum(kv_lens) * h * d)
+    return dict(ms=ms, library_ms=None if lib_call is None else
+                timer.ms(lib_call, lib_sets), bound_ms=bms, bound_by=by,
+                share_of_bound=bms / ms)
+
+
+# batch 1 (``generate``'s decode step): one row at kv_len 512 in a
+# 640-row cache
+B1_KV_LEN, B1_T = 512, 640
+
+
 # ------------------------------------------------------------- phases
 
 def phase_device(torch):
@@ -340,30 +370,56 @@ def phase_kernels(torch, timer):
         tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad)
     if n_bad:
         fail("flash_decode disagrees with its plain version")
-    ms = timer.ms(fa.flash_attention_decode, dsets)
     plain_ms = timer.ms(fa.flash_attention_decode_plain, dsets)
-    cols = torch.arange(T, device=dev)
-    mask = (cols[None, :] < kv[:, None].long())[:, None, None, :]
-    lib_sets = [(st[0].transpose(1, 2), st[1].transpose(1, 2),
-                 st[2].transpose(1, 2)) for st in dsets]
-    lib_ms = timer.ms(lambda q, k, v: TF.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask), lib_sets)
-    n_kv = int(kv.sum())
-    n_bytes = 2 * n_kv * h * d * 2 + 2 * B * h * d * 2 + B * 4
-    bms, by = bound_ms(n_bytes, 4 * n_kv * h * d)
+
+    def sdpa(lens, t):
+        cols = torch.arange(t, device=dev)
+        mask = (cols[None, :] < torch.tensor(lens, device=dev)[:, None])
+        return lambda q, k, v: TF.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None, None, :])
+
+    def lib_sets(sets):
+        return [tuple(t.transpose(1, 2) for t in st[:3]) for st in sets]
+
+    lens = kv.tolist()
+    t8 = decode_timing(timer, fa.flash_attention_decode, dsets, lens, h, d,
+                       False, lib_call=sdpa(lens, T),
+                       lib_sets=lib_sets(dsets))
+    # batch 1: generate's decode step
+    kv1 = torch.tensor([B1_KV_LEN], dtype=torch.int32, device=dev)
+    b1_sets = []
+    for _ in range(8):
+        ck, cv = randn(2, 1, B1_T, h, d), randn(2, 1, B1_T, h, d)
+        b1_sets.append((randn(1, 1, h, d), ck[1], cv[1], kv1))
+    err1, n_bad = _err(fa.flash_attention_decode(*b1_sets[0]),
+                       fa.flash_attention_decode_plain(*b1_sets[0]))
+    say("kernel_check", kernel="flash_decode", shape=[1, B1_T, h, d], sq=1,
+        kv_len=[B1_KV_LEN], max_abs_err=err1,
+        tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad)
+    if n_bad:
+        fail("flash_decode disagrees with its plain version at batch 1")
+    t1 = decode_timing(timer, fa.flash_attention_decode, b1_sets,
+                       [B1_KV_LEN], h, d, False,
+                       lib_call=sdpa([B1_KV_LEN], B1_T),
+                       lib_sets=lib_sets(b1_sets))
     rows["flash_decode"] = dict(
         name="flash_decode", route="cuda",
         source="paddle_tpu_torch/csrc/flash_decode.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:942",
         shape="q [8,1,12,64], cache [8,640,12,64] bf16, ragged kv_len",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+        max_abs_err=max(err, err1), ms=t8["ms"], plain_ms=plain_ms,
+        bound_ms=t8["bound_ms"], bound_by=t8["bound_by"],
+        library_ms=t8["library_ms"], share_of_bound=t8["share_of_bound"],
+        batch_1=dict(shape="q [1,1,12,64], cache [1,640,12,64], kv_len 512",
+                     **t1))
     for r in rows.values():
         say("kernel_time", kernel=r["name"], kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            **({"route": r["flash_route"]} if "flash_route" in r else {}))
-    return rows, dsets
+            **({"route": r["flash_route"]} if "flash_route" in r else {}),
+            **({"share_of_bound": r["share_of_bound"],
+                "batch_1": r["batch_1"]} if "batch_1" in r else {}))
+    return rows, (dsets, b1_sets)
 
 
 def _pool_of(torch, gen, cache, page, perm):
@@ -384,18 +440,20 @@ def _pool_of(torch, gen, cache, page, perm):
     return pool[1], table
 
 
-def phase_paged_chunk_kernels(torch, timer, dsets, dense_row):
+def phase_paged_chunk_kernels(torch, timer, decode_sets, dense_row):
     """The paged decode kernel on the dense decode check's content laid
     out in a 41-page pool of 128 (and 48) with a shuffled table: within
     the kernel tolerance of its plain version and BITWISE equal to
-    flash_decode on the same logical rows. The chunk kernel at the
-    chunked prefill's shapes, in bf16 and fp32. Both timed."""
+    flash_decode on the same logical rows; timed there and on the batch-1
+    content. The chunk kernel at the chunked prefill's shapes, in bf16
+    and fp32. Both timed."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.kernels import flash_attention as fa
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows = {}
     h, d = 12, 64
+    dsets, b1_sets = decode_sets
     q, kc, vc, kv = dsets[0]
     B, T = kc.shape[:2]
     cpu_gen = torch.Generator().manual_seed(SEED + 3)
@@ -422,30 +480,43 @@ def phase_paged_chunk_kernels(torch, timer, dsets, dense_row):
                  f"{page}")
         if page == 128:
             paged_err = err
-    psets = []
-    for st in dsets:
-        perm = torch.randperm(B * -(-T // 128), generator=cpu_gen).to(dev)
-        kp, table = _pool_of(torch, gen, st[1], 128, perm)
-        vp, _ = _pool_of(torch, gen, st[2], 128, perm)
-        psets.append((st[0], kp, vp, table, st[3]))
-    ms = timer.ms(fa.flash_attention_decode_paged, psets)
+    def pooled(sets):
+        out = []
+        for st in sets:
+            b = st[1].shape[0]
+            perm = torch.randperm(b * -(-T // 128),
+                                  generator=cpu_gen).to(dev)
+            kp, table = _pool_of(torch, gen, st[1], 128, perm)
+            vp, _ = _pool_of(torch, gen, st[2], 128, perm)
+            out.append((st[0], kp, vp, table, st[3]))
+        return out
+
+    psets = pooled(dsets)
+    t8 = decode_timing(timer, fa.flash_attention_decode_paged, psets,
+                       kv.tolist(), h, d, False, page=128)
     plain_ms = timer.ms(fa.flash_attention_decode_paged_plain, psets)
-    n_kv = int(kv.sum())
-    pages_read = int(((kv + 127) // 128).sum())
-    n_bytes = 2 * n_kv * h * d * 2 + 2 * B * h * d * 2 + B * 4 \
-        + pages_read * 4
-    bms, by = bound_ms(n_bytes, 4 * n_kv * h * d)
+    p1 = pooled(b1_sets)
+    if not torch.equal(fa.flash_attention_decode_paged(*p1[0]),
+                       fa.flash_attention_decode(*b1_sets[0])):
+        fail("flash_decode_paged differs from flash_decode at batch 1")
+    t1 = decode_timing(timer, fa.flash_attention_decode_paged, p1,
+                       [B1_KV_LEN], h, d, False, page=128)
     rows["flash_decode_paged"] = dict(
         name="flash_decode_paged", route="cuda",
         source="paddle_tpu_torch/csrc/flash_decode_paged.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:1323",
         shape="q [8,1,12,64] bf16, 41-page pool [41,128,12,64] through a "
               "shuffled [8,5] table, ragged kv_len",
-        max_abs_err=paged_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None,
+        max_abs_err=paged_err, ms=t8["ms"], plain_ms=plain_ms,
+        bound_ms=t8["bound_ms"], bound_by=t8["bound_by"], library_ms=None,
         library_note="none: no PyTorch call takes a page table",
+        share_of_bound=t8["share_of_bound"],
         yardstick_sdpa_dense_ms=dense_row["library_ms"],
-        flash_decode_ms=dense_row["ms"])
+        flash_decode_ms=dense_row["ms"],
+        batch_1=dict(shape="q [1,1,12,64], pool [6,128,12,64] through a "
+                           "[1,5] table, kv_len 512",
+                     yardstick_sdpa_dense_ms=dense_row["batch_1"][
+                         "library_ms"], **t1))
 
     # -- chunk: a 128-token chunk of a long prompt against the batch-1
     # side cache, at the 2nd and 4th chunks of a 500-token prompt; one
@@ -528,10 +599,13 @@ def phase_paged_chunk_kernels(torch, timer, dsets, dense_row):
         **{f"at_kv_len_{kv}": {k: (v if k != "bound" else v[0])
                                for k, v in times[kv].items()}
            for kv in (128, 256)})
-    say("kernel_time", kernel="flash_decode_paged", kernel_ms=ms,
-        plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+    r = rows["flash_decode_paged"]
+    say("kernel_time", kernel="flash_decode_paged", kernel_ms=r["ms"],
+        plain_ms=r["plain_ms"], library_ms=None, bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], share_of_bound=r["share_of_bound"],
         flash_decode_ms=dense_row["ms"],
-        yardstick_sdpa_dense_ms=dense_row["library_ms"])
+        yardstick_sdpa_dense_ms=dense_row["library_ms"],
+        batch_1=r["batch_1"])
     return rows
 
 
@@ -590,35 +664,58 @@ def phase_int8_kernels(torch, timer):
         tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad)
     if n_bad:
         fail("flash_decode_int8 disagrees with its plain version")
-    ms = timer.ms(decode, dsets)
     plain_ms = timer.ms(decode_plain, dsets)
-    cols = torch.arange(T, device=dev)
-    mask = (cols[None, :] < kv[:, None].long())[:, None, None, :]
-    lib_sets = [(st[0].transpose(1, 2), dequant(st[1], st[3]),
-                 dequant(st[2], st[4])) for st in dsets]
-    lib_ms = timer.ms(lambda q, k, v: TF.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask), lib_sets)
+
+    def sdpa(lens, sets):
+        """SDPA with a length mask over the dequantized caches of
+        ``sets``, and those inputs."""
+        cols = torch.arange(T, device=dev)
+        mask = cols[None, :] < torch.tensor(lens, device=dev)[:, None]
+        return (lambda q, k, v: TF.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask[:, None, None, :]),
+                [(st[0].transpose(1, 2), dequant(st[1], st[3]),
+                  dequant(st[2], st[4])) for st in sets])
+
+    lens = kv.tolist()
+    lib_call, lib_sets = sdpa(lens, dsets)
+    t8 = decode_timing(timer, decode, dsets, lens, h, d, True,
+                       lib_call=lib_call, lib_sets=lib_sets)
     del lib_sets
-    n_kv = int(kv.sum())
-    # int8 K/V and their bf16 scales over the valid prefix, q and o in
-    # bf16, kv_len
-    n_bytes = 2 * n_kv * h * d + 2 * n_kv * h * 2 + 2 * B * h * d * 2 + B * 4
-    bms, by = bound_ms(n_bytes, 4 * n_kv * h * d)
+    # batch 1: generate's decode step
+    kv1 = torch.tensor([B1_KV_LEN], dtype=torch.int32, device=dev)
+    b1_sets = [(torch.randn((1, 1, h, d), generator=gen,
+                            device=dev).to(bf16),
+                *int8_cache(1, B1_T, h), kv1) for _ in range(8)]
+    err1, n_bad = _err(decode(*b1_sets[0]), decode_plain(*b1_sets[0]))
+    say("kernel_check", kernel="flash_decode_int8", shape=[1, B1_T, h, d],
+        sq=1, kv_len=[B1_KV_LEN], max_abs_err=err1,
+        tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=n_bad)
+    if n_bad:
+        fail("flash_decode_int8 disagrees with its plain version at batch 1")
+    lib_call, lib_sets = sdpa([B1_KV_LEN], b1_sets)
+    t1 = decode_timing(timer, decode, b1_sets, [B1_KV_LEN], h, d, True,
+                       lib_call=lib_call, lib_sets=lib_sets)
+    del lib_sets
     rows["flash_decode_int8"] = dict(
         name="flash_decode_int8", route="cuda",
         source="paddle_tpu_torch/csrc/flash_decode.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:942",
         shape="q [8,1,12,64] bf16, int8 cache [8,640,12,64] with bf16 "
               "scales [8,640,12], ragged kv_len",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms,
+        max_abs_err=max(err, err1), ms=t8["ms"], plain_ms=plain_ms,
+        bound_ms=t8["bound_ms"], bound_by=t8["bound_by"],
+        library_ms=t8["library_ms"],
         library_note="scaled_dot_product_attention with a length mask over "
-                     "the dequantized bf16 cache (dequantization not timed)")
+                     "the dequantized bf16 cache (dequantization not timed)",
+        share_of_bound=t8["share_of_bound"],
+        batch_1=dict(shape="q [1,1,12,64] bf16, int8 cache [1,640,12,64], "
+                           "kv_len 512", **t1))
 
     # -- paged: the decode check's content in a 41-page pool of 128 (and
     # 48), scale pages through the same shuffled table
     def paged_of(st, page):
-        perm = torch.randperm(B * -(-T // page), generator=cpu_gen).to(dev)
+        b = st[1].shape[0]
+        perm = torch.randperm(b * -(-T // page), generator=cpu_gen).to(dev)
         (kp, table), (vp, _), (ksp, _), (vsp, _) = (
             _pool_of(torch, gen, c, page, perm) for c in st[1:5])
         return st[0], kp, vp, ksp, vsp, table, st[5]
@@ -652,11 +749,15 @@ def phase_int8_kernels(torch, timer):
         if page == 128:
             paged_err = err
     psets = [paged_of(st, 128) for st in dsets]
-    pms = timer.ms(paged, psets)
+    p8 = decode_timing(timer, paged, psets, lens, h, d, True, page=128)
     pplain_ms = timer.ms(paged_plain, psets)
     del psets
-    pages_read = int(((kv + 127) // 128).sum())
-    pbms, pby = bound_ms(n_bytes + pages_read * 4, 4 * n_kv * h * d)
+    p1_sets = [paged_of(st, 128) for st in b1_sets]
+    if not torch.equal(paged(*p1_sets[0]), decode(*b1_sets[0])):
+        fail("flash_decode_paged_int8 differs from flash_decode_int8 at "
+             "batch 1")
+    p1 = decode_timing(timer, paged, p1_sets, [B1_KV_LEN], h, d, True,
+                       page=128)
     rows["flash_decode_paged_int8"] = dict(
         name="flash_decode_paged_int8", route="cuda",
         source="paddle_tpu_torch/csrc/flash_decode_paged.cu",
@@ -664,12 +765,17 @@ def phase_int8_kernels(torch, timer):
         shape="q [8,1,12,64] bf16, int8 pool [41,128,12,64] with bf16 "
               "scales [41,128,12] through a shuffled [8,5] table, ragged "
               "kv_len",
-        max_abs_err=paged_err, ms=pms, plain_ms=pplain_ms, bound_ms=pbms,
-        bound_by=pby, library_ms=None,
+        max_abs_err=paged_err, ms=p8["ms"], plain_ms=pplain_ms,
+        bound_ms=p8["bound_ms"], bound_by=p8["bound_by"], library_ms=None,
         library_note="none: no PyTorch call takes a page table",
-        yardstick_sdpa_dense_dequantized_ms=lib_ms,
-        flash_decode_int8_ms=ms)
-    del dsets
+        share_of_bound=p8["share_of_bound"],
+        yardstick_sdpa_dense_dequantized_ms=t8["library_ms"],
+        flash_decode_int8_ms=t8["ms"],
+        batch_1=dict(shape="q [1,1,12,64] bf16, int8 pool [6,128,12,64] "
+                           "through a [1,5] table, kv_len 512",
+                     yardstick_sdpa_dense_dequantized_ms=t1["library_ms"],
+                     **p1))
+    del dsets, b1_sets, p1_sets
 
     # -- chunk: a 128-token chunk against the batch-1 int8 side cache at
     # the 2nd and 4th chunks of a 500-token prompt; one GQA window
@@ -754,7 +860,8 @@ def phase_int8_kernels(torch, timer):
         r = rows[name]
         say("kernel_time", kernel=name, kernel_ms=r["ms"],
             plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            share_of_bound=r["share_of_bound"], batch_1=r["batch_1"])
     return rows
 
 

@@ -1,6 +1,7 @@
-// The decode-shaped attention kernel, shared by the dense decode, chunk
-// prefill and paged decode entries (flash_decode.cu,
-// flash_decode_paged.cu), hand-written for Hopper (sm_90a).
+// The decode-shaped caches and the fp32 attention kernel of the chunk
+// entries' "fma" route (float32, and head_dim 256; flash_decode.cu),
+// hand-written for Hopper (sm_90a). The decode and paged decode entries
+// run flash_decode_split.cuh's split-key body on the same cache structs.
 //
 // Computes, for each batch row b, the attention of Sq new query rows
 // q [B, Sq, Hq, D] against one layer's K/V with a per-row valid length
@@ -14,9 +15,9 @@
 // of 64 (more than 64 take further blocks along blockIdx.y). A block
 // streams keys only up to the limit of its last query position,
 // min(kv_len, kv_len - Sq + last + 1), as the TPU chunk kernel skips
-// key blocks past its tile's window; for Sq <= 8 that is kv_len.
+// key blocks past its tile's window.
 //
-// The K/V addressing is the one thing the entries change:
+// The K/V addressing (the split body reads both):
 // - DenseCache: a [B, T, Hk, D] cache (a layer slice of the engine's
 //   [layers, B, T, Hk, D] cache), row c of (b, hk) at
 //   base + b * s_b + c * s_s + hk * s_h;
@@ -24,19 +25,14 @@
 //   [layers, n_pages, page, Hk, D]) with page_table [B, n_slots] int32;
 //   logical column c of (b, hk) at
 //   pool + table[b][c / page] * s_page + (c % page) * s_row + hk * s_h.
-//   The block stages the table entries it needs in shared memory once.
 //   The pool is read in place: no transpose and no gather.
-// Both feed the same attend() in the same 64-column logical tile order,
-// so a paged cache and a dense cache with the same logical content give
-// the same bits, at any page size (a tile may span pages).
 //
 // Int8 mode (cache element type KT = int8_t, q and o still T): K/V are
 // int8 with one bf16 scale per (position, kv head), read in place from
 // the caches' scale arrays through the same addressing: a dense [B, T,
 // Hk] layer slice by its strides, a paged [n_pages, page, Hk] layer slice
-// through the table entries the block has staged. attend() stages each
-// tile's scales in shared memory and fuses the dequantisation, so the
-// int8 paged and dense kernels also agree bit for bit.
+// through the table. attend() stages each tile's scales in shared memory
+// and fuses the dequantisation.
 #pragma once
 
 #include "flash_common.cuh"
@@ -73,15 +69,6 @@ struct PagedCache {
 template <typename Cache>
 constexpr bool kPaged = std::is_same<Cache, PagedCache>::value;
 
-// Shared memory past the attend() layout: the paged kernel's table row.
-template <typename Cache>
-size_t extra_smem(const Cache& c) {
-  if constexpr (kPaged<Cache>)
-    return (size_t)c.n_slots * sizeof(int);
-  else
-    return 0;
-}
-
 template <typename KT>
 constexpr bool kQuant = std::is_same<KT, int8_t>::value;
 
@@ -103,12 +90,7 @@ __global__ void __launch_bounds__(kThreads)
   const int j0 = blockIdx.y * BQ;
   const int cg = threadIdx.x % L::NCG;
   const int r0 = (threadIdx.x / L::NCG) * L::TR;
-  int t_len;
-  if constexpr (kPaged<Cache>)
-    t_len = cache.n_slots * cache.page;
-  else
-    t_len = cache.t_len;
-  const int klen = min(max(kv_len[b], 0), t_len);
+  const int klen = min(max(kv_len[b], 0), cache.t_len);
   // the block's last row; a block that spans two query heads reaches
   // the window's last position
   const int j1 = min(j0 + BQ, n_rows) - 1;
@@ -134,66 +116,25 @@ __global__ void __launch_bounds__(kThreads)
     st.lim[i] = klen - Sq + (j % Sq);
   }
 
-  if constexpr (kPaged<Cache>) {
-    // the table entries of the pages this block reads (n_keys <= t_len,
-    // so at most n_slots), staged once
-    int* tbl = reinterpret_cast<int*>(
-        smem + L::kFloats + (kQuant<KT> ? kScaleFloats : 0));
-    const int page = cache.page;
-    const int* trow = cache.table + b * cache.tbl_sb;
-    for (int i = threadIdx.x; i < (n_keys + page - 1) / page; i += kThreads)
-      tbl[i] = trow[i];
-    __syncthreads();
-    const KT* kb = static_cast<const KT*>(cache.k) + hk * cache.k_sh;
-    const KT* vb = static_cast<const KT*>(cache.v) + hk * cache.v_sh;
-    const int64_t k_sp = cache.k_sp, k_sr = cache.k_sr;
-    const int64_t v_sp = cache.v_sp, v_sr = cache.v_sr;
-    const bool vec = rows_aligned(kb, k_sp) && rows_aligned(kb, k_sr) &&
-                     rows_aligned(vb, v_sp) && rows_aligned(vb, v_sr);
-    auto krow = [=](int c) -> const KT* {
-      return kb + tbl[c / page] * k_sp + (c % page) * k_sr;
-    };
-    auto vrow = [=](int c) -> const KT* {
-      return vb + tbl[c / page] * v_sp + (c % page) * v_sr;
-    };
-    if constexpr (kQuant<KT>) {
-      const bf16* ksb = static_cast<const bf16*>(cache.ks) + hk * cache.ks_sh;
-      const bf16* vsb = static_cast<const bf16*>(cache.vs) + hk * cache.vs_sh;
-      const int64_t ks_sp = cache.ks_sp, ks_sr = cache.ks_sr;
-      const int64_t vs_sp = cache.vs_sp, vs_sr = cache.vs_sr;
-      attend<KT, BQ, D>(
-          smem, krow, vrow, vec, n_keys, st,
-          column_scales(
-              [=](int c) -> const bf16* {
-                return ksb + tbl[c / page] * ks_sp + (c % page) * ks_sr;
-              },
-              [=](int c) -> const bf16* {
-                return vsb + tbl[c / page] * vs_sp + (c % page) * vs_sr;
-              }));
-    } else {
-      attend<KT, BQ, D>(smem, krow, vrow, vec, n_keys, st);
-    }
+  __syncthreads();
+  const KT* kb = static_cast<const KT*>(cache.k) + b * cache.k_sb +
+                 hk * cache.k_sh;
+  const KT* vb = static_cast<const KT*>(cache.v) + b * cache.v_sb +
+                 hk * cache.v_sh;
+  const bool vec =
+      rows_aligned(kb, cache.k_ss) && rows_aligned(vb, cache.v_ss);
+  if constexpr (kQuant<KT>) {
+    const bf16* ksb = static_cast<const bf16*>(cache.ks) +
+                      b * cache.ks_sb + hk * cache.ks_sh;
+    const bf16* vsb = static_cast<const bf16*>(cache.vs) +
+                      b * cache.vs_sb + hk * cache.vs_sh;
+    attend<KT, BQ, D>(smem, Strided<KT>{kb, cache.k_ss},
+                      Strided<KT>{vb, cache.v_ss}, vec, n_keys, st,
+                      column_scales(Strided<bf16>{ksb, cache.ks_ss},
+                                    Strided<bf16>{vsb, cache.vs_ss}));
   } else {
-    __syncthreads();
-    const KT* kb = static_cast<const KT*>(cache.k) + b * cache.k_sb +
-                   hk * cache.k_sh;
-    const KT* vb = static_cast<const KT*>(cache.v) + b * cache.v_sb +
-                   hk * cache.v_sh;
-    const bool vec =
-        rows_aligned(kb, cache.k_ss) && rows_aligned(vb, cache.v_ss);
-    if constexpr (kQuant<KT>) {
-      const bf16* ksb = static_cast<const bf16*>(cache.ks) +
-                        b * cache.ks_sb + hk * cache.ks_sh;
-      const bf16* vsb = static_cast<const bf16*>(cache.vs) +
-                        b * cache.vs_sb + hk * cache.vs_sh;
-      attend<KT, BQ, D>(smem, Strided<KT>{kb, cache.k_ss},
-                        Strided<KT>{vb, cache.v_ss}, vec, n_keys, st,
-                        column_scales(Strided<bf16>{ksb, cache.ks_ss},
-                                      Strided<bf16>{vsb, cache.vs_ss}));
-    } else {
-      attend<KT, BQ, D>(smem, Strided<KT>{kb, cache.k_ss},
-                        Strided<KT>{vb, cache.v_ss}, vec, n_keys, st);
-    }
+    attend<KT, BQ, D>(smem, Strided<KT>{kb, cache.k_ss},
+                      Strided<KT>{vb, cache.v_ss}, vec, n_keys, st);
   }
 
 #pragma unroll
@@ -215,8 +156,8 @@ cudaError_t launch_rows(const void* q, const Cache& cache, const int* kv_len,
                         const int64_t* qo, float scale, cudaStream_t stream) {
   using L = Layout<BQ, D>;
   auto kernel = flash_decode_kernel<T, KT, BQ, D, Cache>;
-  const size_t bytes = L::kBytes + extra_smem(cache) +
-                       (kQuant<KT> ? kScaleFloats * sizeof(float) : 0);
+  const size_t bytes =
+      L::kBytes + (kQuant<KT> ? kScaleFloats * sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;

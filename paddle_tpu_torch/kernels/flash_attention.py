@@ -32,6 +32,17 @@ pages_per_row]`` int32. Inputs are read through their strides (only
 head_dim must be contiguous), so views of a fused qkv projection or a
 layer slice of the cache or pool cost no copy.
 
+The decode and paged decode kernels share one body
+(``csrc/flash_decode_split.cuh``): each row's keys are cut into fixed
+splits of ``DECODE_SPLIT_KEYS`` logical columns, run by blocks side by
+side and folded in split order: inside one thread-block cluster when the
+cache's capacity spans at most ``DECODE_CLUSTER_SPLITS`` splits, else by
+a second small kernel through a scratch buffer the wrapper allocates
+(``decode_scratch_floats``). The
+grid follows the cache's capacity, never ``kv_len``, so a row's bits
+depend on its logical content and ``kv_len`` alone: not on the batch,
+its slot, the capacity, the layout or the page size.
+
 The three decode-shaped functions also take an int8 cache or pool
 (``QuantKVCache``, ``QuantPagedKVCache``) with its bf16 ``k_scale`` /
 ``v_scale`` ([batch, max_len, kv_heads], or [n_pages, page_size,
@@ -57,6 +68,13 @@ from . import _build
 MAX_DECODE_QLEN = 8
 #: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: logical key columns of one split of the decode kernels
+#: (``csrc/flash_decode_split.cuh`` ``kSplitKeys``): split s of a row is
+#: columns [s * DECODE_SPLIT_KEYS, (s + 1) * DECODE_SPLIT_KEYS)
+DECODE_SPLIT_KEYS = 128
+#: most splits one launch folds inside a thread-block cluster
+#: (``kClusterSplits``); a longer capacity folds through scratch
+DECODE_CLUSTER_SPLITS = 8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
@@ -65,20 +83,29 @@ _STRIDES = ctypes.POINTER(ctypes.c_int64)
 _FWD_SIG = {"paddle_flash_fwd": (_I, (
     _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES, _I,
     ctypes.c_float, _P)), "paddle_flash_route": (_I, (_I, _I))}
-_DECODE_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
-                ctypes.c_float, _P)
-# the int8 entries take the two scale pointers after k and v
-_DECODE_INT8_ARGS = _DECODE_ARGS[:3] + (_P, _P) + _DECODE_ARGS[3:]
+_CHUNK_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _STRIDES,
+               ctypes.c_float, _P)
+# the decode entries take their scratch (pointer, floats) after o
+_SCRATCH = (_P, ctypes.c_int64)
+_DECODE_ARGS = _CHUNK_ARGS[:5] + _SCRATCH + _CHUNK_ARGS[5:]
+
+
+def _int8_args(args):
+    """The int8 entries take the two scale pointers after k and v."""
+    return args[:3] + (_P, _P) + args[3:]
+
+
 _DECODE_SIG = {"paddle_flash_decode": (_I, _DECODE_ARGS),
-               "paddle_flash_chunk": (_I, _DECODE_ARGS),
+               "paddle_flash_chunk": (_I, _CHUNK_ARGS),
                "paddle_flash_chunk_route": (_I, (_I, _I)),
-               "paddle_flash_decode_int8": (_I, _DECODE_INT8_ARGS),
-               "paddle_flash_chunk_int8": (_I, _DECODE_INT8_ARGS)}
-_PAGED_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-               _STRIDES, ctypes.c_float, _P)
+               "paddle_flash_decode_split_keys": (_I, ()),
+               "paddle_flash_decode_int8": (_I, _int8_args(_DECODE_ARGS)),
+               "paddle_flash_chunk_int8": (_I, _int8_args(_CHUNK_ARGS))}
+_PAGED_ARGS = (_P, _P, _P, _P, _P, _P) + _SCRATCH + (
+    _I, _I, _I, _I, _I, _I, _I, _I, _STRIDES, ctypes.c_float, _P)
 _PAGED_SIG = {"paddle_flash_decode_paged": (_I, _PAGED_ARGS),
-              "paddle_flash_decode_paged_int8": (
-                  _I, _PAGED_ARGS[:3] + (_P, _P) + _PAGED_ARGS[3:])}
+              "paddle_flash_decode_split_keys": (_I, ()),
+              "paddle_flash_decode_paged_int8": (_I, _int8_args(_PAGED_ARGS))}
 _BWD_SIG = {"paddle_flash_bwd": (_I, (
     _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     _STRIDES, _I, ctypes.c_float, _P))}
@@ -619,6 +646,35 @@ def _scale_args(scales, strides):
     return [ks.data_ptr(), vs.data_ptr()], (ctypes.c_int64 * len(st))(*st)
 
 
+def decode_splits(t_cap):
+    """Splits of the decode kernels' grid for a cache of capacity
+    ``t_cap`` logical columns (T, or pages_per_row * page_size): the grid
+    is sized from the capacity, never from ``kv_len``, which lives on the
+    card; a split past a row's ``kv_len`` exits at once."""
+    return -(-t_cap // DECODE_SPLIT_KEYS)
+
+
+def decode_scratch_floats(b, sq, hq, hk, t_cap, d):
+    """fp32 scratch the decode kernels need: one (m, l, output[d])
+    partial per (batch row, kv head, split, query row of the group) when
+    the capacity spans more splits than a cluster folds, else none."""
+    n_split = decode_splits(t_cap)
+    if n_split <= DECODE_CLUSTER_SPLITS:
+        return 0
+    return b * hk * n_split * (hq // hk) * sq * (d + 2)
+
+
+def _scratch(query, hk, t_cap):
+    """The decode entries' scratch on the query's card (None when they
+    need none) and its length in floats. The caller keeps the tensor
+    until the launch has been enqueued."""
+    b, sq, hq, d = query.shape
+    n = decode_scratch_floats(b, sq, hq, hk, t_cap, d)
+    if n == 0:
+        return None, 0
+    return torch.empty(n, dtype=torch.float32, device=query.device), n
+
+
 def _launch_dense(entry, query, key_cache, value_cache, kv_len, scale,
                   named, scales=None):
     """Launch ``entry`` of ``csrc/flash_decode.cu`` (its ``_int8`` twin
@@ -632,6 +688,10 @@ def _launch_dense(entry, query, key_cache, value_cache, kv_len, scale,
                       device=query.device)
     code, strides = _kernel_args(named + [("out", out)], d)
     sc_ptrs, strides = _scale_args(scales, strides)
+    scratch = []
+    if entry == "paddle_flash_decode":
+        part, n = _scratch(query, hk, t)
+        scratch = [None if part is None else part.data_ptr(), n]
     if scales is not None:
         entry += "_int8"
     lib = _build.library("flash_decode", _DECODE_SIG)
@@ -639,8 +699,8 @@ def _launch_dense(entry, query, key_cache, value_cache, kv_len, scale,
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = getattr(lib, entry)(
             query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
-            *sc_ptrs, kv_len.data_ptr(), out.data_ptr(), code, b, sq, hq,
-            hk, t, d, strides, scale, stream)
+            *sc_ptrs, kv_len.data_ptr(), out.data_ptr(), *scratch, code, b,
+            sq, hq, hk, t, d, strides, scale, stream)
     _build.raise_on(err, entry)
     return out
 
@@ -828,6 +888,8 @@ def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
     code, strides = _kernel_args(named + [("out", out)], d)
     strides = (ctypes.c_int64 * 13)(*strides, page_table.stride(0))
     sc_ptrs, strides = _scale_args(scales, strides)
+    n_slots = page_table.shape[1]
+    part, n = _scratch(query, hk, n_slots * ps)
     entry = "paddle_flash_decode_paged" + ("" if scales is None
                                            else "_int8")
     lib = _build.library("flash_decode_paged", _PAGED_SIG)
@@ -836,8 +898,8 @@ def flash_attention_decode_paged(query, key_pool, value_pool, page_table,
         err = getattr(lib, entry)(
             query.data_ptr(), key_pool.data_ptr(), value_pool.data_ptr(),
             *sc_ptrs, page_table.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), code, b, sq, hq, hk, ps, page_table.shape[1], d,
-            strides, scale, stream)
+            out.data_ptr(), None if part is None else part.data_ptr(), n,
+            code, b, sq, hq, hk, ps, n_slots, d, strides, scale, stream)
     _build.raise_on(err, entry)
     _count_launch(flash_attention_decode_paged, scales)
     return out

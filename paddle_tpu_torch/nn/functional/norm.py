@@ -2,14 +2,21 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
 
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
                epsilon: float = 1e-5):
     """LayerNorm over the trailing ``normalized_shape`` dims. Statistics
-    are computed in fp32 for bf16 inputs (two-pass mean/variance), the
-    normalized value is cast back to the input dtype, then scaled and
-    shifted — the JAX package's order of operations."""
+    are computed in fp32 for bf16 inputs, the normalized value is cast
+    back to the input dtype, then scaled and shifted — the JAX package's
+    order of operations. On the CPU the statistics are the JAX package's
+    two-pass mean and variance (bitwise). On a CUDA card they come from
+    one ``torch.nn.functional.layer_norm`` without affine, whose kernel
+    gives every row one block of a fixed size, so a row's bits do not
+    depend on how many rows the call holds: two ``mean`` reductions would
+    spread a row over more threads the fewer rows there are, and a
+    serving batch would drift from batch-1 ``generate``."""
     if normalized_shape is None:
         ndims = 1
     else:
@@ -17,9 +24,13 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
             len(tuple(normalized_shape))
     dims = tuple(range(x.dim() - ndims, x.dim()))
     xf = x.float() if x.dtype == torch.bfloat16 else x
-    mean = xf.mean(dim=dims, keepdim=True)
-    var = (xf - mean).square().mean(dim=dims, keepdim=True)
-    out = ((xf - mean) / torch.sqrt(var + epsilon)).to(x.dtype)
+    if xf.is_cuda:
+        out = TF.layer_norm(xf, xf.shape[x.dim() - ndims:],
+                            eps=epsilon).to(x.dtype)
+    else:
+        mean = xf.mean(dim=dims, keepdim=True)
+        var = (xf - mean).square().mean(dim=dims, keepdim=True)
+        out = ((xf - mean) / torch.sqrt(var + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight
     if bias is not None:

@@ -121,18 +121,27 @@ def test_misaligned_inputs_match_plain(dev, dtype):
            fa.flash_attention_decode_plain(q[:, :3], k, v, kv))
 
 
+def _decode_kv_len(sq, t, dev):
+    """Ragged lengths for a [5, t] cache: the window alone, one more, a
+    full row, and lengths off the 128-column split grid (past many
+    splits of the long caches)."""
+    lens = [sq, sq + 1, 77, t, 130] if t < 2048 else \
+        [sq, 129, 1000 + sq, t, t - 37]
+    return torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 @pytest.mark.parametrize("sq,hq,hk", [
-    (1, 4, 4), (4, 4, 2),       # <= 8 query rows per group: 8-row blocks
-    (8, 8, 2), (3, 12, 1),      # 32 and 36 rows: one 64-row block
-    (8, 16, 1),                 # 128 rows: two 64-row blocks
+    (1, 4, 4), (4, 4, 2),       # 1 and 8 query rows per group
+    (8, 8, 2), (3, 12, 1),      # 32 and 36 rows: several 8-row blocks
+    (8, 16, 1),                 # 128 rows
 ])
-def test_flash_decode_matches_plain(dev, dtype, d, sq, hq, hk):
-    gen = torch.Generator(device=dev).manual_seed(sq * 31 + hq + d)
-    b, t = 5, 200
-    kv = torch.tensor([sq, sq + 1, 77, t, 130], dtype=torch.int32,
-                      device=dev)
+@pytest.mark.parametrize("t", [200, 2048, 4096])
+def test_flash_decode_matches_plain(dev, dtype, d, sq, hq, hk, t):
+    gen = torch.Generator(device=dev).manual_seed(sq * 31 + hq + d + t - 200)
+    b = 5
+    kv = _decode_kv_len(sq, t, dev)
     # a layer slice of a [layers, b, t, hk, d] cache, read in place
     cache_k = _randn(gen, (3, b, t, hk, d), dtype, dev)
     cache_v = _randn(gen, (3, b, t, hk, d), dtype, dev)
@@ -427,7 +436,7 @@ def test_flash_decode_paged_matches_plain_and_dense(dev, dtype, page, sq, hq,
                                                     hk):
     """Against its plain version, and BITWISE equal to the dense decode
     kernel on the same logical rows, at page sizes that do and do not
-    divide the 64-column tile; kv_len 0 writes zeros."""
+    divide the 128-column split; kv_len 0 writes zeros."""
     gen = torch.Generator(device=dev).manual_seed(page + sq + hk)
     b, t, d = 6, 384, 64
     k = _randn(gen, (b, t, hk, d), dtype, dev)
@@ -541,15 +550,18 @@ def _int8_cache(gen, shape, dev, lead=2):
 @pytest.mark.parametrize("sq,hq,hk", [
     (1, 12, 12), (1, 12, 4), (3, 12, 4), (8, 4, 4),    # decode
     (9, 4, 4), (100, 4, 2), (128, 12, 12)])            # chunk windows
-def test_int8_decode_and_chunk_match_plain(dev, dtype, d, sq, hq, hk):
+@pytest.mark.parametrize("t", [200, 2048, 4096])
+def test_int8_decode_and_chunk_match_plain(dev, dtype, d, sq, hq, hk, t):
     """The int8 modes against their plain versions: ragged and odd
-    kv_len, grouped heads, 1..8 rows (decode) and longer windows
-    (chunk); launches count under the int8 names only."""
-    gen = torch.Generator(device=dev).manual_seed(sq * 7 + hq + hk + d)
-    b, t = 4, 200
+    kv_len (off the split grid of the long caches), grouped heads, 1..8
+    rows (decode) and longer windows (chunk); launches count under the
+    int8 names only."""
+    gen = torch.Generator(device=dev).manual_seed(
+        sq * 7 + hq + hk + d + t - 200)
+    b = 4
     k, v, ks, vs = _int8_cache(gen, (b, t, hk, d), dev)
     q = _randn(gen, (b, sq, hq, d), dtype, dev)
-    kv = torch.tensor([sq, sq + 1, 77, t], dtype=torch.int32, device=dev)
+    kv = _decode_kv_len(sq, t, dev)[:b]
     fn, plain = (fa.flash_attention_decode, fa.flash_attention_decode_plain) \
         if sq <= fa.MAX_DECODE_QLEN else \
         (fa.flash_attention_chunk, fa.flash_attention_chunk_plain)
@@ -607,12 +619,12 @@ def _int8_paged_from_dense(gen, k, v, ks, vs, page):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("page", [16, 48, 128])
+@pytest.mark.parametrize("page", [16, 48, 64, 128])
 @pytest.mark.parametrize("sq,hq,hk", [(1, 12, 12), (1, 12, 4), (8, 4, 4)])
 def test_int8_paged_matches_plain_and_dense(dev, dtype, page, sq, hq, hk):
     """The int8 paged mode against its plain version, and BITWISE equal
     to the int8 dense mode on the same logical rows and scales, at page
-    sizes that do and do not divide the 64-column tile."""
+    sizes that do and do not divide the 128-column split."""
     gen = torch.Generator(device=dev).manual_seed(page + sq + hk)
     b, t, d = 6, 384, 64
     k, v, ks, vs = _int8_cache(gen, (b, t, hk, d), dev)
@@ -631,6 +643,152 @@ def test_int8_paged_matches_plain_and_dense(dev, dtype, page, sq, hq, hk):
     assert out[0].abs().max().item() == 0.0
     _close(out, fa.flash_attention_decode_paged_plain(
         q, kp, vp, table, kv, k_scale=ksp, v_scale=vsp))
+
+
+def _off16(t):
+    """A copy of ``t`` whose data starts one element past a 16-byte
+    boundary: the decode kernels take their element-copy path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 8
+    return out
+
+
+def _decode_call(q, k, v, kv, scales, page=None, gen=None):
+    """flash_attention_decode, or with ``page`` flash_attention_decode_paged
+    on the same logical rows laid out in shuffled pages."""
+    if page is None:
+        return fa.flash_attention_decode(q, k, v, kv, **scales)
+    if scales:
+        kp, vp, ksp, vsp, table = _int8_paged_from_dense(
+            gen, k, v, scales["k_scale"], scales["v_scale"], page)
+        return fa.flash_attention_decode_paged(q, kp, vp, table, kv,
+                                               k_scale=ksp, v_scale=vsp)
+    kp, vp, table = _paged_from_dense(gen, k, v, page)
+    return fa.flash_attention_decode_paged(q, kp, vp, table, kv)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,hq,hk", [(1, 12, 12), (1, 12, 4), (4, 8, 2)])
+def test_decode_bits_depend_on_the_request_alone(dev, int8, dtype, sq, hq,
+                                                 hk):
+    """One request's output is the same bit for bit at batch 1 and in
+    slot 5 of batch 8, at cache capacities 640 and 1024 (5 and 8 splits,
+    folded in a cluster) and 2048 (16, folded through scratch), on the
+    dense cache and through a page table (page 48): the bits depend on
+    its logical rows and kv_len only (577 spans 5 splits, 130 two), not
+    on the batch, the slot, the capacity, the layout or the grid."""
+    gen = torch.Generator(device=dev).manual_seed(sq + hq + hk + int8)
+    d = 64
+    for kv_len in (577, 130):
+        q1 = _randn(gen, (1, sq, hq, d), dtype, dev)
+        if int8:
+            rows = _int8_cache(gen, (1, kv_len, hk, d), dev)
+        else:
+            rows = tuple(_randn(gen, (1, kv_len, hk, d), dtype, dev)
+                         for _ in range(2))
+        outs = []
+        for b, slot in ((1, 0), (8, 5)):
+            for t in (640, 1024, 2048):
+                if int8:
+                    cache = list(_int8_cache(gen, (b, t, hk, d), dev))
+                else:
+                    cache = [_randn(gen, (b, t, hk, d), dtype, dev)
+                             for _ in range(2)]
+                for c, r in zip(cache, rows):
+                    c[slot, :kv_len] = r[0]
+                q = _randn(gen, (b, sq, hq, d), dtype, dev)
+                q[slot] = q1[0]
+                kv = torch.randint(sq, t + 1, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                kv[slot] = kv_len
+                scales = dict(k_scale=cache[2], v_scale=cache[3]) \
+                    if int8 else {}
+                for page in (None, 48):
+                    outs.append(_decode_call(q, cache[0], cache[1], kv,
+                                             scales, page, gen)[slot])
+        torch.cuda.synchronize()
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_decode_bits_repeat_and_ignore_alignment(dev, int8, dtype):
+    """Two calls give the same bits, dense and paged (page 16), and so
+    do copies of the query and cache whose bases are off a 16-byte
+    boundary (element copies in place of cp.async); against the plain
+    version too."""
+    gen = torch.Generator(device=dev).manual_seed(31 + int8)
+    b, t, hq, hk, d = 4, 700, 8, 4, 64
+    if int8:
+        k, v, ks, vs = _int8_cache(gen, (b, t, hk, d), dev)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (_randn(gen, (b, t, hk, d), dtype, dev) for _ in range(2))
+        scales = {}
+    q = _randn(gen, (b, 2, hq, d), dtype, dev)
+    kv = torch.tensor([2, 129, 640, 700], dtype=torch.int32, device=dev)
+    fa.reset_counts()
+    for page in (None, 16):
+        first = _decode_call(q, k, v, kv, scales, page, gen)
+        again = _decode_call(q, k, v, kv, scales, page, gen)
+        off = _decode_call(_off16(q), _off16(k), _off16(v), kv, scales,
+                           page, gen)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again) and torch.equal(first, off)
+    plain = fa.flash_attention_decode_plain(q, k, v, kv, **scales)
+    _close(first, plain)
+    launched = (fa.flash_attention_decode.launches_int8,
+                fa.flash_attention_decode_paged.launches_int8) if int8 \
+        else (fa.flash_attention_decode.launches,
+              fa.flash_attention_decode_paged.launches)
+    assert launched == (3, 3)
+
+
+def test_decode_split_constant_and_scratch_check(dev, monkeypatch):
+    """Both built decode libraries split at DECODE_SPLIT_KEYS columns, and
+    an entry handed less scratch than the rule asks refuses to launch."""
+    from paddle_tpu_torch.kernels import _build
+    for name, sig in (("flash_decode", fa._DECODE_SIG),
+                      ("flash_decode_paged", fa._PAGED_SIG)):
+        lib = _build.library(name, sig)
+        assert lib.paddle_flash_decode_split_keys() == fa.DECODE_SPLIT_KEYS
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k, v = (_randn(gen, (2, 1200, 2, 64), torch.bfloat16, dev)
+            for _ in range(2))
+    q = _randn(gen, (2, 1, 2, 64), torch.bfloat16, dev)
+    kv = torch.tensor([5, 1200], dtype=torch.int32, device=dev)
+    rule = fa.decode_scratch_floats
+    assert rule(2, 1, 2, 2, 1200, 64) == 2 * 2 * 10 * 66
+    monkeypatch.setattr(fa, "decode_scratch_floats",
+                        lambda *a: rule(*a) - 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fa.flash_attention_decode(q, k, v, kv)
+    monkeypatch.setattr(fa, "decode_scratch_floats", rule)
+    _close(fa.flash_attention_decode(q, k, v, kv),
+           fa.flash_attention_decode_plain(q, k, v, kv))
+
+
+def test_layer_norm_rows_do_not_depend_on_the_batch(dev):
+    """The port's layer_norm gives a row of a decode step's [8, 1, 768]
+    input the bits it gives that row alone (C10: two reductions summed a
+    row in another order at batch 8 than at batch 1), in bf16 as the
+    model runs it."""
+    from paddle_tpu_torch.nn.functional import layer_norm
+    gen = torch.Generator(device=dev).manual_seed(10)
+    w = (_randn(gen, (768,), torch.float32, dev) * 0.1 + 1).bfloat16()
+    b = (_randn(gen, (768,), torch.float32, dev) * 0.1).bfloat16()
+    bad = 0
+    for _ in range(500):
+        x = (_randn(gen, (8, 1, 768), torch.float32, dev) * 3
+             + _randn(gen, (8, 1, 1), torch.float32, dev) * 5).bfloat16()
+        y = layer_norm(x, (768,), w, b)
+        bad += sum(not torch.equal(layer_norm(x[r:r + 1], (768,), w, b)[0],
+                                   y[r]) for r in range(8))
+    assert bad == 0
 
 
 def test_int8_refuses_what_it_does_not_take(dev):
