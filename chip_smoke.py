@@ -39,6 +39,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1037,7 +1038,7 @@ def _gemm_args(key):
     """The template arguments of a kernel of ``csrc/conv_gemm.cuh``'s
     tile body (``mm_stats_kernel<T, Kind, prologue, tap>``) from its
     profiler name, or None for another kernel. ``tap`` "true" is the 3x3
-    backward's implicit GEMM route, "false" a 1x1 kernel."""
+    pair's implicit GEMM route, "false" a 1x1 kernel."""
     if "mm_stats_kernel<" not in key:
         return None
     return _template_args(key, "mm_stats_kernel<")
@@ -1279,8 +1280,8 @@ def phase_fused_conv3x3_kernels(torch, timer):
     plain version and the PyTorch yardstick, which the port never calls:
     the prologue in torch, ``F.conv2d`` on channels-last bf16 (cuDNN)
     and ``torch.var_mean``; for the backward, ``torch.autograd.grad`` of
-    the same graph. The backward's time is also split by kernel
-    (``_split_ms``), with the route the wrapper chose at each shape."""
+    the same graph. Each time is also split by kernel (``_split_ms``),
+    with the route the wrapper chose at each shape."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.kernels import fused_resnet as fr
     dev = torch.device("cuda", 0)
@@ -1355,10 +1356,9 @@ def phase_fused_conv3x3_kernels(torch, timer):
             else:
                 lib_ms = timer.ms(lib_fwd, [lib_inputs(t) for t in sets])
             bms, by = _conv3x3_bound(*shape, bwd)
-            extra = {}
-            if bwd:
-                extra = dict(route=fr._conv3x3_bwd_route(*shape[1:]),
-                             ms_by_kernel=_split_ms(torch, kernel, args))
+            extra = dict(route=fr._conv3x3_route(*shape[1:]),
+                         ms_by_kernel=_split_ms(torch, kernel, args),
+                         share_of_bound=bms / ms)
             by_shape.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
                                  library_ms=lib_ms, bound_ms=bms,
                                  bound_by=by, **extra))
@@ -1559,6 +1559,25 @@ def phase_norm_adamw_kernels(torch, timer):
     return rows
 
 
+def _kernel_ms(torch, fn, args, n=3):
+    """Device ms per call of each kernel ``fn(*args)`` launches, by its
+    name (template arguments cut off), from a profile of ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            m = re.search(r"([A-Za-z_]\w*)[<(]", e.key)
+            name = m.group(1) if m else e.key
+            by[name] = by.get(name, 0.0) + e.device_time_total / 1e3 / n
+    return by
+
+
 _CE_ROWS = (  # name, TPU kernel it replaces
     ("fused_ce_fwd", "paddle_tpu/kernels/fused_ce.py:101"),
     ("fused_ce_bwd", "paddle_tpu/kernels/fused_ce.py:223"),
@@ -1607,7 +1626,9 @@ def phase_fused_ce_kernels(torch, timer):
     fp32 at a smaller shape, every 7th label -1; ce and lse within the
     LSE rule, dh and dW by the training rule, ignored rows 0, a repeat
     bitwise equal. Timed at the first shape beside the saved-logits
-    forward in PyTorch calls and its ``torch.autograd.grad``."""
+    forward in PyTorch calls and its ``torch.autograd.grad``; there the
+    backward's scratch is measured (one call's peak allocation less its
+    outputs) and held to ``ce_bwd_plan``'s bytes."""
     from paddle_tpu_torch.kernels import fused_ce as fc
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -1669,6 +1690,21 @@ def phase_fused_ce_kernels(torch, timer):
                                                                  lses)]
         ms = {"fused_ce_fwd": timer.ms(fc.ce_fwd, fwd_args, n=10),
               "fused_ce_bwd": timer.ms(fc.ce_bwd, bwd_args, n=5)}
+        bwd_by_kernel = _kernel_ms(torch, fc.ce_bwd, bwd_args[0], n=3)
+        # the backward's scratch, measured: one call's peak above what
+        # its inputs hold, less its outputs, against the wrapper's plan
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs = fc.ce_bwd(*bwd_args[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        scratch = peak - sum(t.numel() * t.element_size() for t in outs)
+        del outs
+        planned = fc.ce_bwd_plan(n, vocab, hd, 2)[2]
+        if not planned <= scratch <= planned + 2 ** 20:
+            fail(f"fused CE backward's scratch {scratch} bytes, planned "
+                 f"{planned}")
         plain_ms = {"fused_ce_fwd": timer.ms(fc.ce_fwd_plain, fwd_args, n=3),
                     "fused_ce_bwd": timer.ms(fc.ce_bwd_plain, bwd_args,
                                              n=3)}
@@ -1687,9 +1723,18 @@ def phase_fused_ce_kernels(torch, timer):
         for name, replaces in _CE_ROWS:
             bwd = name == "fused_ce_bwd"
             bms, bby = _ce_bound(n, hd, vocab, 2, bwd)
+            extra, plan = dict(share_of_bound=bms / ms[name]), {}
+            if bwd:
+                # the backward's products: the logits with d, then dW and
+                # dh in one grid; its scratch, d and the dh accumulator
+                extra.update(ms_by_kernel=bwd_by_kernel,
+                             scratch_bytes=scratch,
+                             peak_bytes_over_inputs=peak)
+                plan = dict(planned_scratch_bytes=planned)
             say("kernel_time", kernel=name, shape=[n, hd, vocab],
                 kernel_ms=ms[name], plain_ms=plain_ms[name],
-                library_ms=lib_ms[name], bound_ms=bms, bound_by=bby)
+                library_ms=lib_ms[name], bound_ms=bms, bound_by=bby,
+                **extra, **plan)
             rows[name] = dict(
                 name=name, route="cuda",
                 source="paddle_tpu_torch/csrc/fused_ce.cu",
@@ -1697,7 +1742,7 @@ def phase_fused_ce_kernels(torch, timer):
                 shape="h [16368,768], W [50257,768] bf16 (gpt2-small's LM "
                       "head, b16 s1024)" + (", dh and dW" if bwd else ""),
                 ms=ms[name], plain_ms=plain_ms[name], bound_ms=bms,
-                bound_by=bby, library_ms=lib_ms[name])
+                bound_by=bby, library_ms=lib_ms[name], **extra)
         del h, w, y, dce
         torch.cuda.empty_cache()
     for name, _ in _CE_ROWS:
@@ -2550,7 +2595,11 @@ def phase_train_fused_ce(torch, model, opt, x, y):
     launches = {"fused_ce_fwd": fc.ce_fwd.launches,
                 "fused_ce_bwd": fc.ce_bwd.launches}
     plain_calls = fc.ce_fwd_plain.calls + fc.ce_bwd_plain.calls
-    if launches != {"fused_ce_fwd": 1, "fused_ce_bwd": 2} or plain_calls:
+    # the backward launches twice a vocabulary chunk
+    chunks = fc.ce_bwd_plan(hs.shape[0] * hs.shape[1], vocab, hd,
+                            hidden.element_size())[1]
+    if launches != {"fused_ce_fwd": 1, "fused_ce_bwd": 2 * chunks} or \
+            plain_calls:
         fail(f"train_fused_ce launches {launches}, plain calls "
              f"{plain_calls}")
     # -- against the model's own loss on the same pair (saved logits)
@@ -2604,6 +2653,12 @@ def phase_train_fused_ce(torch, model, opt, x, y):
     if max(errs.values()) > GRAD_NORM_TOL:
         fail(f"fused_linear_ce gradients against the model's: {errs}")
     return launches
+
+
+# ResNet-50's stride-1 3x3 convolutions, (H, W, C, O) at 224x224, and
+# how many a step runs (the first block of layer2-4 has stride 2)
+_RESNET50_STRIDE1_3X3 = (((56, 56, 64, 64), 3), ((28, 28, 128, 128), 3),
+                         ((14, 14, 256, 256), 5), ((7, 7, 512, 512), 2))
 
 
 def phase_train_resnet50(torch):
@@ -2765,7 +2820,8 @@ def phase_train_resnet50(torch):
             key = e.key.lower()
             tap = (_gemm_args(e.key) or [])[3:] == ["true"]
             group = ("fused 3x3 (csrc/fused_conv3x3.cu)" if tap or any(
-                        t in key for t in ("conv3x3", "tilecounts")) else
+                        t in key for t in ("conv3x3", "tilecounts",
+                                           "rowtilepixels")) else
                      "fused 1x1 (csrc/fused_resnet.cu)" if any(
                         t in key for t in ("mm_stats", "rowtiles")) else
                      "fixed-order column totals (both)"
@@ -2776,6 +2832,16 @@ def phase_train_resnet50(torch):
                          "gemm", "nvjet", "cutlass", "sm90_xmma")) else
                      "other")
             groups[group] += e.device_time_total / 1e3
+        # the profiled step's fused 3x3 forwards by route: the GEMM
+        # route's tile body (Kind 0, tap) or the window kernel
+        fwd3 = {"gemm": 0, "window": 0}
+        for e in devev:
+            args = _gemm_args(e.key) or []
+            if args[1:2] == ["0"] and args[3:] == ["true"]:
+                fwd3["gemm"] += e.count
+            elif "conv3x3_kernel<" in e.key and _template_args(
+                    e.key, "conv3x3_kernel<")[1] == "false":
+                fwd3["window"] += e.count
         top = sorted(devev, key=lambda e: -e.device_time_total)[:12]
         say("train_resnet50", config="resnet50 NHWC s2d fused_bn",
             route=route, dtype="bfloat16", batch=batch, image=hw,
@@ -2789,6 +2855,7 @@ def phase_train_resnet50(torch):
             device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
             device_launches_per_step=sum(e.count for e in devev),
             device_ms_by_group=groups,
+            fused_3x3_forwards_by_route=fwd3,
             top_kernels=[dict(name=e.key[:60], ms=e.device_time_total / 1e3,
                               calls=e.count) for e in top])
         if not all(math.isfinite(v) for v in losses):
@@ -2798,19 +2865,26 @@ def phase_train_resnet50(torch):
                  f"path ({route})")
         if not frozen:
             fail(f"TrainStep moved BN running statistics ({route})")
-        return launches, wall_ms
+        return launches, wall_ms, fwd3
 
+    # the 13 stride-1 3x3s of a step, by the route their forward takes
+    want3 = {"gemm": 0, "window": 0}
+    for (h3, w3, c3, o3), k in _RESNET50_STRIDE1_3X3:
+        want3[fr._conv3x3_route(h3, w3, c3, o3)] += k
     # the main path: the reference's default route, the fused 3x3 kernels
-    launches, on_ms = timed_steps("fused 3x3 kernels")
+    launches, on_ms, fwd3 = timed_steps("fused 3x3 kernels")
     if list(launches.values()) != [10 * c for c in per_step]:
         fail(f"resnet50 train launches {launches}, expected {per_step} "
              "per step")
+    if fwd3 != want3:
+        fail(f"resnet50 3x3 forwards by route {fwd3}, expected {want3}")
     # the yardstick: the same recipe with the 3x3s on cuDNN, the port's
     # own switch set for this run only
     with mock.patch.object(resnet_mod, "_PALLAS3X3", False):
-        off, off_ms = timed_steps("cuDNN 3x3 (_PALLAS3X3 False)")
-    if list(off.values()) != [10 * c for c in per_step[:4]] + [0, 0]:
-        fail(f"resnet50 cuDNN-route launches {off}")
+        off, off_ms, off3 = timed_steps("cuDNN 3x3 (_PALLAS3X3 False)")
+    if list(off.values()) != [10 * c for c in per_step[:4]] + [0, 0] or \
+            any(off3.values()):
+        fail(f"resnet50 cuDNN-route launches {off}, {off3}")
     say("resnet50_3x3_route", fused_step_ms=on_ms,
         fused_images_per_s=batch / (on_ms / 1e3), cudnn_step_ms=off_ms,
         cudnn_images_per_s=batch / (off_ms / 1e3))

@@ -8,7 +8,7 @@ The window kernels and the implicit GEMMs on the 1x1 kernels' tile body
 (``kernels.fused_resnet._launch_bwd3(..., route)``), each timed with
 ``chip_smoke.DeviceTimer`` on three input sets and split by kernel with
 ``chip_smoke._split_ms``, beside the route the wrapper chooses
-(``_conv3x3_bwd_route``). Prints the card's name and power limit, then
+(``_conv3x3_route``). Prints the card's name and power limit, then
 one JSON line per (shape, route). Where the two routes cross is what
 sets ``_GEMM3_MAX_HW`` and ``_GEMM3_MIN_CH``.
 """
@@ -50,7 +50,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(11)
     for shape in chip_smoke._CONV3_SHAPES:
         sets = [inputs(gen, *shape) for _ in range(3)]
-        chosen = fr._conv3x3_bwd_route(*shape[1:])
+        chosen = fr._conv3x3_route(*shape[1:])
         for route in ("window", "gemm"):
             def fn(*args):
                 return fr._launch_bwd3(*args, route)

@@ -1,8 +1,8 @@
 // The tile body shared by the fused conv + BN-statistics kernels: the 1x1
 // convolutions of fused_resnet.cu (a matrix product whose epilogue gives
 // the batch statistics, with an optional BN-apply + ReLU prologue, and its
-// two backwards) and the 3x3 backward of fused_conv3x3.cu on its implicit
-// GEMM route (kTap: dx and dw with A gathered by tap from the
+// two backwards) and the 3x3 pair of fused_conv3x3.cu on its implicit
+// GEMM route (kTap: the forward, dx and dw with A gathered by tap from the
 // materialized activation and effective gradient).
 //
 // One body serves every product. A block of 8 warps owns a 128 x 128
@@ -316,10 +316,11 @@ __device__ __forceinline__ void gather_taps(T* dst, const T* src,
 // (with the prologue: gated, and the tile's dscale/dshift partials) or of
 // a dw chunk's partial. Slice i is multiplied while slices i+1 and i+2 are
 // in flight (cp.async groups); a staged operand's step for slice i+1 runs
-// after the products of slice i. kTap: the 3x3 convolution's dx (kDx,
-// kPro: the gate) or dw, A gathered by tap (gather_taps) from the
-// materialized e (a.dy) or a (a.x), B copied as it lies: the flipped
-// weights [9*O][C] (a.w) or e [M][O] (a.dy); nothing is staged.
+// after the products of slice i. kTap: the 3x3 convolution's forward
+// (kFwd), dx (kDx, kPro: the gate) or dw, A gathered by tap (gather_taps)
+// from the materialized a (a.x) or e (a.dy), B copied as it lies: the
+// weights w9 [9*C][O] or the flipped ones [9*O][C] (a.w), or e [M][O]
+// (a.dy); nothing is staged.
 template <typename T, int kKind, bool kPro, bool kTap = false>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
 mm_stats_kernel(const ArgsOf<T, kTap> a) {
@@ -386,7 +387,7 @@ mm_stats_kernel(const ArgsOf<T, kTap> a) {
       T* B = ring_b + s * L::kBRing;
       gather_taps<T, L::AR, L::AC>(A, kKind == kDx ? a.dy : a.x, a,
                                    win_a(d));
-      copy_slice<T, kBK, kBN>(B, kKind == kDx ? a.w : a.dy, win_b(d));
+      copy_slice<T, kBK, kBN>(B, kKind == kDw ? a.dy : a.w, win_b(d));
     }
   };
   // slice i's elementwise steps, from its landing zones into slice i % 2

@@ -24,7 +24,7 @@
 //             fp32, with a recomputed from x.
 // On the window route neither a nor e reaches device memory: each is
 // rebuilt from x (or dy, y) while a window is loaded into shared memory.
-// On the backward's implicit GEMM route each is written once (see below).
+// On the implicit GEMM route each is written once (see below).
 //
 // Design for a card whose blocks run in parallel and in no order. The TPU
 // kernel takes one image per grid step and keeps its sums in scratch across
@@ -57,23 +57,30 @@
 // as in fused_resnet.cu, so they round where the plain PyTorch version
 // rounds.
 //
-// The backward's implicit GEMM route. Where a tile's window is mostly
-// halo or padding (7x7 and 14x14 images: two whole 7x7 images fill 98 of
-// a tile's 128 rows) and its 64-channel tiles rebuild the window, and its
+// The implicit GEMM route. Where a tile's window is mostly halo or
+// padding (7x7 and 14x14 images: two whole 7x7 images fill 98 of a
+// tile's 128 rows) and its 64-channel tiles rebuild the window, and its
 // elementwise step, 8-16 times over, the host (kernels/fused_resnet.py,
-// from H, W, C and O alone) sends the backward to backward_gemm instead:
-// an elementwise pre-pass writes a = T(relu(x*scale + shift)) and e =
-// T(dy + perch + dvar2*(y - mean)) once, rounded as the windows round
-// them (so the products see the same bits), and a transposing pass the
-// taps-flipped weights [9O, C]; then dx and dw run on the 1x1 kernels'
-// tile body (conv_gemm.cuh: 128 x 128 tiles, 8 warps, a ring of three
-// cp.async groups, ldmatrix and mma.sync) with A gathered by tap: row p
-// of a slice at tap t reads pixel p shifted by t, or zeros outside the
-// image (cp.async with src-size 0). dx is M = N*H*W pixels x C with K =
-// 9*O and the gated epilogue of the 1x1 dx (dscale, dshift partials per
-// 128-pixel tile); dw is 9C x O with K = the pixels, cut into chunks
-// whose fp32 partials a column total adds. The extra bytes: a and e
-// written and read once, 2 x 6.4 MB at layer4 (about 4 us).
+// from H, W, C and O alone) sends the forward to forward_gemm and the
+// backward to backward_gemm instead: an elementwise pre-pass writes a =
+// T(relu(x*scale + shift)) (and for the backward e = T(dy + perch +
+// dvar2*(y - mean))) once, rounded as the windows round them (so the
+// products see the same bits), and for dx a transposing pass the
+// taps-flipped weights [9O, C]; then the products run on the 1x1 kernels'
+// tile body (conv_gemm.cuh: 8 warps, a ring of three cp.async groups,
+// ldmatrix and mma.sync) with A gathered by tap: row p of a slice at tap
+// t reads pixel p shifted by t, or zeros outside the image (cp.async with
+// src-size 0), which is the activation domain's zero the padding needs.
+// The forward is M = N*H*W pixels x O with K = 9*C, B = w9 as it lies,
+// with the 1x1 forward's epilogue (y rounded, each 128-pixel tile's mean
+// and M2) and a fixed-order Chan combine after it. (A 128 x 64 tile,
+// which fills the 7x7 stage's grid at three blocks an SM, ran layer2-4
+// 2-23% slower on an H100: its warps load more shared memory per
+// product.) dx is M x C with K = 9*O and the gated epilogue of the 1x1
+// dx (dscale, dshift partials per 128-pixel tile); dw is 9C x O with K =
+// the pixels, cut into chunks whose fp32 partials a column total adds.
+// The extra bytes: a (and e) written and read once, 6.4 MB each at
+// layer4 (about 2 us each).
 //
 // What bounds them on the H100: at ResNet-50's 3x3 shapes (b128 at
 // 224x224) the products, 29.6 GFLOP per forward and 59.2 per backward at
@@ -83,8 +90,8 @@
 // statistics run in turn within a block (no double buffering), the
 // windows are rebuilt for every 64 output channels, and mma.sync reaches
 // about two thirds of the wgmma rate at best. The GEMM route keeps the
-// products' loads in flight and computes each a and e once; wgmma with
-// TMA is the next step for both.
+// products' loads in flight and computes each a and e once; it runs at
+// ResNet-50's layer2-4 shapes, the window kernels at layer1's.
 //
 // Shapes: any N, H, W >= 1; C and O multiples of 8 (rows stay 16-byte
 // aligned). Element types float32 and bfloat16 (dtype 0 / 1), the same for
@@ -734,6 +741,53 @@ chunk_total_kernel(const float* __restrict__ part, int chunks, int64_t n,
   *reinterpret_cast<float4*>(out + i) = s;
 }
 
+// each 128-pixel row tile's pixel count, for stats_finish_kernel
+struct RowTilePixels {
+  int M;
+  __device__ float operator()(int t) const {
+    return (float)min(paddle_gemm::kBM, M - t * paddle_gemm::kBM);
+  }
+};
+
+// The forward on the implicit GEMM route: the pre-pass writes a [M, C]
+// into scratch; y [M, O] is conv_gemm.cuh's tile body with A = a gathered
+// by tap (K = 9C) and B = w9, its epilogue writing y and each row tile's
+// (mean, M2) [tiles, O], which the fixed-order Chan combine finishes.
+template <typename T>
+int forward_gemm(const T* x, const float* scale, const float* shift,
+                 const T* w9, T* y, float* pmean, float* pm2, float* mean,
+                 float* var, T* a_mat, int N, int H, int W, int C, int O,
+                 cudaStream_t st) {
+  namespace pg = paddle_gemm;
+  const int M = N * H * W;
+  const int64_t na8 = (int64_t)M * C / 8;
+  const int64_t want = (na8 + kThreads - 1) / kThreads;
+  const int blocks = (int)(want < 8 * 132 ? want : 8 * 132);
+  conv3x3_prep_kernel<T><<<blocks, kThreads, 0, st>>>(
+      x, scale, shift, nullptr, nullptr, nullptr, nullptr, nullptr, a_mat,
+      nullptr, na8, 0, C, O);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  pg::TapArgs<T> a;
+  a.x = a_mat, a.scale = a.shift = nullptr, a.w = w9;
+  a.dy = a.y = nullptr, a.perch = a.dvar2 = a.mean = nullptr;
+  a.out = y, a.p0 = pmean, a.p1 = pm2;
+  a.M = M, a.K = 9 * C, a.N = O, a.chunk_rows = 0;
+  a.img_h = H, a.img_w = W, a.taps_ld = C;
+  a.div_h = pg::FastDiv::of(H), a.div_w = pg::FastDiv::of(W);
+  a.div_ld = pg::FastDiv::of(C);
+  auto kfwd = pg::mm_stats_kernel<T, pg::kFwd, false, true>;
+  constexpr size_t kBytes = pg::Layout<T, pg::kFwd, false, true>::kBytes;
+  if ((err = cudaFuncSetAttribute(
+           kfwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)kBytes)) != cudaSuccess)
+    return err;
+  const int tiles = tiles_of(M, pg::kBM);
+  kfwd<<<dim3(tiles_of(O, pg::kBN), tiles), pg::kThreads, kBytes, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return stats_finish(pmean, pm2, tiles, O, RowTilePixels{M}, mean, var, st);
+}
+
 // The backward on the implicit GEMM route: the pre-passes write a, e and
 // the flipped weights into scratch ([M, C], [M, O], [9O, C] of T); dx is
 // conv_gemm.cuh's tile body with A = e gathered by tap (M x C, K = 9O)
@@ -892,16 +946,44 @@ bool channels_ok(int C, int O) {
 
 // Forward. x [N,H,W,C], w9 [9C,O], y [N,H,W,O] contiguous, of dtype 0
 // (float32) or 1 (bfloat16); scale, shift fp32 [C]; mean, var fp32 [O].
-// The tiling: slabs of R rows x Wt columns, G slabs a tile (R*Wt*G <= 128,
-// G*(R+2)*(Wt+2) <= 512); tiles = ceil(N*ceil(H/R)*ceil(W/Wt) / G).
-// Scratch: part_mean, part_m2 fp32 [tiles, O], part_count fp32 [tiles].
-// Two launches (the convolution with its tile statistics, then the
-// fixed-order combine). Returns the cudaError_t of the launches.
+// route, chosen by the caller from (H, W, C, O):
+//   0, the window kernel: slabs of R rows x Wt columns, G slabs a tile
+//      (R*Wt*G <= 128, G*(R+2)*(Wt+2) <= 512); tiles = ceil(N*ceil(H/R)*
+//      ceil(W/Wt) / G). Scratch: part_mean, part_m2 fp32 [tiles, O],
+//      part_count fp32 [tiles]; scratch unused. Two launches (the
+//      convolution with its tile statistics, then the fixed-order
+//      combine).
+//   1, the implicit GEMM (forward_gemm): R, Wt, G and part_count unused;
+//      part_mean, part_m2 fp32 [ceil(N*H*W / 128), O]; scratch of the
+//      input dtype, N*H*W*C elements (a). Three launches (the pre-pass,
+//      the product with its tile statistics, the combine).
+// Returns the cudaError_t of the launches.
 extern "C" int paddle_conv3x3_bn_stats(
     const void* x, const float* scale, const float* shift, const void* w9,
     void* y, float* part_mean, float* part_m2, float* part_count,
-    float* mean, float* var, int dtype, int N, int H, int W, int C, int O,
-    int R, int Wt, int G, void* stream) {
+    float* mean, float* var, void* scratch, int dtype, int route, int N,
+    int H, int W, int C, int O, int R, int Wt, int G, void* stream) {
+  if (route == 1) {
+    const int64_t M = (int64_t)N * H * W;
+    if (N < 1 || H < 1 || W < 1 || M > INT32_MAX / 9 || !channels_ok(C, O) ||
+        scratch == nullptr)
+      return cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 0)
+      return forward_gemm<float>(
+          static_cast<const float*>(x), scale, shift,
+          static_cast<const float*>(w9), static_cast<float*>(y), part_mean,
+          part_m2, mean, var, static_cast<float*>(scratch), N, H, W, C, O,
+          st);
+    if (dtype == 1)
+      return forward_gemm<bf16>(
+          static_cast<const bf16*>(x), scale, shift,
+          static_cast<const bf16*>(w9), static_cast<bf16*>(y), part_mean,
+          part_m2, mean, var, static_cast<bf16*>(scratch), N, H, W, C, O,
+          st);
+    return cudaErrorInvalidValue;
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   Geo g{N, H, W, R, Wt, G, 0, 0};
   const int tiles = tiles_for(g);
   if (!tiles || !channels_ok(C, O)) return cudaErrorInvalidValue;

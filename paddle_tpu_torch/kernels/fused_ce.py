@@ -10,8 +10,9 @@ runs ``ce_fwd`` and its backward ``ce_bwd``: the kernels of
 ``ce_fwd_plain`` / ``ce_bwd_plain`` (same signatures) for tensors on the
 CPU. Nothing else picks a plain version: on the card a kernel either
 launches or raises. ``ce_fwd.launches`` counts forward launches and
-``ce_bwd.launches`` the backward's two (dh and dW), each plain version
-its calls (``ce_fwd_plain.calls``).
+``ce_bwd.launches`` the backward's, two a vocabulary chunk
+(``ce_bwd_plan``): the logits with d, then dW and dh; each plain
+version counts its calls (``ce_fwd_plain.calls``).
 
 Numerics, as in the JAX package's kernels: logits in fp32 (exact
 products of the inputs, fp32 sums); natural exp and log, ``l == 0``
@@ -37,10 +38,10 @@ DEFAULT_BLOCK_V = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"paddle_ce_fwd": (_I, (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P)),
-        "paddle_ce_bwd_dh": (_I, (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
-                                  _P)),
-        "paddle_ce_bwd_dw": (_I, (_P, _P, _P, _P, _P, _P, _L, _L, _I, _I,
-                                  _P))}
+        "paddle_ce_bwd": (_I, (_P,) * 9 + (_L, _L, _I, _I, _I, _P))}
+#: the backward's vocabulary chunk: at most _CHUNK_V columns, a multiple
+#: of _CHUNK_STEP (csrc/fused_ce.cu's kChunkV and kChunkStep)
+_CHUNK_V, _CHUNK_STEP = 8192, 128
 #: fp32 logits a plain version builds at once, in rows of V
 _PLAIN_CHUNK = 1 << 27
 
@@ -110,6 +111,18 @@ def ce_bwd_plain(h, w, y, lse, dce, vocab_major=True):
 
 
 # ----------------------------------------------------------- kernels
+
+def ce_bwd_plan(n, vocab, hd, elem):
+    """(vc, chunks, scratch bytes) of the backward kernels on h [n, hd]
+    and W [vocab, hd] of ``elem`` bytes an element (hd as the kernels
+    take it, a multiple of 8): the vocabulary in ``chunks`` chunks of vc
+    columns, the last one shorter; the scratch is d [n, vc] in the
+    element type and, past one chunk, the fp32 dh accumulator [n, hd].
+    The kernels launch twice a chunk."""
+    vc = min(_CHUNK_V, -(-vocab // _CHUNK_STEP) * _CHUNK_STEP)
+    chunks = -(-vocab // vc)
+    return vc, chunks, n * vc * elem + (4 * n * hd if chunks > 1 else 0)
+
 
 def _check(h, w, y, vocab_major):
     if h.dim() != 2 or w.dim() != 2 or y.dim() != 1:
@@ -190,8 +203,9 @@ def ce_fwd(h, w, y, vocab_major=True):
 
 def ce_bwd(h, w, y, lse, dce, vocab_major=True):
     """(dh, dW) in h's and W's dtypes and shapes: the kernels for CUDA
-    tensors (``paddle_ce_bwd_dh``, ``paddle_ce_bwd_dw``), the plain
-    version for CPU tensors."""
+    tensors (``paddle_ce_bwd``: three products over vocabulary chunks,
+    with the scratch ``ce_bwd_plan`` sizes), the plain version for CPU
+    tensors."""
     _check(h, w, y, vocab_major)
     if tuple(lse.shape) != tuple(y.shape) or \
             tuple(dce.shape) != tuple(y.shape):
@@ -209,17 +223,19 @@ def ce_bwd(h, w, y, lse, dce, vocab_major=True):
         dw = _unpad(dw, h.shape[1])
         return _unpad(dh, h.shape[1]), (dw if vocab_major
                                         else dw.t().contiguous())
-    lib = _library()
-    args = (hc.data_ptr(), wv.data_ptr(), y32.data_ptr(), lse.data_ptr(),
-            s.data_ptr())
-    dims = (h.shape[0], wv.shape[0], hc.shape[1], code)
+    n, vocab, hd = h.shape[0], wv.shape[0], hc.shape[1]
+    vc, chunks, _ = ce_bwd_plan(n, vocab, hd, hc.element_size())
+    d = torch.empty((n, vc), dtype=h.dtype, device=h.device)
+    acc = torch.empty((n, hd), dtype=torch.float32, device=h.device) \
+        if chunks > 1 else None
     with torch.cuda.device(h.device):
-        err = lib.paddle_ce_bwd_dh(*args, dh.data_ptr(), *dims, _stream(h))
-        _build.raise_on(err, "ce_bwd (dh)")
-        ce_bwd.launches += 1
-        err = lib.paddle_ce_bwd_dw(*args, dw.data_ptr(), *dims, _stream(h))
-        _build.raise_on(err, "ce_bwd (dW)")
-        ce_bwd.launches += 1
+        err = _library().paddle_ce_bwd(
+            hc.data_ptr(), wv.data_ptr(), y32.data_ptr(), lse.data_ptr(),
+            s.data_ptr(), dh.data_ptr(), dw.data_ptr(), d.data_ptr(),
+            None if acc is None else acc.data_ptr(), n, vocab, hd, vc, code,
+            _stream(h))
+    _build.raise_on(err, "ce_bwd")
+    ce_bwd.launches += 2 * chunks
     dh, dw = _unpad(dh, h.shape[1]), _unpad(dw, h.shape[1])
     return dh, (dw if vocab_major else dw.t().contiguous())
 

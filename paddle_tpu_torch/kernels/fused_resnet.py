@@ -41,10 +41,11 @@ weight) is the fused 3x3 pair: its autograd Function runs
 ``csrc/fused_conv3x3.cu`` on a card and ``*_plain`` on the CPU, with the
 same numerics (the activation rounded before the product, zero outside
 the image in the activation domain; y rounded before its statistics;
-the effective gradient rounded before both products). The backward has
-two routes, chosen on the host from (H, W, C, O) alone
-(``_conv3x3_bwd_route``): the window kernels, or the implicit GEMMs on
-the 1x1 kernels' tile body after a pre-pass that writes a and e once.
+the effective gradient rounded before both products). Forward and
+backward each have two routes, chosen on the host from (H, W, C, O)
+alone (``_conv3x3_route``, one rule for both): the window
+kernels, or the implicit GEMMs on the 1x1 kernels' tile body after a
+pre-pass that writes a (and for the backward e) once.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ _SIG = {"paddle_mm_bn_stats_geometry": (None, (_P,)),
         "paddle_mm_bn_stats_route": (_I, (_I,)),
         "paddle_mm_bn_stats": (_I, (_P,) * 9 + (_I,) * 5 + (_P,)),
         "paddle_mm_bn_stats_bwd": (_I, (_P,) * 16 + (_I,) * 7 + (_P,))}
-_SIG3 = {"paddle_conv3x3_bn_stats": (_I, (_P,) * 10 + (_I,) * 9 + (_P,)),
+_SIG3 = {"paddle_conv3x3_bn_stats": (_I, (_P,) * 11 + (_I,) * 10 + (_P,)),
          "paddle_conv3x3_bn_stats_bwd": (_I, (_P,) * 17 + (_I,) * 12
                                          + (_P,))}
 # the 1x1 dw kernel's rows are cut into chunks until about _DW_BLOCKS
@@ -75,9 +76,9 @@ _DW_BLOCKS = 4 * 132
 # bytes
 _PIX3, _WIN3, _DW3_C, _DW3_O = 128, 512, 64, 32
 _DW3_BLOCKS, _DW3_SCRATCH = 2 * 132, 64 * 2 ** 20
-# the 3x3 backward's implicit GEMM route (``_conv3x3_bwd_route``): images
-# of at most _GEMM3_MAX_HW pixels, with at least _GEMM3_MIN_CH channels in
-# and out (its 128-wide tiles: a 64-channel side idles half of them)
+# the 3x3 implicit GEMM routes (``_conv3x3_route``): images of at most
+# _GEMM3_MAX_HW pixels, with at least _GEMM3_MIN_CH channels in and out
+# (its 128-wide tiles: a 64-channel side idles half of them)
 _GEMM3_MAX_HW, _GEMM3_MIN_CH = 28 * 28, 128
 _ROUTES3 = {"window": 0, "gemm": 1}
 
@@ -471,16 +472,28 @@ def _dw3_chunks(tiles, c, o):
     return -(-tiles // per), per
 
 
-def _conv3x3_bwd_route(h, w, c, o):
-    """The 3x3 backward's route for h x w images, c -> o channels:
-    ``"gemm"``, the implicit GEMMs on the 1x1 kernels' tile body
-    (``csrc/conv_gemm.cuh``) after a pre-pass that writes a and e once,
-    where a window tile would be mostly halo and padding and rebuild its
-    window for every 64 output channels; ``"window"``, the window kernels,
-    elsewhere (ResNet-50's layer1, 56x56 at 64 channels)."""
+def _conv3x3_route(h, w, c, o):
+    """The 3x3 forward's and backward's route for h x w images, c -> o
+    channels: ``"gemm"``, the implicit GEMMs on the 1x1 kernels' tile body
+    (``csrc/conv_gemm.cuh``) after a pre-pass that writes a (and for the
+    backward e) once, where a window tile would be mostly halo and padding
+    and rebuild its window for every 64 output channels; ``"window"``, the
+    window kernels, elsewhere (ResNet-50's layer1, 56x56 at 64 channels,
+    where the GEMM routes measured no faster)."""
     if h * w <= _GEMM3_MAX_HW and min(c, o) >= _GEMM3_MIN_CH:
         return "gemm"
     return "window"
+
+
+def _conv3x3_fwd_plan(n, h, w, route, geometry=None):
+    """(R, Wt, G, partial tiles) of the 3x3 forward on ``route``: the
+    window kernel's tiling, one statistics row a tile; or, for the GEMM
+    route, one statistics row a row tile of the 1x1 kernels' tile
+    (``_geometry()``)."""
+    if route == "window":
+        return _conv3x3_tiles(n, h, w)
+    geometry = _geometry() if geometry is None else geometry
+    return 0, 0, 0, -(-(n * h * w) // geometry[0])
 
 
 def _conv3x3_bwd_plan(n, h, w, c, o, route, geometry=None):
@@ -529,23 +542,37 @@ def conv3x3_bn_stats_fwd(x, scale, shift, w9):
     if x.device.type == "cpu":
         return conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
     n, h, w, c = x.shape
+    out = _launch_fwd3(x, scale, shift, w9,
+                       _conv3x3_route(h, w, c, w9.shape[1]))
+    conv3x3_bn_stats_fwd.launches += 1
+    return out
+
+
+def _launch_fwd3(x, scale, shift, w9, route):
+    """``paddle_conv3x3_bn_stats`` on checked CUDA tensors, on ``route``
+    ("window" or "gemm"); returns (y, mean, var)."""
+    n, h, w, c = x.shape
     code, _, _, o = _codes(x.flatten(0, 2), w9[:c])
     x, w9 = _kernel_inputs([("x", x), ("w9", w9)])
     scale, shift = _f32(scale), _f32(shift)
-    r, wt, g, tiles = _conv3x3_tiles(n, h, w)
+    r, wt, g, tiles = _conv3x3_fwd_plan(n, h, w, route)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
     part = torch.empty((2, tiles, o), **f32)
-    count = torch.empty((tiles,), **f32)
+    count = torch.empty((tiles,), **f32) if route == "window" else None
     stats = torch.empty((2, o), **f32)
+    # the GEMM route's a [M, C]
+    scratch = torch.empty((n * h * w * c,), dtype=x.dtype,
+                          device=x.device) if route == "gemm" else None
     with torch.cuda.device(x.device):
         err = _library3().paddle_conv3x3_bn_stats(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w9.data_ptr(),
             y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-            count.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            code, n, h, w, c, o, r, wt, g, _stream(x))
+            None if count is None else count.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(),
+            None if scratch is None else scratch.data_ptr(), code,
+            _ROUTES3[route], n, h, w, c, o, r, wt, g, _stream(x))
     _build.raise_on(err, "conv3x3_bn_stats")
-    conv3x3_bn_stats_fwd.launches += 1
     return y, stats[0], stats[1]
 
 
@@ -562,7 +589,7 @@ def conv3x3_bn_stats_bwd(dy, y, x, scale, shift, w9, perch, dvar2, mean):
                                           dvar2, mean)
     n, h, w, c = x.shape
     out = _launch_bwd3(dy, y, x, scale, shift, w9, perch, dvar2, mean,
-                       _conv3x3_bwd_route(h, w, c, w9.shape[1]))
+                       _conv3x3_route(h, w, c, w9.shape[1]))
     conv3x3_bn_stats_bwd.launches += 1
     return out
 

@@ -42,10 +42,21 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
 def rms_norm(x, weight=None, epsilon: float = 1e-6):
     """RMSNorm over the last dim: x / sqrt(mean(x^2) + eps), computed in
     fp32 for bf16 inputs, cast back to the input dtype, then scaled —
-    the JAX package's order of operations."""
+    the JAX package's cast and scale order. On the CPU it is the JAX
+    package's ``mean`` of the squares and division (bitwise). On a CUDA
+    card the normalized row comes from one ``torch.nn.functional.
+    rms_norm`` without weight, whose kernel reduces every row in one
+    block of a fixed size, so a row's bits do not depend on how many
+    rows the call holds (a ``mean`` spreads a row over more threads the
+    fewer rows there are, as ``layer_norm`` did). That kernel multiplies
+    by rsqrt(mean + eps) instead of dividing by sqrt(mean + eps), which
+    can move the fp32 value by an ulp before the cast."""
     xf = x.float() if x.dtype == torch.bfloat16 else x
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
+    if xf.is_cuda:
+        out = TF.rms_norm(xf, xf.shape[-1:], eps=epsilon).to(x.dtype)
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
     if weight is not None:
         out = out * weight
     return out

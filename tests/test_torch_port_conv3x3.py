@@ -181,6 +181,67 @@ def test_border_reads_zero_in_the_activation_domain():
     np.testing.assert_allclose(y[0, 1, 1].numpy(), 4.0)   # 8 * relu(0.5)
 
 
+def _gemm_route_forward(x, scale, shift, w9, row_tile=128):
+    """The forward's implicit GEMM route in torch, as its kernels take it:
+    the pre-pass a = T(relu(x*scale + shift)) [M, C]; A [M, 9C] gathers
+    tap t of pixel p from a, zero where the tap leaves the image (the
+    activation domain's zero); y = T(A @ w9) from fp32 sums; each
+    ``row_tile``-pixel row tile its (count, mean, M2), two-pass over the
+    rounded y; Chan's combine of the tiles in row order."""
+    n, h, w, c = x.shape
+    a = torch.relu(x.float() * scale + shift).to(x.dtype)
+    ap = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
+    taps = [ap[:, i:i + h, j:j + w] for i in range(3) for j in range(3)]
+    big = torch.cat(taps, dim=-1).reshape(n * h * w, 9 * c)
+    y = (big.float() @ w9.float()).to(x.dtype)
+    yf = y.float()
+    cnt, mean, m2 = 0, torch.zeros(w9.shape[1]), torch.zeros(w9.shape[1])
+    for t0 in range(0, yf.shape[0], row_tile):
+        tile = yf[t0:t0 + row_tile]
+        nb, mb = tile.shape[0], tile.mean(0)
+        qb = ((tile - mb) ** 2).sum(0)
+        tot = cnt + nb
+        delta = mb - mean
+        mean = mean + delta * (nb / tot)
+        m2 = m2 + qb + delta * delta * (cnt * nb / tot)
+        cnt = tot
+    return y.reshape(n, h, w, -1), mean, m2 / cnt
+
+
+@pytest.mark.parametrize("case", _CASES)
+def test_gemm_route_mirror_matches_pallas(case):
+    """The GEMM route's algorithm (a written once, taps gathered with
+    zero fill, per-tile statistics combined in a fixed order) against the
+    Pallas forward in interpret mode, fp32, including a positive shift
+    (relu(shift) > 0: a border read as relu(shift) would show). A row
+    tile of 16 pixels gives the small cases several tiles."""
+    x, scale, shift, w9 = _inputs(case, sum(case[:5]))
+    with HIGHEST:
+        jy, jmean, jvar = jfr.conv3x3_bn_act_stats(
+            *map(jnp.asarray, (x, scale, shift, w9)))
+    y, mean, var = _gemm_route_forward(
+        *map(torch.tensor, (x, scale, shift, w9)), row_tile=16)
+    _close(y.numpy(), jy, 1e-5, "y")
+    _close(mean.numpy(), jmean, 1e-5, "mean")
+    _close(var.numpy(), jvar, 1e-5, "var")
+
+
+def test_gemm_route_mirror_matches_the_plain_version_in_bf16():
+    """In bf16 the mirror rounds a and y where the plain version does:
+    y within one bf16 ulp (fp32 sums in another order), the statistics
+    of the rounded y within 1e-5."""
+    x, scale, shift, w9 = _inputs((2, 7, 7, 16, 24, 0.4), 5)
+    xt, wt = torch.tensor(x).bfloat16(), torch.tensor(w9).bfloat16()
+    st, sh = torch.tensor(scale), torch.tensor(shift)
+    y, mean, var = _gemm_route_forward(xt, st, sh, wt, row_tile=32)
+    py, pmean, pvar = tfr.conv3x3_bn_stats_fwd_plain(xt, st, sh, wt)
+    diff = (y.float() - py.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * py.float().abs() + 1e-6).all())
+    ym, yv = tfr._two_pass_stats(y)
+    _close(mean.numpy(), ym.numpy(), 1e-5)
+    _close(var.numpy(), yv.numpy(), 1e-5)
+
+
 _VMEM_SHAPES = [  # ResNet-50's stride-1 3x3s at b128 224x224 and 448x448
     (56, 56, 64, 64), (28, 28, 128, 128), (14, 14, 256, 256),
     (7, 7, 512, 512), (112, 112, 64, 64), (56, 56, 128, 128),

@@ -791,6 +791,38 @@ def test_layer_norm_rows_do_not_depend_on_the_batch(dev):
     assert bad == 0
 
 
+def test_rms_norm_rows_do_not_depend_on_the_batch(dev):
+    """The port's rms_norm gives a row of an [8, 1, 768] input the bits it
+    gives that row alone, in bf16 with a weight and in fp32 without (C10:
+    a ``mean`` of the squares summed a row in another order at batch 8
+    than at batch 1); and rows of a 16,384 x 768 call (a prefill's rows,
+    where the fused kernel's launch may differ) the bits of the same
+    rows alone, of the first 8 and of the second half."""
+    from paddle_tpu_torch.nn.functional import rms_norm
+    gen = torch.Generator(device=dev).manual_seed(11)
+    w = (_randn(gen, (768,), torch.float32, dev) * 0.1 + 1).bfloat16()
+    bad = 0
+    for i in range(500):
+        x = (_randn(gen, (8, 1, 768), torch.float32, dev) * 3
+             + _randn(gen, (8, 1, 1), torch.float32, dev) * 5)
+        dt, wt = (torch.bfloat16, w) if i % 2 == 0 else (torch.float32, None)
+        x = x.to(dt)
+        y = rms_norm(x, wt)
+        bad += sum(not torch.equal(rms_norm(x[r:r + 1], wt)[0], y[r])
+                   for r in range(8))
+    assert bad == 0
+    n = 16384
+    for dt, wt in ((torch.bfloat16, w), (torch.float32, None)):
+        x = (_randn(gen, (n, 768), torch.float32, dev) * 3
+             + _randn(gen, (n, 1), torch.float32, dev) * 5).to(dt)
+        y = rms_norm(x, wt)
+        bad += sum(not torch.equal(rms_norm(x[r:r + 1], wt)[0], y[r])
+                   for r in range(0, n, 257))
+        bad += not torch.equal(rms_norm(x[:8], wt), y[:8])
+        bad += not torch.equal(rms_norm(x[n // 2:], wt), y[n // 2:])
+    assert bad == 0
+
+
 def test_int8_refuses_what_it_does_not_take(dev):
     """An int8 cache without scales raises on the card as on the CPU;
     scales in another dtype than bf16 raise; nothing launches."""
@@ -1640,7 +1672,7 @@ def test_conv3x3_gemm_route_fp32_and_ragged(dev, n, h, w, c, o):
     ry, rmean, _ = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
     perch, dvar2 = fr._stats_cotangent_coeffs(dmean, dvar, n * h * w)
     args = (dy, ry, x, scale, shift, w9, perch, dvar2, rmean)
-    assert fr._conv3x3_bwd_route(h, w, c, o) == "gemm"
+    assert fr._conv3x3_route(h, w, c, o) == "gemm"
     fr.reset_counts()
     grads = fr.conv3x3_bn_stats_bwd(*args)
     assert fr.conv3x3_bn_stats_bwd.launches == 1
@@ -1681,6 +1713,171 @@ def test_fused_ce_any_hidden_size_matches_plain(dev, dtype, vocab_major,
     _ce_close(ce, ce_p, False)
     _ce_close(dh, dh_p, True)
     _ce_close(dw, dw_p, True)
+
+
+# ------------------------------ fused CE backward on three products
+
+# chip_smoke.py's _CE_SHAPES: (N, H, V, dtype, vocab_major)
+_CE_SMOKE_SHAPES = [(16368, 768, 50257, torch.bfloat16, True),
+                    (4093, 768, 50257, torch.bfloat16, False),
+                    (2045, 768, 8191, torch.float32, True),
+                    (4093, 1024, 50257, torch.bfloat16, True),
+                    (2045, 1600, 50257, torch.bfloat16, False),
+                    (1027, 100, 8191, torch.float32, True)]
+_VC = 8192   # kernels/fused_ce.py's _CHUNK_V
+
+
+@pytest.mark.parametrize("n,hd,vocab,dtype,vocab_major", _CE_SMOKE_SHAPES + [
+    (300, 64, _VC - 1, torch.bfloat16, True),    # chunk edges: inside,
+    (300, 64, _VC, torch.bfloat16, True),        # on and past a tile
+    (300, 64, _VC + 1, torch.bfloat16, False),
+    (300, 64, 2 * _VC - 1, torch.float32, True),
+    (300, 64, 2 * _VC, torch.bfloat16, True),
+    (300, 64, 2 * _VC + 1, torch.float32, False),
+    (257, 100, 2 * _VC + 1, torch.bfloat16, True),
+    (257, 1024, _VC + 129, torch.bfloat16, False),
+    (257, 1600, _VC + 127, torch.float32, True),
+])
+def test_fused_ce_backward_chunks_match_plain(dev, n, hd, vocab, dtype,
+                                              vocab_major):
+    """Row 12 (three products over vocabulary chunks) against the plain
+    version by the fused-CE rule, at chip_smoke.py's shapes and with V on
+    and on either side of a chunk edge, on chip_smoke.py's data (W at
+    gpt2's 0.02 scale, the cotangent of a mean over the rows; at larger
+    logits see the fp64 test below): launches two a chunk, bits
+    repeated, ignored rows' dh exactly 0, and the call's peak memory over
+    its inputs within the planned scratch plus dh and dW."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, y, dce = _ce_inputs(dev, n, hd, vocab, dtype, vocab_major,
+                              seed=vocab % 97)
+    w, dce = (w.float() * 0.2).to(dtype), dce / n
+    lse, _ = fc.ce_fwd(h, w, y, vocab_major)
+    torch.cuda.synchronize()
+    fc.reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dh, dw = fc.ce_bwd(h, w, y, lse, dce, vocab_major)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    hd8 = -(-hd // 8) * 8
+    vc, chunks, scratch = fc.ce_bwd_plan(n, vocab, hd8, h.element_size())
+    assert fc.ce_bwd.launches == 2 * chunks
+    assert (fc.ce_fwd_plain.calls, fc.ce_bwd_plain.calls) == (0, 0)
+    # scratch, dh and dW (twice over where the wrapper transposes or pads
+    # them), the padded or transposed operands, and N-sized vectors
+    outs = (n + vocab) * hd8 * h.element_size()
+    copies = 0 if vocab_major and hd8 == hd else outs
+    assert peak <= scratch + 2 * outs + copies + 64 * n + 2 ** 20, peak
+    again = fc.ce_bwd(h, w, y, lse, dce, vocab_major)
+    torch.cuda.synchronize()
+    assert torch.equal(dh, again[0]) and torch.equal(dw, again[1])
+    assert bool((dh[y < 0] == 0).all())
+    dh_p, dw_p = fc.ce_bwd_plain(h, w, y, lse, dce, vocab_major)
+    _ce_close(dh, dh_p, True)
+    _ce_close(dw, dw_p, True)
+
+
+@pytest.mark.parametrize("n,hd,vocab,dtype,vocab_major",
+                         [s for s in _CE_SMOKE_SHAPES if s[2] > _VC])
+def test_fused_ce_backward_is_as_close_to_fp64_as_plain(dev, n, hd, vocab,
+                                                        dtype, vocab_major):
+    """At the default data (W at 0.1, unscaled cotangents: logits of std
+    3-4, gold-column d near 1) and every shape of chip_smoke.py with more
+    than one chunk, a d that lies on a bf16 rounding boundary may round
+    the other way in the kernel and in the plain version (their fp32
+    logits are summed in another order), and one such flip moves a dh
+    element by up to |W| * 2^-8, past 1e-3 of the largest dh. So both
+    are held to an fp64 reference that rounds d to bf16 as they do: the
+    kernel's mean error within 1.05x the plain version's, its largest
+    within 1.1x."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    h, w, y, dce = _ce_inputs(dev, n, hd, vocab, dtype, vocab_major,
+                              seed=vocab % 97)
+    lse, _ = fc.ce_fwd(h, w, y, vocab_major)
+    dh = fc.ce_bwd(h, w, y, lse, dce, vocab_major)[0]
+    dh_p = fc.ce_bwd_plain(h, w, y, lse, dce, vocab_major)[0]
+    wv = (w if vocab_major else w.t()).double()
+    s = torch.where(y >= 0, dce.double(), torch.zeros_like(dce.double()))
+    ref = torch.empty((n, hd), dtype=torch.float64, device=dev)
+    for r0 in range(0, n, 256):
+        d = torch.exp(h[r0:r0 + 256].double() @ wv.t()
+                      - lse[r0:r0 + 256, None].double())
+        yy = y[r0:r0 + 256]
+        hit = (yy >= 0) & (yy < vocab)
+        d[torch.arange(d.shape[0], device=dev)[hit], yy[hit]] -= 1
+        d *= s[r0:r0 + 256, None]
+        ref[r0:r0 + 256] = d.to(dtype).double() @ wv
+    err, err_p = (dh.double() - ref).abs(), (dh_p.double() - ref).abs()
+    assert float(err.mean()) <= 1.05 * float(err_p.mean()), (
+        float(err.mean()), float(err_p.mean()))
+    assert float(err.max()) <= 1.1 * float(err_p.max()), (
+        float(err.max()), float(err_p.max()))
+
+
+def test_fused_ce_backward_refuses_a_chunk_past_its_limit(dev):
+    """The C entry takes vocabulary chunks of up to ``_CHUNK_V`` columns
+    (the source's kChunkV) and refuses a wider one before any launch."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    n, hd, vocab = 4, 8, 3 * fc._CHUNK_V
+    h, w, y, dce = _ce_inputs(dev, n, hd, vocab, torch.bfloat16, True)
+    lse, _ = fc.ce_fwd(h, w, y)
+    y32, s = y.to(torch.int32), torch.where(y >= 0, dce, 0 * dce)
+    dh, dw = torch.empty_like(h), torch.empty_like(w)
+    acc = torch.empty((n, hd), dtype=torch.float32, device=dev)
+    for vc, ok in ((fc._CHUNK_V, True),
+                   (fc._CHUNK_V + fc._CHUNK_STEP, False)):
+        d = torch.empty((n, vc), dtype=h.dtype, device=dev)
+        err = fc._library().paddle_ce_bwd(
+            h.data_ptr(), w.data_ptr(), y32.data_ptr(), lse.data_ptr(),
+            s.data_ptr(), dh.data_ptr(), dw.data_ptr(), d.data_ptr(),
+            acc.data_ptr(), n, vocab, hd, vc, 1, fc._stream(h))
+        torch.cuda.synchronize()
+        assert (err == 0) == ok, (vc, err)
+
+
+# -------------------------------- fused 3x3 forward on the GEMM route
+
+@pytest.mark.parametrize("n,h,w,c,o,route", [
+    (128, 28, 28, 128, 128, "gemm"),   # ResNet-50 layer2-4 at b128
+    (128, 14, 14, 256, 256, "gemm"),
+    (128, 7, 7, 512, 512, "gemm"),
+    (4, 28, 28, 128, 136, "gemm"),     # the route's edges: the largest
+    (4, 29, 28, 128, 128, "window"),   # image, one row past it,
+    (4, 7, 7, 128, 128, "gemm"),       # the fewest channels,
+    (4, 7, 7, 120, 128, "window"),     # and fewer
+    (3, 7, 5, 136, 128, "gemm"),       # pixels off 128, channels off 64
+])
+def test_conv3x3_forward_routes(dev, n, h, w, c, o, route):
+    """Row 17 on the route the wrapper chooses for (H, W, C, O), and on
+    the other one, against the plain version by rows 13-16's rules in
+    bf16, with a shift that makes relu(shift) > 0 (the border must read
+    0); bits repeated."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    assert fr._conv3x3_route(h, w, c, o) == route
+    gen = torch.Generator(device=dev).manual_seed(n + h + c + o)
+    x, scale, shift, w9, _, _, _ = _conv3x3_inputs(
+        gen, n, h, w, c, o, torch.bfloat16, dev, 0.3)
+    ref = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+    for r in ("gemm", "window"):
+        out = fr._launch_fwd3(x, scale, shift, w9, r)
+        again = fr._launch_fwd3(x, scale, shift, w9, r)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+        _close_scaled(out[0], ref[0], _ULP[torch.bfloat16])
+        _close_stats(out[1], out[2], ref[1], ref[2])
+
+
+def test_conv3x3_forward_gemm_route_fp32(dev):
+    """The forward GEMM route in fp32 (its indexing at one fp32 ulp) at a
+    shape off its tiles, the border under a positive shift."""
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    gen = torch.Generator(device=dev).manual_seed(77)
+    x, scale, shift, w9, _, _, _ = _conv3x3_inputs(
+        gen, 3, 7, 5, 136, 72, torch.float32, dev, 0.3)
+    out = fr._launch_fwd3(x, scale, shift, w9, "gemm")
+    ref = fr.conv3x3_bn_stats_fwd_plain(x, scale, shift, w9)
+    _close_scaled(out[0], ref[0], _ULP[torch.float32])
+    _close_stats(out[1], out[2], ref[1], ref[2])
 
 
 # ----------------------------- head dims the kernels are not built for
