@@ -1625,10 +1625,11 @@ def phase_fused_ce_kernels(torch, timer):
     (h [16368, 768], tied W [50257, 768], bf16), the [H, V] layout and
     fp32 at a smaller shape, every 7th label -1; ce and lse within the
     LSE rule, dh and dW by the training rule, ignored rows 0, a repeat
-    bitwise equal. Timed at the first shape beside the saved-logits
-    forward in PyTorch calls and its ``torch.autograd.grad``; there the
-    backward's scratch is measured (one call's peak allocation less its
-    outputs) and held to ``ce_bwd_plan``'s bytes."""
+    bitwise equal. Timed at the first shape, each call also by kernel,
+    beside the saved-logits forward in PyTorch calls and its
+    ``torch.autograd.grad``; there the backward's scratch is measured
+    (one call's peak allocation less its outputs) and held to
+    ``ce_bwd_plan``'s bytes."""
     from paddle_tpu_torch.kernels import fused_ce as fc
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -1690,6 +1691,7 @@ def phase_fused_ce_kernels(torch, timer):
                                                                  lses)]
         ms = {"fused_ce_fwd": timer.ms(fc.ce_fwd, fwd_args, n=10),
               "fused_ce_bwd": timer.ms(fc.ce_bwd, bwd_args, n=5)}
+        fwd_by_kernel = _kernel_ms(torch, fc.ce_fwd, fwd_args[0], n=3)
         bwd_by_kernel = _kernel_ms(torch, fc.ce_bwd, bwd_args[0], n=3)
         # the backward's scratch, measured: one call's peak above what
         # its inputs hold, less its outputs, against the wrapper's plan
@@ -1724,7 +1726,9 @@ def phase_fused_ce_kernels(torch, timer):
             bwd = name == "fused_ce_bwd"
             bms, bby = _ce_bound(n, hd, vocab, 2, bwd)
             extra, plan = dict(share_of_bound=bms / ms[name]), {}
-            if bwd:
+            if not bwd:   # one launch: the splits fold in a cluster
+                extra.update(ms_by_kernel=fwd_by_kernel)
+            else:
                 # the backward's products: the logits with d, then dW and
                 # dh in one grid; its scratch, d and the dh accumulator
                 extra.update(ms_by_kernel=bwd_by_kernel,

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Time the fused CE backward (TPU kernel table row 12) and the fused
-3x3 conv + BN-statistics forward (row 17) through their public
-wrappers only, so that the same script times any tree of the port and
-two trees can be compared in one call on one card:
+"""Time the fused CE forward and backward (TPU kernel table rows 11 and
+12) and the fused 3x3 conv + BN-statistics forward (row 17) through
+their public wrappers only, so that the same script times any tree of
+the port and two trees can be compared in one call on one card:
 
-    python3 experiments/ce_conv3x3_probe.py [TREE] [--only=ce|conv]
+    python3 experiments/ce_conv3x3_probe.py [TREE] [--only=fwd|ce|conv]
                                             [--route=gemm|window]
+                                            [--fwd-variant=VARIANT]
 
 TREE (default: this checkout) is the root whose ``paddle_tpu_torch`` is
-imported and built. Row 12 runs at gpt2-small's LM head at b16 s1024
+imported and built. Row 11 (``--only=fwd``) runs ``ce_fwd`` at the same
+shape and data as row 12 below; its line gives the device ms per call,
+the ms by kernel, the saved-logits forward in PyTorch calls
+(``chip_smoke._ce_library``) as the yardstick, the bound and the share.
+Row 12 runs at gpt2-small's LM head at b16 s1024
 (h [16368, 768], tied W [50257, 768] bf16, every 7th label ignored),
 two input sets in turn; its line gives the device ms per call
 (``chip_smoke.DeviceTimer``), the device ms per call of each kernel it
@@ -26,11 +31,18 @@ combine), the yardstick (the prologue in torch, ``F.conv2d`` on
 channels-last bf16 and ``torch.var_mean``), the bound
 (``chip_smoke._conv3x3_bound``) and the share. ``--route`` sends row 17
 down that route at every shape (``fused_resnet._launch_fwd3``; a tree
-that has the route). The first line is the card's name and power
-limit.
+that has the route). ``--fwd-variant`` times row 11 on a copy of
+TREE's package (in TREE's ``build/fwd_variants/``) whose
+``csrc/fused_ce.cu`` is edited: ``product-only`` cuts the bf16
+forward's softmax step out (the ring, the products and the fold alone,
+its lse meaningless), which says what the softmax costs; ``splits=K``
+folds K vocabulary splits in place of 8. The first line is the card's
+name and power limit.
 """
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -40,6 +52,44 @@ ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 TREE = os.path.abspath(ARGS[0]) if ARGS else REPO
 ONLY = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--only=")]
 ROUTE = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--route=")]
+VARIANT = [a.split("=", 1)[1] for a in sys.argv[1:]
+           if a.startswith("--fwd-variant=")]
+# the bf16 forward's softmax step, as fused_ce.cu calls it (two calls)
+_STEP = re.compile(r"fwd_step<(?:true|false)>\(acc\[c\], hh, tw, lim, yc, "
+                   r"rm\[hh\], rl\[hh\], gold\);")
+
+
+def variant_tree(tree, variant):
+    """The root of a copy of ``tree``'s package with the forward edited
+    as ``variant`` says."""
+    root = os.path.join(tree, "build", "fwd_variants", variant)
+    pkg = os.path.join(root, "paddle_tpu_torch")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "paddle_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = os.path.join(pkg, "csrc", "fused_ce.cu")
+    text = open(src).read()
+    if variant == "product-only":
+        # keep the accumulators, the label and gold live, as the step does
+        text, n = _STEP.subn(
+            "rl[hh] += acc[c][hh] + yc + (gold != nullptr);", text)
+        want = 2
+    elif variant.startswith("splits="):
+        text, n = re.subn(r"constexpr int kFwdSplits = \d+;",
+                          f"constexpr int kFwdSplits = {int(variant[7:])};",
+                          text)
+        want = 1
+    else:
+        sys.exit(f"unknown --fwd-variant {variant}")
+    if n != want:
+        sys.exit(f"{variant}: {n} places in fused_ce.cu, {want} expected")
+    with open(src, "w") as f:
+        f.write(text)
+    return root
+
+
+if VARIANT:
+    TREE = variant_tree(TREE, VARIANT[0])
 sys.path.insert(0, TREE)
 
 import importlib.util  # noqa: E402
@@ -59,10 +109,12 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 
-def ce_row(timer, card):
+def _lm_head_sets(n, hd, vocab):
+    """Two input sets at the LM head (W is 77 MB: a call does not find
+    the last one's W in L2): h, W, y with every 7th label ignored, the
+    forward's lse and a cotangent of a mean."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 8)
-    n, hd, vocab = 16368, 768, 50257
 
     def make():
         h = torch.randn(n, hd, generator=gen, device=dev).bfloat16()
@@ -74,7 +126,29 @@ def ce_row(timer, card):
         lse, _ = fc.ce_fwd(h, w, y)
         return h, w, y, lse, dce
 
-    sets = [make(), make()]
+    return [make(), make()]
+
+
+def fwd_row(timer, card):
+    n, hd, vocab = 16368, 768, 50257
+    sets = [s[:3] for s in _lm_head_sets(n, hd, vocab)]
+    ms = timer.ms(fc.ce_fwd, sets, n=10)
+    by = chip_smoke._kernel_ms(torch, fc.ce_fwd, sets[0], n=3)
+    lib_ms = timer.ms(lambda h, w, y: chip_smoke._ce_library(torch, h, w, y),
+                      sets, n=10)
+    bms, by_what = chip_smoke._ce_bound(n, hd, vocab, 2, False)
+    print(json.dumps(dict(
+        row=11, tree=TREE, variant=VARIANT[0] if VARIANT else None,
+        card=card, shape=[n, hd, vocab], dtype="bf16",
+        ms=ms, ms_by_kernel=by, library_ms=lib_ms, bound_ms=bms, bound_by=by_what,
+        share_of_bound=bms / ms, over_library=ms / lib_ms)), flush=True)
+    del sets
+    torch.cuda.empty_cache()
+
+
+def ce_row(timer, card):
+    n, hd, vocab = 16368, 768, 50257
+    sets = _lm_head_sets(n, hd, vocab)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -160,6 +234,8 @@ def main():
     print(card, flush=True)
     _build.build_all(["fused_ce", "fused_conv3x3"])
     timer = chip_smoke.DeviceTimer(torch)
+    if not ONLY or "fwd" in ONLY:
+        fwd_row(timer, card)
     if not ONLY or "ce" in ONLY:
         ce_row(timer, card)
     if not ONLY or "conv" in ONLY:

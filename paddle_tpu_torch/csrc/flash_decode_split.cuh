@@ -69,7 +69,8 @@
 #pragma once
 
 #include "flash_decode.cuh"
-#include "mma_common.cuh"   // cp_async16, cp_async_commit, cp_async_wait
+#include "mma_common.cuh"   // cp_async16, cp_async_commit, cp_async_wait,
+                             // cluster_sync, cluster_load
 
 namespace paddle_flash {
 
@@ -140,31 +141,6 @@ __device__ __forceinline__ void split_cp_async8(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 8 : 0));
-}
-
-// Every thread of every block of the cluster arrives, then waits for the
-// others: the writes before it (shared memory included) are visible to
-// the cluster after it.
-__device__ __forceinline__ void split_cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.aligned;\n"
-      "barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// The float at p in the shared memory of the cluster's block ``rank``
-// (p is an address in this block's shared memory).
-__device__ __forceinline__ float split_cluster_load(const float* p,
-                                                    int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_u32(p)), "r"(rank));
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(remote)
-               : "memory");
-  return v;
 }
 
 // 8 int8 values (exact in fp32), sign-extended from each byte.
@@ -338,8 +314,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n_keys = max(0, min(klen, klen - Sq + last + 1));
   if (s > 0 && cs >= n_keys) {   // no visible column of any row
     if (fold) {   // the cluster's two barriers still count this block
-      split_cluster_sync();
-      split_cluster_sync();
+      cluster_sync();
+      cluster_sync();
     }
     return;
   }
@@ -625,7 +601,7 @@ __global__ void __launch_bounds__(kThreads)
   // the cluster holds every split of this (batch row, kv head) block of
   // rows, split s as block rank s (cluster dims (1, n_split, 1)): block
   // 0 folds the partials through distributed shared memory
-  split_cluster_sync();   // every split's partial is in its block
+  cluster_sync();   // every split's partial is in its block
   if (s == 0) {
     for (int idx = tid; idx < live * D; idx += kThreads) {
       const int r = idx / D, d = idx % D, j = j0 + r;
@@ -634,12 +610,12 @@ __global__ void __launch_bounds__(kThreads)
       const float* f = fold_part + r * (D + 2);
       o[b * o_sb + (j % Sq) * o_ss + (hk * group + j / Sq) * o_sh + d] =
           from_float<T>(split_fold(
-              ns, [&](int t) { return split_cluster_load(f, t); },
-              [&](int t) { return split_cluster_load(f + 1, t); },
-              [&](int t) { return split_cluster_load(f + 2 + d, t); }));
+              ns, [&](int t) { return cluster_load(f, t); },
+              [&](int t) { return cluster_load(f + 1, t); },
+              [&](int t) { return cluster_load(f + 2 + d, t); }));
     }
   }
-  split_cluster_sync();   // no block leaves while block 0 reads its partial
+  cluster_sync();   // no block leaves while block 0 reads its partial
 }
 
 // Fold the splits of every row that spans more than one, in split order,

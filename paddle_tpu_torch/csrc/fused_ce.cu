@@ -21,24 +21,60 @@
 //             written once in T. A row with y < 0 has s = 0, so its d and
 //             its dh row are exactly 0.
 //
-// The forward. The TPU kernel walks a (row block, vocab block) grid in
-// order and carries its sums in VMEM scratch from step to step; here a
-// block owns kOwn rows of h and walks every kOth-row tile of W in a fixed
-// order, both tiles held over the full hidden width in shared memory
-// (cp.async copies, zero past the edge). A tile's logits [kOwn, kOth] come
-// from one product over H; each thread keeps an online (max, sum-exp,
+// The forward, bfloat16 (ce_fwd_wgmma): the product on the port's
+// warpgroup body (wgmma_gemm.cuh), the online softmax in the consumers'
+// registers, the vocabulary split over the blocks of a thread-block
+// cluster. The TPU kernel walks a (row block, vocab block) grid in order
+// and carries its sums in VMEM scratch from step to step; here:
+// - Tiles: 128 token rows x kFwdTile (256) W rows, h and W both K-major,
+//   TMA feeding a 4-slot mbarrier ring of 64-deep slices; two consumer
+//   warpgroups, each 64 rows over the 256 columns in two m64n128k16
+//   products into fp32, and one producer warp (WideRing). TMA zero-fills
+//   past N, V and H, so any H (a multiple of 8) takes this one kernel;
+//   the epilogue leaves out columns v >= V.
+// - Splits: row tile r is kFwdSplits blocks, one cluster. Block (split s,
+//   row tile r) walks the W tiles of split s, [s * per, (s + 1) * per)
+//   with per = ceil(tiles / kFwdSplits), in order, on one ring that runs
+//   on across its tiles (produce_wide_run, consume_wide_at: the producer
+//   is a tile ahead while the consumers finish one). Clusters start in
+//   row-tile order, so the blocks resident at once walk the same splits
+//   side by side and each W tile comes from device memory about once a
+//   wave.
+// - Softmax: each consumer thread keeps a running (max, sum-exp) for
+//   each of its 2 token rows over its own 32 columns of each 128-column
+//   product half (kFwdStep), in registers beside the accumulators
+//   (fwd_step: e^(x - m) as 2^(x log2 e - m log2 e) by ex2.approx on the
+//   special-function unit, lse's error about 2^-22 + 2^-24 |m|; four
+//   partial chains for the max and the sum, the mask only where V cuts
+//   the half); the one thread that meets a row's label column writes the
+//   gold logit to shared memory. At the end the 4 lanes of a row merge
+//   (xor shuffles, merge) and the block leaves its rows' partials (max,
+//   sum-exp, gold) in shared memory.
+// - Fold: split 0's block merges the partials of splits 0 .. kFwdSplits-1
+//   in rank order through distributed shared memory and writes lse and
+//   ce. A split with no columns (V < kFwdSplits * 256) leaves (-1e30, 0,
+//   0), which folds to nothing.
+// One launch, no scratch, no atomics: the bits repeat, and a row's bits
+// depend on its own h row, W and label only, not on N or its neighbours.
+// What bounds it: at gpt2-small's LM head (N 16,368, H 768, V 50,257)
+// the product is 1.26e12 FLOPs, 1.278 ms at 989 TFLOP/s. The 128 x 256
+// tile brings 85 FLOPs a byte into shared memory (a 128 x 128 tile 64,
+// and it ran 1.25x slower; PERF.md section 6). One block fills an SM, so
+// its softmax, one ex2 a logit, runs while its tensor cores wait: about
+// a seventh of the time (experiments/ce_conv3x3_probe.py
+// --fwd-variant=product-only).
+//
+// The forward, float32 (ce_kernel): a block owns kOwn rows of h and walks
+// every kOth-row tile of W in a fixed order, both tiles held over the full
+// hidden width in shared memory (cp.async copies, zero past the edge). A
+// tile's logits [kOwn, kOth] come from one product over H (fp32 FMAs on
+// mma_common.cuh's fragments); each thread keeps an online (max, sum-exp,
 // gold) for its rows over its own columns, and at the end the four lanes
 // of a row and the four column warps combine them in a fixed order.
 // Hidden sizes past kMaxH (768, the widest a tile pair holds in shared
 // memory) take the wide instantiation (kWide), which streams H in slices
 // of kMaxH through the same tiles, summing the slices' products in fp32 in
-// slice order before the softmax step. Products: bfloat16 on warp-level
-// mma.sync.m16n8k16 (mma_common.cuh), float32 the same fragments with
-// fp32 FMAs. At gpt2-small's LM head (N 16,368, H 768, V 50,257, bf16)
-// its one product is 1.26e12 FLOPs, 1.278 ms at 989 TFLOP/s; it is bound
-// by neither that nor the bytes: one block of 8 warps fills an SM's
-// shared memory, too few to hide the ldmatrix -> mma chains and the
-// softmax between them.
+// slice order before the softmax step.
 //
 // The backward: three products, the least it can do. The vocabulary is
 // taken in fixed chunks of vc columns (kChunkV at most; the wrapper's
@@ -80,6 +116,13 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps: 2 over owner rows x 4 over others
 constexpr int kMaxH = 768;     // the widest H slice the forward's tiles hold
 constexpr float kNegInf = -1e30f;
+// the bf16 forward's W tile, and its splits of the vocabulary: a cluster
+// of kFwdSplits blocks a row tile (the fold's order, so the bits, follow
+// them; 4 ran slower, PERF.md section 6)
+constexpr int kFwdTile = 256;
+constexpr int kFwdSplits = 8;
+static_assert(kFwdSplits >= 1 && kFwdSplits <= 8,
+              "a portable cluster holds at most 8 blocks");
 // the backward's vocabulary chunk: at most kChunkV columns, a multiple of
 // kChunkStep (kernels/fused_ce.py's _CHUNK_V and _CHUNK_STEP)
 constexpr int kChunkV = 8192;
@@ -93,11 +136,12 @@ __host__ __device__ inline int64_t tiles_of(int64_t n, int64_t t) {
   return (n + t - 1) / t;
 }
 
+// the float32 forward's tiles
 template <typename T, int kMode>
 struct Tile {
-  static constexpr bool kBf = sizeof(T) == 2;
-  static constexpr int kOwn = kBf ? 64 : 32;
-  static constexpr int kOth = kBf ? 64 : 32;
+  static_assert(sizeof(T) == 4, "bfloat16 takes ce_fwd_wgmma");
+  static constexpr int kOwn = 32;
+  static constexpr int kOth = 32;
   static constexpr int kStride = kMaxH + 16 / (int)sizeof(T);  // O and X
   static constexpr int kLMI = kOwn / 32;  // m16 tiles of a warp's logits
   static constexpr int kLNI = kOth / 32;  // n8 tiles of a warp's logits
@@ -132,7 +176,7 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// ------------------------------------------------------------ forward
+// ---------------------------------------------------- forward, float32
 
 // rows [r0, r0 + rows) of src [nrows, H] into dst [rows][stride], columns
 // [0, hk) with hk = H rounded up to 16; zeros past H and past nrows
@@ -190,7 +234,6 @@ __device__ __forceinline__ void tile_logits(
   using G = Tile<T, kMode>;
   constexpr int S = G::kStride;
   const int lane = threadIdx.x & 31, g = lane >> 2;
-  const int lj = lane >> 3, lr = lane & 7;
   const int m0 = wm * (G::kOwn / 2), n0 = wn * (G::kOth / 4);
   if constexpr (kZero) {
 #pragma unroll
@@ -202,25 +245,12 @@ __device__ __forceinline__ void tile_logits(
   }
 #pragma unroll 2
   for (int ks = 0; ks < hk; ks += 16) {
-    if constexpr (G::kBf) {
-      uint32_t af[G::kLMI][4], bfr[G::kLNI][2];
-      load_a<G::kLMI, false>(af, [&](int mi) {
-        return os + (m0 + mi * 16 + 8 * (lj & 1) + lr) * S + ks +
-               8 * (lj >> 1);
-      });
-      load_b<G::kLNI, false>(bfr, [&](int np) {
-        return xs + (n0 + 16 * np + 8 * (lj >> 1) + lr) * S + ks +
-               8 * (lj & 1);
-      });
-      mma_tile(acc, af, bfr);
-    } else {
-      fma_step<G::kLMI, G::kLNI>(
-          acc,
-          [&](int mi, int hh, int k) {
-            return os + (m0 + mi * 16 + 8 * hh + g) * S + ks + k;
-          },
-          [&](int n, int k) { return xs + (n0 + n) * S + ks + k; });
-    }
+    fma_step<G::kLMI, G::kLNI>(
+        acc,
+        [&](int mi, int hh, int k) {
+          return os + (m0 + mi * 16 + 8 * hh + g) * S + ks + k;
+        },
+        [&](int n, int k) { return xs + (n0 + n) * S + ks + k; });
   }
 }
 
@@ -375,6 +405,204 @@ cudaError_t forward(const CeArgs<T>& a, cudaStream_t st) {
                      : start_forward<T, false>(a, st);
 }
 
+// --------------------------------------------------- forward, bfloat16
+
+namespace pw = paddle_wgmma;
+
+// h [N][H] and W [V][H] (or the backward's chunk W_c [len][H]), both
+// K-major: the operands of the logits (the forward's W map boxes
+// kWideBN rows)
+struct LogitMaps {
+  CUtensorMap h, w;
+};
+
+// the block's shared memory: the ring, then its rows' partials [kBM][3]
+// (max, sum-exp, gold) and labels [kBM]
+constexpr size_t kFwdSmem = pw::kWideSmem + pw::kBM * 4 * sizeof(float);
+static_assert(kFwdTile == pw::kWideBN, "a W tile is one wide ring tile");
+// the softmax's step: the columns of one m64n128 product
+constexpr int kFwdStep = pw::kBN;
+
+// split s's W tiles [t0, t1) of a V-column vocabulary: contiguous runs of
+// ceil(tiles / kFwdSplits), the last ones shorter or empty
+__device__ __forceinline__ void split_tiles(int V, int s, int& t0, int& t1) {
+  const int tiles = (V + kFwdTile - 1) / kFwdTile;
+  const int per = (tiles + kFwdSplits - 1) / kFwdSplits;
+  t0 = min(tiles, s * per);
+  t1 = min(tiles, t0 + per);
+}
+
+// 2^x by the special-function unit (ex2.approx, flushing denormals)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One softmax step, the 128 columns of one product half acc, into a
+// token row's running (max m, sum-exp l): consumer thread t's 32 columns
+// (frag_col) of its row hh (frag_row(0, 2hh, t)). kMask (where V cuts the
+// step): columns at or past lim (V less the step's first column) are
+// left out. e^(x - m) is taken as 2^(x log2(e) - m log2(e)); the max and
+// the sum run in four partial chains (columns j % 4), joined in a fixed
+// order. The thread that holds the label's column yc (the label less the
+// step's first column, or -1) writes its logit to *gold: no other thread
+// of any split holds it.
+template <bool kMask>
+__device__ __forceinline__ void fwd_step(const float (&acc)[64], int hh,
+                                         int t, int lim, int yc, float& m,
+                                         float& l, float* gold) {
+  float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 4 * j + 2 * hh + e;
+      if (!kMask || pw::frag_col(i, t) < lim)
+        mx[j & 3] = fmaxf(mx[j & 3], acc[i]);
+    }
+  if (yc >= 0 && yc < lim) {
+#pragma unroll
+    for (int i = 2 * hh; i < 64; i += 4)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (pw::frag_col(i + e, t) == yc) *gold = acc[i + e];
+  }
+  const float tmax = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+  if (tmax > kNegInf) {
+    const float mn = fmaxf(m, tmax), nb = -mn * kLog2e;
+    float sm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        if (!kMask || pw::frag_col(i, t) < lim)
+          sm[j & 3] += ex2(fmaf(acc[i], kLog2e, nb));
+      }
+    l = fmaf(l, ex2(fmaf(m, kLog2e, nb)), (sm[0] + sm[1]) + (sm[2] + sm[3]));
+    m = mn;
+  }
+}
+
+// The bfloat16 forward: block x is split x % kFwdSplits (its cluster
+// rank) of token rows 128 (x / kFwdSplits) ..; see the note at the top.
+__global__ void __launch_bounds__(pw::kWideThreads, 1)
+ce_fwd_wgmma(const __grid_constant__ LogitMaps maps, const CeArgs<bf16> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const pw::WideRing r = pw::WideRing::make(smem);
+  float* part = reinterpret_cast<float*>(r.empty + pw::kWideStages);
+  int* sy = reinterpret_cast<int*>(part + 3 * pw::kBM);
+  // N and V below 2^30 (forward_bf16): 32-bit rows and columns
+  const int split = cluster_rank(), t = threadIdx.x, V = (int)a.V;
+  const int m0 = blockIdx.x / kFwdSplits * pw::kBM, rows = (int)a.N - m0;
+  int t0, t1;
+  split_tiles(V, split, t0, t1);
+  const int slices = (a.H + pw::kBK - 1) / pw::kBK;
+  if (t == pw::kWideConsumers) {
+    pw::produce_wide_run(r, &maps.h, &maps.w, m0, t0 * kFwdTile, t1 - t0,
+                         slices);
+  } else if (t < pw::kWideConsumers) {
+    // warpgroup w's thread tw holds rows 64w + frag_row(0, 2hh, tw): their
+    // running (max, sum-exp) in registers, labels and gold logits in
+    // shared memory
+    const int tw = t % pw::kConsumers, w64 = 64 * (t / pw::kConsumers);
+    auto row = [&](int hh) { return w64 + pw::frag_row(0, 2 * hh, tw); };
+    float rm[2], rl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rm[hh] = kNegInf, rl[hh] = 0.f;
+      if ((t & 3) == 0) {
+        sy[row(hh)] = row(hh) < rows ? a.y[m0 + row(hh)] : -1;
+        part[3 * row(hh) + 2] = 0.f;
+      }
+    }
+    __syncwarp();   // a row's four lanes are one warp's
+    float acc[2][64];
+    for (int j = t0; j < t1; ++j) {
+      pw::consume_wide_at(r, acc, (j - t0) * slices, slices);
+      // the tile's two product halves in column order, each a softmax
+      // step; a half wholly past V is no step
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n0 = j * kFwdTile + c * kFwdStep;
+        const int lim = min(V - n0, kFwdStep);
+        if (lim <= 0) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int y = sy[row(hh)], yc = y >= n0 ? y - n0 : -1;
+          float* gold = part + 3 * row(hh) + 2;
+          if (lim == kFwdStep)
+            fwd_step<false>(acc[c], hh, tw, lim, yc, rm[hh], rl[hh], gold);
+          else
+            fwd_step<true>(acc[c], hh, tw, lim, yc, rm[hh], rl[hh], gold);
+        }
+      }
+    }
+    // the four lanes of a row, in a fixed order; lane 0 of the four
+    // leaves the row's (max, sum-exp)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float m = rm[hh], l = rl[hh];
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+        const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
+        merge(m, l, m2, l2);
+      }
+      if ((t & 3) == 0) {
+        part[3 * row(hh)] = m;
+        part[3 * row(hh) + 1] = l;
+      }
+    }
+  }
+  __syncwarp();
+  cluster_sync();   // every split's partials are in its block
+  if (split == 0 && t < min(rows, pw::kBM)) {
+    const float* p = part + 3 * t;
+    float m = kNegInf, l = 0.f, gd = 0.f;
+    for (int q = 0; q < kFwdSplits; ++q) {
+      merge(m, l, cluster_load(p, q), cluster_load(p + 1, q));
+      gd += cluster_load(p + 2, q);
+    }
+    const float lse = m + logf(l == 0.f ? 1.f : l);
+    a.out_lse[m0 + t] = lse;
+    a.out_ce[m0 + t] = sy[t] >= 0 ? lse - gd : 0.f;
+  }
+  cluster_sync();   // no block leaves while split 0 reads its partials
+}
+
+// the bfloat16 forward's one launch: clusters of kFwdSplits blocks, one
+// a row tile
+cudaError_t forward_bf16(const CeArgs<bf16>& a, cudaStream_t st) {
+  LogitMaps maps;
+  // TMA coordinates are 32-bit
+  if (a.N > (1ll << 30) || a.V > (1ll << 30) ||
+      !pw::operand_map(&maps.h, a.h, a.N, a.H, a.H, false) ||
+      !pw::make_map(&maps.w, a.w, a.V, a.H, a.H, pw::kWideBN))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ce_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kFwdSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles_of(a.N, pw::kBM) * kFwdSplits));
+  cfg.blockDim = dim3(pw::kWideThreads);
+  cfg.dynamicSmemBytes = kFwdSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kFwdSplits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ce_fwd_wgmma, maps, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // ------------------------------------------------------------ backward
 
 // One vocabulary chunk of the backward: columns [v0, v0 + len).
@@ -426,12 +654,6 @@ __device__ __forceinline__ void dh_pair(const CeArgs<T>& a,
   else store2(c.acc + at, v0, v1);
 }
 
-namespace pw = paddle_wgmma;
-
-// (a)'s operands: h [N][H] and W_c [len][H], both K-major
-struct LogitMaps {
-  CUtensorMap h, w;
-};
 // (b)'s d_c [N][len] and h [N][H], both MN-major; (c)'s d_c K-major and
 // W_c [len][H] MN-major
 struct GradMaps {
@@ -707,7 +929,8 @@ int backward(const CeArgs<T>& a, T* dw, T* d, float* acc, int vc,
 
 extern "C" {
 
-// lse, ce [N] fp32 of h [N, H] against W [V, H] and labels y [N] (int32)
+// lse, ce [N] fp32 of h [N, H] against W [V, H] and labels y [N] (int32):
+// one launch, float32 on ce_kernel, bfloat16 on ce_fwd_wgmma
 int paddle_ce_fwd(const void* h, const void* w, const int* y, float* lse,
                   float* ce, long long N, long long V, int H, int dtype,
                   void* stream) {
@@ -720,7 +943,7 @@ int paddle_ce_fwd(const void* h, const void* w, const int* y, float* lse,
                       ce, nullptr, N, V, H},
         st);
   if (dtype == 1)
-    return (int)forward(
+    return (int)forward_bf16(
         CeArgs<bf16>{static_cast<const bf16*>(h), static_cast<const bf16*>(w),
                      y, nullptr, nullptr, lse, ce, nullptr, N, V, H},
         st);

@@ -5,7 +5,10 @@
 // asynchronous 16-byte copies from global to shared memory (cp.async, and
 // its commit groups), ldmatrix fragment loads, the warp-level
 // mma.sync.m16n8k16 bf16 and fp16 products with fp32 accumulation, and the
-// same fragment layout computed with fp32 FMAs for float32 inputs.
+// same fragment layout computed with fp32 FMAs for float32 inputs; and
+// the thread-block cluster's rank, barrier and distributed-shared-memory
+// load, by which the split-key decode (flash_decode_split.cuh) and the
+// bf16 CE forward fold their splits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -170,6 +173,37 @@ __device__ __forceinline__ void fma_step(float (&acc)[MI][NI][4], const FA& a,
         for (int r = 0; r < 4; ++r)
           acc[mi][ni][r] = fmaf(av[mi][r >> 1], bv[ni][r & 1], acc[mi][ni][r]);
   }
+}
+
+// this block's rank in its thread-block cluster
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for the
+// others: the writes before it (shared memory included) are visible to
+// the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The float at p in the shared memory of the cluster's block ``rank``
+// (p is an address in this block's shared memory).
+__device__ __forceinline__ float cluster_load(const float* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 }  // namespace

@@ -15,7 +15,8 @@
 // the previous slice's slot once at most this group is still in flight,
 // so loads, products and the next slice's wait overlap. Two blocks fit
 // an SM (96 KB of ring each), so one block's epilogue runs beside the
-// other's products.
+// other's products. The fused CE forward's persistent blocks walk runs
+// of 128 x 256 tiles on a wider ring instead (WideRing, below).
 //
 // Both operands may lie either way, which is what the fused CE backward's
 // three products need: K-major (the contraction contiguous: one TMA box
@@ -325,6 +326,112 @@ __device__ void consume(const Ring& r, float (&acc)[2][64], int slices) {
   wgmma_wait<0>();
   fence_operands(acc[0]);
   fence_operands(acc[1]);
+}
+
+// ------------------------------------- wide runs of tiles (persistent)
+//
+// The fused CE forward's variant of the body: a block walks a run of
+// 128 x 256 output tiles that share A's rows, on one ring that runs on
+// across them (the producer fills the next tile's slices while the
+// consumers finish this one, and the ring never drains between tiles).
+// A slot holds A's 128 x 64 slice (one box) and B's 256 x 64 (one box of
+// 256 rows); two consumer warpgroups, warpgroup w the A rows 64w .. over
+// all 256 columns, two m64n128k16 products a 16-deep step: twice the
+// product per byte brought into shared memory of the 128 x 128 tile.
+// Ring position i counts the slices of every tile before it, so slot and
+// phase follow from i alone. kWideStages slots of 48 KB: one block an SM.
+
+constexpr int kWideBN = 2 * kBN;                   // tile columns: 256
+constexpr int kWideStages = 4;
+constexpr int kWideConsumers = 2 * kConsumers;     // two warpgroups
+constexpr int kWideThreads = kWideConsumers + 32;  // and the producer warp
+constexpr int kWideSlot = kOperand + kWideBN * kBK * 2;   // 48 KB
+constexpr size_t kWideSmem =
+    (size_t)kWideStages * kWideSlot + 1024 + 2 * kWideStages * 8;
+
+struct WideRing {
+  unsigned char* base;   // kWideStages slots of kWideSlot bytes, aligned
+  uint64_t* full;        // [kWideStages]: the slot's boxes have landed
+  uint64_t* empty;       // [kWideStages]: both warpgroups are done with it
+
+  // as Ring::make
+  static __device__ WideRing make(unsigned char* smem) {
+    WideRing r;
+    r.base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
+    r.full = reinterpret_cast<uint64_t*>(r.base + kWideStages * kWideSlot);
+    r.empty = r.full + kWideStages;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kWideStages; ++s) {
+        mbar_init(&r.full[s], 1);
+        mbar_init(&r.empty[s], kWideConsumers);
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+    return r;
+  }
+  __device__ unsigned char* a(int s) const { return base + s * kWideSlot; }
+  __device__ unsigned char* b(int s) const {
+    return base + s * kWideSlot + kOperand;
+  }
+};
+
+// The producer of a run, both operands K-major: tile j < tiles has A
+// rows at m0 and B rows at n0 + j * kWideBN (B's map boxes kWideBN
+// rows); its slices are ring positions j * slices ..
+__device__ void produce_wide_run(const WideRing& r, const CUtensorMap* ma,
+                                 const CUtensorMap* mb, int m0, int n0,
+                                 int tiles, int slices) {
+  for (int j = 0; j < tiles; ++j)
+    for (int k = 0; k < slices; ++k) {
+      const int i = j * slices + k, s = i % kWideStages;
+      if (i >= kWideStages)
+        mbar_wait(&r.empty[s], (i / kWideStages - 1) & 1);
+      mbar_expect_tx(&r.full[s], kWideSlot);
+      tma_load(r.a(s), ma, &r.full[s], k * kBK, m0);
+      tma_load(r.b(s), mb, &r.full[s], k * kBK, n0 + j * kWideBN);
+    }
+}
+
+// The consumers of one tile of a run, whose slices are ring positions i0
+// .. i0 + slices - 1: warpgroup w = threadIdx.x / 128 gets acc[c] = its
+// 64 rows against the tile's columns 128c .., summed as consume sums;
+// every slot the tile used is released before it returns.
+__device__ void consume_wide_at(const WideRing& r, float (&acc)[2][64],
+                                int i0, int slices) {
+  const int w = threadIdx.x / kConsumers;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[c][i] = 0.f;
+  for (int k = 0; k < slices; ++k) {
+    const int i = i0 + k, s = i % kWideStages;
+    mbar_wait(&r.full[s], (i / kWideStages) & 1);
+    fence_operands(acc[0]);
+    fence_operands(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = descriptor(r.a(s) + w * kBox + kk * 32, 16, 1024);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        // B's rows 128c ..: 128 rows of 128 bytes further on
+        const uint64_t db =
+            descriptor(r.b(s) + c * kBN * 128 + kk * 32, 16, 1024);
+        wgmma_m64n128<false, false>(acc[c], da, db);
+      }
+    }
+    wgmma_commit();
+    fence_operands(acc[0]);
+    fence_operands(acc[1]);
+    wgmma_wait<1>();   // the slice before this one is done
+    if (k > 0) mbar_arrive(&r.empty[(i - 1) % kWideStages]);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc[0]);
+  fence_operands(acc[1]);
+  mbar_arrive(&r.empty[(i0 + slices - 1) % kWideStages]);
 }
 
 }  // namespace paddle_wgmma

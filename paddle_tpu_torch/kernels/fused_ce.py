@@ -12,11 +12,18 @@ CPU. Nothing else picks a plain version: on the card a kernel either
 launches or raises. ``ce_fwd.launches`` counts forward launches and
 ``ce_bwd.launches`` the backward's, two a vocabulary chunk
 (``ce_bwd_plan``): the logits with d, then dW and dh; each plain
-version counts its calls (``ce_fwd_plain.calls``).
+version counts its calls (``ce_fwd_plain.calls``). The forward is one
+launch: in bf16 its vocabulary is cut into 8 runs of 256-column tiles,
+one block each, folded in order inside a thread-block cluster
+(``csrc/fused_ce.cu``'s ``kFwdSplits`` and ``kFwdTile``).
 
 Numerics, as in the JAX package's kernels: logits in fp32 (exact
 products of the inputs, fp32 sums); natural exp and log, ``l == 0``
-taken as 1 before the log; the gold logit is that of column y, so a
+taken as 1 before the log (the bf16 forward takes e^(x - m) as
+2^(x log2(e) - m log2(e)) by the card's ``ex2.approx``, its argument
+one fp32 FMA with m log2(e) rounded first: lse's error grows with the
+row's largest logit m, to about 2^-22 + 2^-24 |m|, inside the LSE
+rule; the fp32 forward and the backward use ``expf``); the gold logit is that of column y, so a
 label >= V gives gold 0 and ce = lse; rows with y < 0 give ce 0 and a
 dh row of exact zeros. In the backward ``d = (p - onehot) * s`` with
 ``s = where(y >= 0, dce, 0)``, rounded to W's dtype before ``d @ W``

@@ -1488,7 +1488,14 @@ def _ce_close(out, ref, grad):
 @pytest.mark.parametrize("vocab_major", [True, False])
 @pytest.mark.parametrize("n,hd,vocab", [(1, 8, 1), (70, 32, 150),
                                         (333, 768, 1001), (130, 200, 517),
-                                        (64, 64, 64)])
+                                        (64, 64, 64),
+                                        # the bf16 forward's splits left
+                                        # empty (V under 8 tiles of 256;
+                                        # the last tile's second 128
+                                        # columns cut or past V), N
+                                        # ragged to its 128-row tiles
+                                        (129, 64, 1), (257, 104, 129),
+                                        (383, 768, 1000), (255, 64, 1025)])
 def test_fused_ce_kernels_match_plain(dev, dtype, vocab_major, n, hd, vocab):
     from paddle_tpu_torch.kernels import fused_ce as fc
     h, w, y, dce = _ce_inputs(dev, n, hd, vocab, dtype, vocab_major)
@@ -1687,14 +1694,21 @@ def test_conv3x3_gemm_route_fp32_and_ragged(dev, n, h, w, c, o):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("vocab_major", [True, False])
 @pytest.mark.parametrize("hd", [100, 1024, 1600])
+@pytest.mark.parametrize("n,vocab", [(150, 1001), (129, 1), (257, 129),
+                                     (383, 1000)])
 def test_fused_ce_any_hidden_size_matches_plain(dev, dtype, vocab_major,
-                                                hd):
-    """Hidden sizes past one 768-column slice (streamed in slices) and
-    off a multiple of 8 (zero-padded by the wrapper), by the fused-CE
-    rule; bits repeat."""
+                                                hd, n, vocab):
+    """Hidden sizes past one 768-column slice (fp32: streamed in slices;
+    bf16: 64-deep TMA slices, zeros past H) and off a multiple of 8
+    (zero-padded by the wrapper), by the fused-CE rule, with the bf16
+    forward's splits left empty (V under 8 tiles) and N ragged to its
+    128-row tiles; bits repeat, one launch a call, no plain call, ignored
+    rows 0."""
     from paddle_tpu_torch.kernels import fused_ce as fc
-    h, w, y, dce = _ce_inputs(dev, 150, hd, 1001, dtype, vocab_major,
-                              seed=hd)
+    # the first pair keeps its seed; the others each take their own
+    seed = hd if (n, vocab) == (150, 1001) else hd + vocab
+    h, w, y, dce = _ce_inputs(dev, n, hd, vocab, dtype, vocab_major,
+                              seed=seed)
     fc.reset_counts()
     lse, ce = fc.ce_fwd(h, w, y, vocab_major)
     dh, dw = fc.ce_bwd(h, w, y, lse, dce, vocab_major)
@@ -1713,6 +1727,58 @@ def test_fused_ce_any_hidden_size_matches_plain(dev, dtype, vocab_major,
     _ce_close(ce, ce_p, False)
     _ce_close(dh, dh_p, True)
     _ce_close(dw, dw_p, True)
+    ignored = y < 0
+    assert bool((ce[ignored] == 0).all() and (dh[ignored] == 0).all())
+
+
+def test_fused_ce_forward_rows_do_not_depend_on_their_neighbours(dev):
+    """At gpt2-small's LM head (h [16368, 768], W [50257, 768] bf16) a
+    row's lse and ce are bitwise the same alone, inside the whole call
+    and inside a 300-row call at another offset within its 128-row tile:
+    each row's logits, statistics and fold depend on its own h row, W
+    and label only."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    n, hd, vocab = 16368, 768, 50257
+    gen = torch.Generator(device=dev).manual_seed(15)
+    h = _randn(gen, (n, hd), torch.bfloat16, dev)
+    w = (torch.randn((vocab, hd), generator=gen, device=dev)
+         * 0.02).bfloat16()
+    y = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    y[::7] = -1
+    lse, ce = fc.ce_fwd(h, w, y)
+    part = fc.ce_fwd(h[8000:8300].contiguous(), w, y[8000:8300])
+    for i in (0, 5, 127, 128, 8191, 8299, 16367):
+        alone = fc.ce_fwd(h[i:i + 1].contiguous(), w, y[i:i + 1])
+        assert torch.equal(alone[0][0], lse[i]), i
+        assert torch.equal(alone[1][0], ce[i]), i
+    assert torch.equal(part[0], lse[8000:8300])
+    assert torch.equal(part[1], ce[8000:8300])
+
+
+@pytest.mark.parametrize("vocab_major", [True, False])
+def test_fused_ce_forward_large_logits_match_plain(dev, vocab_major):
+    """Logits of large size: h and W of unit scale at H 768 (a logit's
+    spread about 28, a row's largest about 130), where the bf16 forward's
+    e^(x - m) as 2^(x log2 e - m log2 e) errs most; lse and ce by the LSE
+    rule against the plain version at gpt2-small's vocabulary (every
+    split full), ignored rows 0, one launch."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    n, hd, vocab = 383, 768, 50257
+    gen = torch.Generator(device=dev).manual_seed(16)
+    h = _randn(gen, (n, hd), torch.bfloat16, dev)
+    w = _randn(gen, (vocab, hd), torch.bfloat16, dev)
+    if not vocab_major:
+        w = w.t().contiguous()
+    y = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    y[::7] = -1
+    fc.reset_counts()
+    lse, ce = fc.ce_fwd(h, w, y, vocab_major)
+    assert (fc.ce_fwd.launches, fc.ce_fwd_plain.calls) == (1, 0)
+    lse_p, ce_p = fc.ce_fwd_plain(h, w, y, vocab_major)
+    assert float(lse_p.max()) > 100.0       # the logits are large
+    _ce_close(lse, lse_p, False)
+    _ce_close(ce, ce_p, False)
+    assert bool((ce[y < 0] == 0).all())
 
 
 # ------------------------------ fused CE backward on three products
