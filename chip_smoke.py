@@ -15,7 +15,11 @@ bf16) through the kernel path and the plain path, serves 16 requests through
 ``ServingEngine`` on its dense cache (the first 8 streams equal to
 batch-1 ``generate``), the same 16 and 8 shared-prefix requests on a
 paged cache (token streams equal to the dense engine's), the 16 again
-with chunked prefill, all three again on an int8 KV cache, holds the
+with chunked prefill, all three again on an int8 KV cache, the same
+traffic on speculative slots (ngram, k 4: dense, paged, int8, chunked;
+the decode kernels at a verify window of 5 query rows) and speculative
+``generate`` in both modes, each speculative stream equal to or parting
+at a near tie from its sequential one, holds the
 int8 cache's logits to the wide cache's, trains gpt2-small with
 ``bench.py``'s recipe (AdamW with fp32 masters, the fused LM-head loss,
 ``TrainStep``) at batch 16 x 1024 tokens, then trains ResNet-50 with
@@ -189,16 +193,16 @@ def bound_ms(n_bytes, flops):
                                        else "operations")
 
 
-def decode_bytes(kv_lens, h, d, int8, page=None):
+def decode_bytes(kv_lens, h, d, int8, page=None, sq=1):
     """Bytes a decode call must move (TPU kernel table rows 5 and 7):
-    each row's valid K/V prefix (int8: and its bf16 scales), one bf16 q
-    and o row per head, kv_len, and with ``page`` the table entries of
+    each row's valid K/V prefix (int8: and its bf16 scales), ``sq`` bf16
+    q and o rows per head, kv_len, and with ``page`` the table entries of
     the pages read."""
     n_kv, b = sum(kv_lens), len(kv_lens)
     kv_bytes = 2 * n_kv * h * d + 2 * n_kv * h * 2 if int8 \
         else 2 * n_kv * h * d * 2
     pages = 0 if page is None else sum(-(-k // page) for k in kv_lens)
-    return kv_bytes + 2 * b * h * d * 2 + b * 4 + pages * 4
+    return kv_bytes + 2 * b * sq * h * d * 2 + b * 4 + pages * 4
 
 
 def decode_timing(timer, call, sets, kv_lens, h, d, int8, page=None,
@@ -864,6 +868,139 @@ def phase_int8_kernels(torch, timer):
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             share_of_bound=r["share_of_bound"], batch_1=r["batch_1"])
     return rows
+
+
+#: the serving phases' speculative configuration: k = 4 draft tokens,
+#: so a verify window is Sq = 5 query rows; prompt-lookup on 3-grams
+SPEC_K, SPEC_NGRAM = 4, 3
+
+
+def phase_verify_window_kernels(torch, timer, rows):
+    """Rows 5 and 7 at the verify window of the 8-slot engine's k = 4
+    speculative step: q [8,5,12,64] bf16 against the [8,640,12,64] cache
+    (paged: the 41-page pool of 128 through a shuffled [8,5] table),
+    ragged lengths, query row i of a batch row attending to its own
+    position, full width and int8. Each against its plain version, paged
+    bitwise equal to dense; timed beside the Sq = 1 step with the bytes
+    bound and SDPA under the window's mask (int8: over the dequantized
+    cache, dequantization not timed). Adds ``verify_window_k4`` to each
+    of the four rows."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.generation.kv_cache import quantize_kv
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    cpu_gen = torch.Generator().manual_seed(SEED + 16)
+    bf16 = torch.bfloat16
+    B, T, h, d, sq = 8, 640, 12, 64, SPEC_K + 1
+    # the mask lengths of a window: each slot's kv_len before it, + 5
+    kv = torch.tensor([5, 6, 22, 205, 338, 517, 582, 640], dtype=torch.int32,
+                      device=dev)
+    lens = kv.tolist()
+    cols = torch.arange(T, device=dev)
+    mask = cols[None, None, :] <= (kv[:, None, None] - sq + torch.arange(
+        sq, device=dev)[None, :, None])                      # [B, sq, T]
+    # the (row, column) pairs the window attends
+    pairs = sum(k - sq + i + 1 for k in lens for i in range(sq))
+
+    def layer_slice(shape, dtype):
+        return torch.randn((2,) + shape, generator=gen,
+                           device=dev).to(dtype)[1]
+
+    def inputs(int8):
+        q = torch.randn((B, sq, h, d), generator=gen, device=dev).to(bf16)
+        if not int8:
+            return (q, layer_slice((B, T, h, d), bf16),
+                    layer_slice((B, T, h, d), bf16), None, None, kv)
+        out = []
+        for _ in range(2):
+            vals = torch.empty((2, B, T, h, d), dtype=torch.int8, device=dev)
+            scales = torch.empty((2, B, T, h), dtype=bf16, device=dev)
+            vals[1], scales[1], _ = quantize_kv(torch.randn(
+                (B, T, h, d), generator=gen, device=dev))
+            out.append((vals[1], scales[1]))
+        (k, ks), (v, vs) = out
+        return q, k, v, ks, vs, kv
+
+    def dense(q, k, v, ks, vs, kv):
+        return fa.flash_attention_decode(q, k, v, kv, k_scale=ks, v_scale=vs)
+
+    def dense_plain(q, k, v, ks, vs, kv):
+        return fa.flash_attention_decode_plain(q, k, v, kv, k_scale=ks,
+                                               v_scale=vs)
+
+    def paged_of(st):
+        perm = torch.randperm(B * 5, generator=cpu_gen).to(dev)
+        pools = [None if c is None else _pool_of(torch, gen, c, 128, perm)
+                 for c in st[1:5]]
+        table = pools[0][1]
+        return (st[0],) + tuple(None if p is None else p[0]
+                                for p in pools) + (table, st[5])
+
+    def paged(q, kp, vp, ksp, vsp, table, kv):
+        return fa.flash_attention_decode_paged(q, kp, vp, table, kv,
+                                               k_scale=ksp, v_scale=vsp)
+
+    def paged_plain(q, kp, vp, ksp, vsp, table, kv):
+        return fa.flash_attention_decode_paged_plain(
+            q, kp, vp, table, kv, k_scale=ksp, v_scale=vsp)
+
+    def dequant(c, sc):
+        if sc is None:
+            return c.transpose(1, 2)
+        return (c.float() * sc.float()[..., None]).to(bf16).transpose(1, 2)
+
+    for int8 in (False, True):
+        sfx = "_int8" if int8 else ""
+        sets = [inputs(int8) for _ in range(8)]
+        psets = [paged_of(st) for st in sets]
+        out, ref = dense(*sets[0]), dense_plain(*sets[0])
+        pout, pref = paged(*psets[0]), paged_plain(*psets[0])
+        torch.cuda.synchronize()
+        err, n_bad = _err(out, ref)
+        perr, p_bad = _err(pout, pref)
+        bitwise = bool(torch.equal(pout, out))
+        for name, e, nb, extra in (
+                ("flash_decode" + sfx, err, n_bad, {}),
+                ("flash_decode_paged" + sfx, perr, p_bad,
+                 {"bitwise_equal_to_flash_decode" + sfx: bitwise})):
+            say("kernel_check", kernel=name, shape=[B, T, h, d], sq=sq,
+                kv_len=lens, max_abs_err=e,
+                tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|", out_of_tol=nb,
+                **extra)
+            if nb:
+                fail(f"{name} disagrees with its plain version at sq={sq}")
+        if not bitwise:
+            fail(f"flash_decode_paged{sfx} differs from flash_decode{sfx} "
+                 f"at sq={sq}")
+        lib_sets = [(st[0].transpose(1, 2), dequant(st[1], st[3]),
+                     dequant(st[2], st[4])) for st in sets]
+        lib_ms = timer.ms(lambda q, k, v: TF.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None]), lib_sets)
+        del lib_sets
+        for name, call, plain, tsets, page, e in (
+                ("flash_decode" + sfx, dense, dense_plain, sets, None, err),
+                ("flash_decode_paged" + sfx, paged, paged_plain, psets, 128,
+                 perr)):
+            ms = timer.ms(call, tsets)
+            bms, by = bound_ms(decode_bytes(lens, h, d, int8, page, sq),
+                               4 * pairs * h * d)
+            row = dict(
+                shape=f"q [8,{sq},12,64] bf16, "
+                      + ("pool [41,128,12,64] through a shuffled [8,5] "
+                         "table" if page else "cache [8,640,12,64]")
+                      + (" int8 with bf16 scales" if int8 else "")
+                      + ", ragged kv_len",
+                sq=sq, max_abs_err=e, ms=ms, plain_ms=timer.ms(plain, tsets),
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+                yardstick_sdpa_ms=lib_ms, sq1_ms=rows[name]["ms"])
+            rows[name]["verify_window_k4"] = row
+            say("kernel_time", kernel=name, sq=sq, kernel_ms=ms,
+                plain_ms=row["plain_ms"], library_ms=lib_ms if not page
+                else None, yardstick_sdpa_ms=lib_ms, bound_ms=bms,
+                bound_by=by, share_of_bound=row["share_of_bound"],
+                sq1_kernel_ms=row["sq1_ms"])
+        del sets, psets
 
 
 def phase_train_kernels(torch, timer):
@@ -1877,11 +2014,26 @@ def _serve_prompts(model):
     return [rng.randint(0, vocab, n) for n in rng.randint(16, 501, 16)]
 
 
-def _serve_config(model, **serving):
+def _shared_prompts(model):
+    """8 prompts that share a 256-token prefix (two full 128-token
+    pages), total lengths 300-500 (seed 4)."""
+    rng = np.random.RandomState(SEED + 4)
+    vocab = model.cfg.vocab_size
+    prefix = rng.randint(0, vocab, 256)
+    return [np.r_[prefix, rng.randint(0, vocab, n - 256)]
+            for n in rng.randint(300, 501, 8)]
+
+
+def _spec_config():
+    from paddle_tpu_torch.generation import SpeculativeConfig
+    return SpeculativeConfig(mode="ngram", k=SPEC_K, ngram=SPEC_NGRAM)
+
+
+def _serve_config(model, speculative=None, **serving):
     from paddle_tpu_torch.inference import Config
     return (Config().from_layer(model).enable_use_gpu("bfloat16")
             .enable_generation(max_new_tokens=64, prefill_buckets=(128, 512),
-                               max_batch=8)
+                               max_batch=8, speculative=speculative)
             .enable_serving(max_queue=64, poll_every=4, **serving))
 
 
@@ -2026,19 +2178,24 @@ def phase_serve(torch, model, prompts, decode_ms, kv_cache_dtype=None):
 def _decode_step_profile(torch, engine, prompts, attention_ms, cache):
     """Where a decode step's time goes, all 8 slots live: the wall time
     of a step (the host issues 500-1000 launches, so the spin-kernel
-    timer does not apply) against the device time its kernels take."""
+    timer does not apply) against the device time its kernels take, and
+    the tokens a slot emits a step over the timed steps (1 without
+    speculation, up to k + 1 with it)."""
     from paddle_tpu_torch.serving import RequestParams
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         engine.submit(p, RequestParams(max_new_tokens=64))
     engine.step()                           # admits all 8
     n = 8
+    live = sum(s is not None for s in engine._slots)
     torch.cuda.synchronize()
+    emitted = int(engine._steps.sum())
     t0 = time.perf_counter()
     for _ in range(n):
         engine._dispatch_decode()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    emitted = int(engine._steps.sum()) - emitted
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -2049,9 +2206,9 @@ def _decode_step_profile(torch, engine, prompts, attention_ms, cache):
            if e.device_time_total > 0 and e.cpu_time_total == 0]
     busy_ms = sum(e.device_time_total for e in dev) / (1e3 * n)
     top = sorted(dev, key=lambda e: -e.device_time_total)[:8]
-    say("decode_step", cache=cache,
-        live_slots=sum(s is not None for s in engine._slots),
-        wall_ms=wall_ms, device_busy_ms=busy_ms,
+    say("decode_step", cache=cache, live_slots=live,
+        tokens_per_slot_step=emitted / (n * live), wall_ms=wall_ms,
+        device_busy_ms=busy_ms,
         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
         launches_per_step=sum(e.count for e in dev) / n,
         attention_kernel_ms=engine.network.cfg.num_layers * attention_ms,
@@ -2075,11 +2232,7 @@ def phase_serve_paged(torch, model, prompts, dense_handles, paged_ms,
     sfx = "" if kv_cache_dtype is None else "_" + kv_cache_dtype
     engine = ServingEngine(_serve_config(model, paged=True, kv_page_size=128,
                                          kv_cache_dtype=kv_cache_dtype))
-    rng = np.random.RandomState(SEED + 4)
-    vocab = model.cfg.vocab_size
-    prefix = rng.randint(0, vocab, 256)
-    shared = [np.r_[prefix, rng.randint(0, vocab, n - 256)]
-              for n in rng.randint(300, 501, 8)]
+    shared = _shared_prompts(model)
     params = RequestParams(max_new_tokens=64)
     handles, wall, launches, plain_calls = _serve(
         torch, engine, [[(p, params) for p in prompts],
@@ -2111,7 +2264,7 @@ def phase_serve_paged(torch, model, prompts, dense_handles, paged_ms,
              f"{prefills} prefills")
     _decode_step_profile(torch, engine, prompts[8:], paged_ms, "paged" + sfx)
     engine._alloc.assert_conserved()
-    return launches
+    return launches, handles
 
 
 def phase_serve_chunked(torch, model, prompts, kv_cache_dtype=None):
@@ -2180,7 +2333,288 @@ def phase_serve_chunked(torch, model, prompts, kv_cache_dtype=None):
         fail("chunked serve left pages in use after the drain")
     if len(diffs) != 4 or max(diffs) > LOGIT_TOL:
         fail(f"chunked and inline prefill logits differ by {diffs}")
+    return launches, handles
+
+
+def _near_ties(torch, model, prompts, got, ref, max_len, kv_cache_dtype):
+    """Each speculative stream of ``got`` that differs from its
+    non-speculative stream in ``ref``: the first differing position j and
+    the sequential model's logits there, teacher-forced (a batch-1 bucket
+    prefill of the prompt, then one decode step a token of ``ref[:j]``,
+    on the same cache dtype): the gap between the logits of the two
+    tokens chosen, and its top-1/top-2 gap. A verify window of Sq = 5
+    rows may round other than Sq = 1 steps (the decode kernel's bits
+    depend on Sq, and the linear layers see 5x the rows), so the two
+    streams may part at a near tie; a fault parts them at a clear one."""
+    dev = next(model.parameters()).device
+    out = []
+    with torch.no_grad():
+        for i, (p, a, b) in enumerate(zip(prompts, got, ref)):
+            a, b = np.asarray(a), np.asarray(b)
+            if np.array_equal(a, b):
+                continue
+            n = min(a.size, b.size)
+            diff = np.nonzero(a[:n] != b[:n])[0]
+            j = int(diff[0]) if diff.size else n
+            if j == n:                    # one stream stops early
+                out.append(dict(request=i, position=j, gap=float("inf")))
+                continue
+            ids = np.zeros((1, 128 if p.size <= 128 else 512), np.int64)
+            ids[0, :p.size] = p
+            logits, cache = model(torch.as_tensor(ids, device=dev),
+                                  use_cache=True,
+                                  prompt_len=torch.tensor([p.size],
+                                                          device=dev),
+                                  cache_max_len=max_len,
+                                  cache_dtype=kv_cache_dtype)
+            for t in b[:j]:
+                logits, cache = model(torch.tensor([[int(t)]], device=dev),
+                                      cache=cache)
+            lg = logits[0, -1].float()
+            top = lg.topk(2).values
+            out.append(dict(request=i, position=j, sequential=int(b[j]),
+                            speculative=int(a[j]),
+                            gap=abs(float(lg[int(b[j])] - lg[int(a[j])])),
+                            top1_top2_gap=float(top[0] - top[1])))
+    return out
+
+
+def _spec_fields(engine, handles):
+    """The speculative engine's counters: verify windows, proposals to
+    live slots, acceptances, and the tokens a slot emits a window."""
+    st = engine.stats
+    prop, acc = st["spec_proposed"], st["spec_accepted"]
+    decoded = sum(int(h.tokens.size) - 1 for h in handles)
+    return dict(verify_windows=st["decode_steps"], spec_proposed=prop,
+                spec_accepted=acc, acceptance_rate=acc / max(prop, 1),
+                tokens_per_window=decoded / max(prop / SPEC_K, 1),
+                tokens_per_dispatch=decoded / max(st["decode_steps"], 1))
+
+
+def _gate_spec(what, engine, ties):
+    if engine.stats["spec_accepted"] <= 0:
+        fail(f"{what}: no draft token was accepted "
+             f"({engine.stats['spec_proposed']} proposed)")
+    wide = [t for t in ties if not t["gap"] < LOGIT_TOL]
+    if wide:
+        fail(f"{what}: streams part at logit gaps >= {LOGIT_TOL} (not a "
+             f"near tie): {wide}")
+
+
+def phase_serve_spec(torch, model, prompts, seq_handles, window_ms,
+                     kv_cache_dtype=None):
+    """The 16 requests through the speculative dense engine (ngram, k 4;
+    full width or int8): every request completes with its budget, 12
+    decode launches a verify window in the cache's mode and no other
+    decode-shaped kernel, 12 forward launches a prefill, no plain
+    version, acceptances; each of the first 8 streams equals batch-1
+    ``generate(speculative=...)``, or parts from it at a near tie
+    (ROADMAP C12: cuBLAS picks its GEMM by the row count, 40 rows in the
+    engine's window against 5 in batch-1's, so a row's bits depend on
+    the batch; every such stream is printed); each stream that parts
+    from the non-speculative serve's does so at a near tie; then the
+    speculative decode-step profile."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    sfx = "" if kv_cache_dtype is None else "_" + kv_cache_dtype
+    what = "serve_spec" + sfx
+    spec = _spec_config()
+    engine = ServingEngine(_serve_config(model, speculative=spec,
+                                         kv_cache_dtype=kv_cache_dtype))
+    handles, wall, launches, plain_calls = _serve(
+        torch, engine, [[(p, RequestParams(max_new_tokens=64))
+                         for p in prompts]])
+    steps = engine.stats["decode_steps"]
+    batch1 = []
+    for p in prompts[:8]:
+        bucket = next(bk for bk in engine.buckets if bk >= p.size)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :p.size] = p
+        batch1.append(generate(model, ids, 64, prompt_len=[p.size],
+                               cache_max_len=engine.max_len,
+                               kv_cache_dtype=kv_cache_dtype,
+                               speculative=spec).cpu().numpy()[0])
+    batch1_ties = _near_ties(torch, model, prompts[:8],
+                             [h.tokens for h in handles[:8]], batch1,
+                             engine.max_len, kv_cache_dtype)
+    ties = _near_ties(torch, model, prompts, [h.tokens for h in handles],
+                      [h.tokens for h in seq_handles], engine.max_len,
+                      kv_cache_dtype)
+    decode = "flash_decode" + sfx
+    _check_served(engine, handles, wall, launches, plain_calls, (decode,),
+                  what, prompt_lens=[int(p.size) for p in prompts],
+                  decode_launches_per_window=launches[decode] / max(steps, 1),
+                  streams_differing_from_batch1_spec_generate=len(
+                      batch1_ties), batch1_near_ties=batch1_ties,
+                  streams_differing_from_serve=len(ties), near_ties=ties,
+                  **_spec_fields(engine, handles))
+    if launches[decode] != 12 * steps or \
+            launches["flash_fwd"] != 12 * engine.stats["prefills"]:
+        fail(f"{what}: launches {launches} for {steps} verify windows")
+    _gate_spec(what, engine, batch1_ties + ties)
+    _decode_step_profile(torch, engine, prompts[8:], window_ms,
+                         "dense_spec" + sfx)
+    return launches, handles
+
+
+def phase_serve_spec_paged(torch, model, prompts, spec_handles,
+                           paged_handles):
+    """The speculative engine on a paged cache (page 128, default pool):
+    the 16 prompts, then the 8 shared-prefix ones. Every stream equals
+    the speculative dense engine's bit for bit; prefix pages are shared
+    and conserved, none in use after the drain; 12 paged decode launches
+    a window; each stream that parts from ``serve_paged``'s does so at a
+    near tie."""
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    spec = _spec_config()
+    engine = ServingEngine(_serve_config(model, speculative=spec, paged=True,
+                                         kv_page_size=128))
+    shared = _shared_prompts(model)
+    params = RequestParams(max_new_tokens=64)
+    handles, wall, launches, plain_calls = _serve(
+        torch, engine, [[(p, params) for p in prompts],
+                        [(p, params) for p in shared]])
+    steps, prefills = engine.stats["decode_steps"], engine.stats["prefills"]
+    dense = ServingEngine(_serve_config(model, speculative=spec))
+    reference = list(spec_handles) + dense.serve_forever(
+        (p, params) for p in shared)
+    mismatch = sum(not np.array_equal(h.tokens, r.tokens)
+                   for h, r in zip(handles, reference))
+    engine._alloc.assert_conserved()
+    stats = dict(engine._alloc.stats)
+    ties = _near_ties(torch, model, list(prompts) + shared,
+                      [h.tokens for h in handles],
+                      [h.tokens for h in paged_handles], engine.max_len, None)
+    _check_served(engine, handles, wall, launches, plain_calls,
+                  ("flash_decode_paged",), "serve_spec_paged",
+                  page_size=engine.page_size,
+                  pool_pages=engine._alloc.n_pages,
+                  paged_launches_per_window=launches["flash_decode_paged"]
+                  / max(steps, 1),
+                  token_streams_differing_from_dense_spec=mismatch,
+                  allocator=stats,
+                  pages_in_use_after_drain=engine._alloc.used_pages(),
+                  streams_differing_from_serve_paged=len(ties),
+                  near_ties=ties, **_spec_fields(engine, handles))
+    if mismatch:
+        fail(f"{mismatch} speculative paged streams differ from the "
+             "speculative dense engine")
+    if stats["prefix_hits"] < 1 or engine._alloc.used_pages():
+        fail(f"speculative paged allocator {stats}, "
+             f"{engine._alloc.used_pages()} pages in use after the drain")
+    if launches["flash_decode_paged"] != 12 * steps or \
+            launches["flash_fwd"] != 12 * prefills:
+        fail(f"serve_spec_paged launches {launches} for {steps} windows and "
+             f"{prefills} prefills")
+    _gate_spec("serve_spec_paged", engine, ties)
     return launches
+
+
+def phase_serve_spec_chunked(torch, model, prompts, chunked_handles):
+    """The speculative paged engine with prefill_chunk_tokens=128 on the
+    16 prompts: all complete; inline prefills through flash_fwd, chunks
+    through the chunk kernel (12 launches a chunk), verify windows
+    through the paged decode kernel (12 a window); no plain version;
+    pages conserved; each stream that parts from ``serve_chunked``'s
+    does so at a near tie."""
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    C = 128
+    engine = ServingEngine(_serve_config(model, speculative=_spec_config(),
+                                         paged=True, kv_page_size=128,
+                                         prefill_chunk_tokens=C))
+    params = RequestParams(max_new_tokens=64)
+    handles, wall, launches, plain_calls = _serve(
+        torch, engine, [[(p, params) for p in prompts]])
+    steps, chunks = engine.stats["decode_steps"], \
+        engine.stats["prefill_chunks"]
+    n_short = sum(int(p.size <= C) for p in prompts)
+    expect_chunks = sum(-(-int(p.size) // C) for p in prompts if p.size > C)
+    engine._alloc.assert_conserved()
+    ties = _near_ties(torch, model, prompts, [h.tokens for h in handles],
+                      [h.tokens for h in chunked_handles], engine.max_len,
+                      None)
+    _check_served(engine, handles, wall, launches, plain_calls,
+                  ("flash_chunk", "flash_decode_paged"),
+                  "serve_spec_chunked", chunk_tokens=C,
+                  inline_prompts=n_short, prefill_chunks=chunks,
+                  expected_chunks=expect_chunks,
+                  pages_in_use_after_drain=engine._alloc.used_pages(),
+                  streams_differing_from_serve_chunked=len(ties),
+                  near_ties=ties, **_spec_fields(engine, handles))
+    if chunks != expect_chunks or launches["flash_chunk"] != 12 * chunks or \
+            launches["flash_decode_paged"] != 12 * steps or \
+            launches["flash_fwd"] != 12 * n_short:
+        fail(f"serve_spec_chunked: {chunks} chunks (expected "
+             f"{expect_chunks}), launches {launches} for {steps} windows")
+    if engine._alloc.used_pages():
+        fail("serve_spec_chunked left pages in use after the drain")
+    _gate_spec("serve_spec_chunked", engine, ties)
+    return launches
+
+
+def phase_generate_spec(torch, model, prompts):
+    """``generate(speculative=...)`` at batch 2 on two prompts, ngram and
+    draft mode with the target's own weights as ``draft_model``: exact
+    launch counts (12 a verify window in the decode kernel, and in draft
+    mode 12 a draft step too; 12 a prefill, the draft model's prefill
+    included), no plain version; ngram accepts, self-drafting accepts at
+    least 0.9 of its proposals (a draft cache out of line with the
+    target's drops that towards 0); streams that part from sequential
+    ``generate`` do so at a near tie."""
+    from paddle_tpu_torch.generation import (GenerationSession,
+                                             SpeculativeConfig, generate)
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = next(model.parameters()).device
+    two = prompts[:2]
+    ids = np.zeros((2, 512), np.int64)
+    for i, p in enumerate(two):
+        ids[i, :p.size] = p
+    plen = [int(p.size) for p in two]
+    kw = dict(prompt_len=plen, cache_max_len=640)
+    seq = generate(model, ids, 64, **kw).cpu().numpy()
+    total = {}
+    for mode in ("ngram", "draft"):
+        spec = SpeculativeConfig(mode=mode, k=SPEC_K, ngram=SPEC_NGRAM)
+        draft = model if mode == "draft" else None
+        sess = GenerationSession(model)
+        torch.cuda.synchronize()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        out = generate(model, ids, 64, speculative=spec, draft_model=draft,
+                       session=sess, **kw).cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches, plain_calls = _counts(fa)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        st = sess.speculative(spec, draft).stats
+        windows = st["windows"]
+        rate = st["accepted"] / max(st["proposed"], 1)
+        ties = _near_ties(torch, model, two, out, seq, 640, None)
+        draft_steps = (SPEC_K + 1) * windows if draft is not None else 0
+        prefills = 2 if draft is not None else 1
+        say("generate_spec", mode=mode, k=SPEC_K, batch=2, prompt_lens=plen,
+            new_tokens=64, wall_s=wall, tokens_per_s=2 * 64 / wall,
+            verify_windows=windows, draft_steps=draft_steps,
+            spec_proposed=st["proposed"], spec_accepted=st["accepted"],
+            acceptance_rate=rate, launches=launches,
+            plain_calls=plain_calls,
+            streams_differing_from_sequential=len(ties), near_ties=ties)
+        if plain_calls:
+            fail(f"generate_spec {mode}: plain versions ran {plain_calls} "
+                 "times")
+        if launches["flash_decode"] != 12 * (windows + draft_steps) or \
+                launches["flash_fwd"] != 12 * prefills or \
+                any(n for k, n in launches.items()
+                    if k not in ("flash_decode", "flash_fwd")):
+            fail(f"generate_spec {mode}: launches {launches} for {windows} "
+                 f"windows")
+        if st["accepted"] <= 0 or (draft is not None and rate < 0.9):
+            fail(f"generate_spec {mode}: acceptance {st}")
+        wide = [t for t in ties if not t["gap"] < LOGIT_TOL]
+        if wide:
+            fail(f"generate_spec {mode}: streams part from sequential "
+                 f"generate at gaps >= {LOGIT_TOL}: {wide}")
+    return total
 
 
 def phase_int8_logits(torch, model):
@@ -2913,6 +3347,7 @@ def main():
                                           rows["flash_decode"]))
     del dsets
     rows.update(phase_int8_kernels(torch, timer))
+    phase_verify_window_kernels(torch, timer, rows)
     rows["flash_bwd"], rows["flash_fwd"]["train_shape"] = \
         phase_train_kernels(torch, timer)
     rows.update(phase_fused_resnet_kernels(torch, timer))
@@ -2923,17 +3358,38 @@ def main():
     model = phase_model(torch)
     prompts = _serve_prompts(model)
     paths = []
+    served = {}
     # the three serving paths on the full-width cache, then on the int8
     for kv in (None, "int8"):
         sfx = "" if kv is None else "_" + kv
         launches, handles = phase_serve(
             torch, model, prompts, rows["flash_decode" + sfx]["ms"], kv)
         paths.append(("serve" + sfx, launches))
-        paths.append(("serve" + sfx + "_paged", phase_serve_paged(
+        served["serve" + sfx] = handles
+        launches, served["serve" + sfx + "_paged"] = phase_serve_paged(
             torch, model, prompts, handles,
-            rows["flash_decode_paged" + sfx]["ms"], kv)))
-        paths.append(("serve" + sfx + "_chunked",
-                      phase_serve_chunked(torch, model, prompts, kv)))
+            rows["flash_decode_paged" + sfx]["ms"], kv)
+        paths.append(("serve" + sfx + "_paged", launches))
+        launches, served["serve" + sfx + "_chunked"] = phase_serve_chunked(
+            torch, model, prompts, kv)
+        paths.append(("serve" + sfx + "_chunked", launches))
+    # the same traffic with speculative slots (ngram, k 4), and
+    # generate(speculative=...) in both modes
+    launches, spec_handles = phase_serve_spec(
+        torch, model, prompts, served["serve"],
+        rows["flash_decode"]["verify_window_k4"]["ms"])
+    paths.append(("serve_spec", launches))
+    paths.append(("serve_spec_paged", phase_serve_spec_paged(
+        torch, model, prompts, spec_handles, served["serve_paged"])))
+    launches, _ = phase_serve_spec(
+        torch, model, prompts, served["serve_int8"],
+        rows["flash_decode_int8"]["verify_window_k4"]["ms"], "int8")
+    paths.append(("serve_spec_int8", launches))
+    paths.append(("serve_spec_chunked", phase_serve_spec_chunked(
+        torch, model, prompts, served["serve_chunked"])))
+    paths.append(("generate_spec", phase_generate_spec(torch, model,
+                                                       prompts)))
+    del served, spec_handles
     phase_int8_logits(torch, model)
     del model
     torch.cuda.empty_cache()

@@ -2,7 +2,7 @@
 """Check, inside a real serving run, that every row of the engine's
 batch gets the bits a batch of one would give it:
 
-    python3 experiments/serve_batch_invariance.py [--kv=int8|wide] [--two-pass-layer-norm]
+    python3 experiments/serve_batch_invariance.py [--kv=int8|wide] [--two-pass-layer-norm] [--spec]
 
 Builds ``chip_smoke.py``'s gpt2-small (bf16, random weights from its
 seed) and serves its 16 prompts through ``ServingEngine`` on the card
@@ -14,8 +14,11 @@ alone, and the row's bits compared. Then the first 8 requests run
 through batch-1 ``generate``, and each decode call's query and output
 bits are matched against the engine's for the same row. With
 ``--two-pass-layer-norm`` the port's ``layer_norm`` is replaced by the
-two-``mean`` form it had on the card before (ROADMAP C10). Prints one
-JSON line of counts per check.
+two-``mean`` form it had on the card before (ROADMAP C10). With
+``--spec`` the engine and ``generate`` decode speculatively
+(``chip_smoke.py``'s ngram k = 4): the checked calls are the verify
+windows' ([8, 5, ...] against each [1, 5, ...] row). Prints one JSON
+line of counts per check.
 """
 import collections
 import hashlib
@@ -47,6 +50,9 @@ _spec.loader.exec_module(chip_smoke)
 KV = next((a.split("=", 1)[1] for a in sys.argv if a.startswith("--kv=")),
           "int8")
 KV_DTYPE = None if KV == "wide" else KV
+SPEC = chip_smoke._spec_config() if "--spec" in sys.argv else None
+#: the query rows of one decode call: a step, or a verify window
+WINDOW = 1 if SPEC is None else SPEC.k + 1
 
 
 def two_pass_layer_norm(x, normalized_shape=None, weight=None, bias=None,
@@ -71,7 +77,7 @@ def row_checked(fn, name, counts, batch_args=False):
     decode kernel's caches, kv_len and scales)."""
     def call(x, *args, **kw):
         out = fn(x, *args, **kw)
-        if x.dim() >= 3 and x.shape[0] > 1 and x.shape[1] == 1:
+        if x.dim() >= 3 and x.shape[0] > 1 and x.shape[1] == WINDOW:
             n = x.shape[0]
 
             def row(t, r):
@@ -120,12 +126,14 @@ def main():
         saved[3], "decode_kernel", counts, batch_args=True)
     try:
         ServingEngine(chip_smoke._serve_config(
-            model, kv_cache_dtype=KV_DTYPE)).serve_forever(work)
+            model, speculative=SPEC,
+            kv_cache_dtype=KV_DTYPE)).serve_forever(work)
     finally:
         PF.layer_norm = layer_norm
         TF.gelu, TF.linear, torch.matmul = saved[:3]
         cached_mod.flash_attention_decode = saved[3]
     print(json.dumps(dict(check="rows_against_batch_1", kv=KV,
+                          window=WINDOW,
                           layer_norm=layer_norm.__name__, **counts)),
           flush=True)
 
@@ -142,7 +150,7 @@ def main():
 
     cached_mod.flash_attention_decode = recorded
     engine = ServingEngine(chip_smoke._serve_config(
-        model, kv_cache_dtype=KV_DTYPE))
+        model, speculative=SPEC, kv_cache_dtype=KV_DTYPE))
     handles = engine.serve_forever(work)
     served = collections.defaultdict(set)
     for key, out in calls:
@@ -155,11 +163,12 @@ def main():
         ids[0, :p.size] = p
         ref = generate(model, ids, 64, prompt_len=[p.size],
                        cache_max_len=engine.max_len,
-                       kv_cache_dtype=KV_DTYPE).cpu().numpy()[0]
+                       kv_cache_dtype=KV_DTYPE,
+                       speculative=SPEC).cpu().numpy()[0]
         unmatched = [j for j, (key, out) in enumerate(calls)
                      if out not in served[key]]
         print(json.dumps(dict(
-            check="generate_against_engine", kv=KV,
+            check="generate_against_engine", kv=KV, window=WINDOW,
             layer_norm=layer_norm.__name__, request=i,
             decode_calls=len(calls), calls_without_an_equal_engine_row=len(
                 unmatched),

@@ -2,6 +2,9 @@
 loop (the JAX package's ``generation/api.py``, run eagerly: no AOT
 compile and no retrace tracking are needed in PyTorch).
 
+``generate(speculative=...)`` hands off to ``speculative.decode_loop``:
+draft + verify windows of ``k + 1`` tokens in place of single steps.
+
 Networks plug in through the cache protocol (``models/gpt.py``):
 ``forward(input_ids, use_cache=True, prompt_len=..., cache_max_len=N)``
 returns (next-token logits, filled cache) for prefill, and
@@ -71,6 +74,7 @@ class GenerationSession:
         self.network = network
         self.cache_dtype = resolve_cache_dtype(cache_dtype) \
             if cache_dtype is not None else None
+        self._spec_sessions = {}  # (SpeculativeConfig, draft id) -> sess
 
     @property
     def device(self) -> torch.device:
@@ -114,6 +118,19 @@ class GenerationSession:
             finished = finished | (nxt == cfg.eos_token_id)
         return nxt, emitted, cache, finished
 
+    def speculative(self, spec, draft_network=None):
+        """The cached :class:`speculative.SpeculativeSession` (the draft
+        and verify pair) for one SpeculativeConfig and draft network,
+        reused across ``generate(speculative=..., session=...)`` calls."""
+        from .speculative import SpeculativeSession
+        key = (spec, id(draft_network))
+        sess = self._spec_sessions.get(key)
+        if sess is None:
+            sess = SpeculativeSession(self, spec,
+                                      draft_network=draft_network)
+            self._spec_sessions[key] = sess
+        return sess
+
 
 def _as_int_ids(input_ids) -> np.ndarray:
     if isinstance(input_ids, torch.Tensor):
@@ -135,6 +152,7 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
              prompt_len=None, cache_max_len: Optional[int] = None,
              seed: Optional[int] = None,
              session: Optional[GenerationSession] = None,
+             speculative=None, draft_model=None,
              kv_cache_dtype=None) -> torch.Tensor:
     """Generate ``max_new_tokens`` tokens after ``input_ids`` on the
     network's device.
@@ -174,21 +192,48 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
             raise ValueError("prompt_len entries must be in [1, "
                              f"{s}], got {plen.tolist()}")
 
+    from .speculative import as_spec_config
+    spec = as_spec_config(speculative, draft_model)
+    # the verify window writes (and embeds positions for) up to k
+    # unaccepted draft tokens past the last real token: the position
+    # table and the KV ring both need that slack
+    overhang = spec.k if spec is not None else 0
+
     max_pos = getattr(getattr(network, "cfg", None),
                       "max_position_embeddings", None)
     total = int(plen.max()) + max_new_tokens
-    if max_pos is not None and total > int(max_pos):
+    if max_pos is not None and total + overhang > int(max_pos):
         raise ValueError(
             f"generate(): prompt ({int(plen.max())} tokens) + "
-            f"max_new_tokens ({max_new_tokens}) = {total} exceeds the "
+            f"max_new_tokens ({max_new_tokens})"
+            + (f" + speculative window overhang ({overhang})"
+               if overhang else "")
+            + f" = {total + overhang} exceeds the "
             f"model's max_position_embeddings ({int(max_pos)})")
+    # the draft model walks the same positions (its cache stays aligned
+    # with the target's): a smaller draft position table would clip its
+    # gathers into garbage proposals instead of an error
+    if spec is not None and spec.mode == "draft":
+        d_max = getattr(getattr(draft_model, "cfg", None),
+                        "max_position_embeddings", None)
+        if d_max is not None and total + overhang > int(d_max):
+            raise ValueError(
+                f"generate(): prompt + max_new_tokens + speculative "
+                f"overhang = {total + overhang} exceeds the DRAFT "
+                f"model's max_position_embeddings ({int(d_max)}); the "
+                "draft model must cover the same positions as the "
+                "target")
     cache_len = int(cache_max_len) if cache_max_len is not None \
-        else _round_up(s + max_new_tokens)
-    if cache_len < s + max_new_tokens:
+        else _round_up(s + max_new_tokens + overhang)
+    if cache_len < s + max_new_tokens + overhang:
         raise ValueError(
             f"cache_max_len {cache_len} < prompt {s} + max_new_tokens "
-            f"{max_new_tokens}; the ring cache would wrap and overwrite "
-            "the oldest context")
+            f"{max_new_tokens}"
+            + (f" + speculative verify-window overhang {overhang} (the "
+               "last window's unaccepted draft tokens still write "
+               "their KV before rollback)" if overhang else "")
+            + "; the ring cache would wrap and overwrite the oldest "
+            "context")
 
     cfg = GenerationConfig(do_sample=do_sample, temperature=temperature,
                            top_k=top_k, top_p=top_p,
@@ -215,6 +260,11 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
         else:
             from ..core import random as _random
             generator = _random.generator(dev)
+
+    if spec is not None:
+        from .speculative import decode_loop
+        return decode_loop(sess, ids, plen, cfg, spec, draft_model,
+                           cache_len, max_new_tokens, generator)
 
     tok, cache, finished = sess.prefill(
         torch.as_tensor(ids, device=dev), torch.as_tensor(plen, device=dev),

@@ -1,17 +1,18 @@
 """AnalysisConfig analog: the model to serve, its device and precision,
 and the generation and serving knobs the ``ServingEngine`` reads (the
 JAX package's ``inference/config.py``: the dense, paged and chunked
-serving paths).
+serving paths, and speculative decoding).
 
 Options of the JAX package that belong to paths not ported yet (int8
-and int4 weights, speculation, telemetry, compile cache) are accepted
-by name and raise when set, naming the ROADMAP entry.
+and int4 weights, telemetry, compile cache) are accepted by name and
+raise when set, naming the ROADMAP entry.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from ..generation.kv_cache import validate_cache_dtype
+from ..generation.speculative import as_spec_config
 
 
 class PrecisionType:
@@ -22,10 +23,6 @@ class PrecisionType:
 
 
 #: option name -> the ROADMAP entry that ports it
-_LATER_GENERATION = {
-    "speculative": "A5 (speculative decoding)",
-    "draft_model": "A5 (speculative decoding)",
-}
 _LATER_SERVING = {
     "weight_bits": "A8 (int8/int4 weight paths)",
     "trace_sample": "A7 (observability)",
@@ -86,23 +83,35 @@ class Config:
                           max_batch: int = 1, do_sample: bool = False,
                           temperature: float = 1.0, top_k: int = 0,
                           top_p: float = 1.0, eos_token_id=None,
-                          pad_token_id=None, kv_cache_dtype=None, **later):
+                          pad_token_id=None, speculative=None,
+                          draft_model=None, kv_cache_dtype=None):
         """Generation knobs: the token budget, the prompt-length buckets
         prompts are right-padded to, the fixed decode batch, and the
-        sampling configuration. ``kv_cache_dtype="int8"`` (or
+        sampling configuration.
+
+        ``speculative`` turns on speculative decoding for the serving
+        engine built from this config: ``"ngram"`` (model-free prompt
+        lookup), ``"draft"`` with ``draft_model=`` a small live LM
+        sharing the vocabulary (``generate()`` only; the engine refuses
+        it, as the JAX package's does), or a
+        ``generation.SpeculativeConfig`` for draft-k and n-gram. Greedy
+        output stays the non-speculative output.
+
+        ``kv_cache_dtype="int8"`` (or
         ``PADDLE_KV_CACHE_DTYPE``) quantizes the KV cache of every
         serving surface built from this config: int8 values with
         per-(position, head) bf16 scales, dequantized inside the decode
         kernels (half the cache bytes streamed per token)."""
-        _refuse_later("enable_generation", later, _LATER_GENERATION)
-        validate_cache_dtype(kv_cache_dtype)      # eagerly, as JAX does
+        as_spec_config(speculative, draft_model)  # eagerly, as JAX does
+        validate_cache_dtype(kv_cache_dtype)
         self._generation = dict(
             max_new_tokens=int(max_new_tokens),
             prefill_buckets=tuple(sorted(int(b) for b in prefill_buckets)),
             max_batch=int(max_batch), do_sample=bool(do_sample),
             temperature=float(temperature), top_k=int(top_k),
             top_p=float(top_p), eos_token_id=eos_token_id,
-            pad_token_id=pad_token_id, kv_cache_dtype=kv_cache_dtype)
+            pad_token_id=pad_token_id, speculative=speculative,
+            draft_model=draft_model, kv_cache_dtype=kv_cache_dtype)
         return self
 
     def enable_serving(self, max_queue: int = 64, poll_every: int = 4,

@@ -32,21 +32,36 @@ chunked-prefill paths).
   copies its int8 values and scales verbatim, so a slot decodes as a
   sequential int8 ``generate`` would. The saturation count stays on the
   device in ``engine._cache.clips``.
+- **speculative slots** (``enable_generation(speculative="ngram")``,
+  the model-free prompt-lookup drafter only, as in the JAX package):
+  each decode step becomes one ngram draft over the slots' token
+  histories (``tok_buf``: prompt + everything emitted) and ONE forward
+  over the ``[max_batch, k + 1]`` window, then
+  ``speculative.apply_verify_window`` advances every live row by 1 to
+  k + 1 tokens and rolls ``kv_len`` back to the accepted window. The
+  cache, the page plans and the bucket filter carry ``k`` positions of
+  overhang; the poll drains the proposed/accepted counters into
+  ``stats``.
 - **host syncs** happen only at the poll cadence (every ``poll_every``
-  decode steps: two [batch] lane reads), once per admission (the
+  decode steps: the [batch] lane reads), once per admission (the
   time-to-first-token point), once per prefill chunk and once per
   completion (the row read).
+- **environment**: ``PADDLE_KV_PAGE_SIZE`` and
+  ``PADDLE_PREFILL_CHUNK_TOKENS`` fill in the page size and the chunk
+  width when neither the keyword nor ``enable_serving`` sets them.
 
 On a CUDA card every inline prefill's attention runs in the flash
 forward kernel, every chunk's in the chunk kernel, and every decode
-step's in the flash decode kernel (dense cache) or the paged decode
-kernel (paged cache), in their int8 modes on an int8 cache. Thread
-mode, the graceful-shutdown drain, metrics, tracing, ``health()``, and
-the speculative path come with later slices (ROADMAP A5, A7, A8).
+step's (a speculative verify window's too) in the flash decode kernel
+(dense cache) or the paged decode kernel (paged cache), in their int8
+modes on an int8 cache. Thread mode, the graceful-shutdown drain,
+metrics, tracing and ``health()`` come with later slices (ROADMAP A7,
+A8).
 """
 from __future__ import annotations
 
 import collections
+import os
 import threading
 import time
 from typing import Dict, Iterable, List, Optional
@@ -59,6 +74,8 @@ from ..generation.api import (GenerationConfig, GenerationSession,
 from ..generation.kv_cache import KVCache, resolve_cache_dtype
 from ..generation.paged_cache import PageAllocator, PagedKVCache
 from ..generation.sampling import sample
+from ..generation.speculative import (apply_verify_window, as_spec_config,
+                                      ngram_propose)
 from ..inference.precision import serving_params
 from .request import QueueFull, Request, RequestParams, RequestStatus
 
@@ -137,36 +154,63 @@ class ServingEngine:
         if self.max_batch < 1:
             raise ValueError("max_batch must be >= 1")
 
+        # speculative slots: the model-free prompt-lookup drafter only
+        # (a draft model would need its own per-slot cache admission);
+        # generate() serves draft mode
+        self._spec = as_spec_config(opts.get("speculative"),
+                                    opts.get("draft_model"))
+        if self._spec is not None and self._spec.mode != "ngram":
+            raise ValueError(
+                "ServingEngine supports speculative='ngram' (the "
+                "model-free prompt-lookup drafter); draft-model "
+                "speculation is a generate() path for now")
+        # the last window's unaccepted draft tokens write their KV (and
+        # embed their positions) before the rollback
+        overhang = self._spec.k if self._spec is not None else 0
+        self._overhang = overhang
+
         net_cfg = getattr(self.network, "cfg", None)
         max_pos = getattr(net_cfg, "max_position_embeddings", None)
         buckets = sorted(
             int(b) for b in opts["prefill_buckets"]
-            if max_pos is None or b + self.max_new_tokens <= int(max_pos))
+            if max_pos is None
+            or b + self.max_new_tokens + overhang <= int(max_pos))
         if not buckets:
             raise ValueError(
                 f"no prefill bucket in {opts['prefill_buckets']} fits "
                 f"max_position_embeddings={max_pos} with "
-                f"max_new_tokens={self.max_new_tokens}")
+                f"max_new_tokens={self.max_new_tokens}"
+                + (f" + speculative overhang {overhang}" if overhang
+                   else ""))
         self.buckets = buckets
         self.max_len = int(cache_max_len) if cache_max_len else \
-            _round_up(buckets[-1] + self.max_new_tokens)
-        if self.max_len < buckets[-1] + self.max_new_tokens:
+            _round_up(buckets[-1] + self.max_new_tokens + overhang)
+        if self.max_len < buckets[-1] + self.max_new_tokens + overhang:
             raise ValueError(
                 f"cache_max_len {self.max_len} < largest bucket "
-                f"{buckets[-1]} + max_new_tokens {self.max_new_tokens}; "
-                "the shared ring cache would wrap under a full-length "
-                "request")
+                f"{buckets[-1]} + max_new_tokens {self.max_new_tokens}"
+                + (f" + speculative verify-window overhang {overhang} "
+                   "(the last window's unaccepted draft tokens still "
+                   "write their KV before rollback)" if overhang else "")
+                + "; the shared ring cache would wrap under a "
+                "full-length request")
 
         # ------------------------------------------------- paged cache
         # K/V in a pool of fixed-size pages, an int32 page table per
         # slot; admission needs free pages as well as a free slot
         self._alloc = None
         if bool(_opt(paged, "paged", False)):
-            ps = int(_opt(kv_page_size, "kv_page_size", 128))
+            # keyword > enable_serving > PADDLE_KV_PAGE_SIZE > 128; an
+            # environment value that is not digits falls back to the
+            # default (its record_swallowed comes with ROADMAP A7)
+            env_ps = os.environ.get("PADDLE_KV_PAGE_SIZE", "").strip()
+            ps = int(_opt(kv_page_size, "kv_page_size",
+                          int(env_ps) if env_ps.isdigit() else 128))
             if ps < 1 or self.max_len % ps:
                 raise ValueError(
                     f"kv_page_size {ps} must divide the cache length "
-                    f"{self.max_len} (enable_serving(kv_page_size=...))")
+                    f"{self.max_len} (PADDLE_KV_PAGE_SIZE / "
+                    "enable_serving(kv_page_size=...))")
             self.page_size = ps
             self.pages_per_row = self.max_len // ps
             # default pool: the dense cache's footprint (max_batch rows
@@ -175,13 +219,17 @@ class ServingEngine:
                                self.max_batch * self.pages_per_row + 1))
             # a pool that cannot hold ONE full-size request would stall
             # the queue head forever with no error
-            worst = -(-(buckets[-1] + self.max_new_tokens) // ps)
+            worst = -(-(buckets[-1] + self.max_new_tokens + overhang)
+                      // ps)
             if n_pages - 1 < worst:
                 raise ValueError(
                     f"kv_pages {n_pages} (1 reserved) cannot hold one "
                     f"full-size request: bucket {buckets[-1]} + "
-                    f"max_new_tokens {self.max_new_tokens} needs {worst} "
-                    f"pages of {ps}; raise kv_pages or kv_page_size")
+                    f"max_new_tokens {self.max_new_tokens}"
+                    + (f" + speculative overhang {overhang}" if overhang
+                       else "")
+                    + f" needs {worst} pages of {ps}; raise kv_pages "
+                    "or kv_page_size")
             self._alloc = PageAllocator(n_pages, ps)
             self._pending_pages: Dict[int, tuple] = {}
             self._row_pages: List[Optional[list]] = [None] * self.max_batch
@@ -192,12 +240,20 @@ class ServingEngine:
             self._blocked_key = None
 
         # --------------------------------------------- chunked prefill
-        ct = _opt(prefill_chunk_tokens, "prefill_chunk_tokens", None)
+        # keyword > enable_serving > PADDLE_PREFILL_CHUNK_TOKENS > off;
+        # an environment value that is not digits leaves chunking off
+        # (its record_swallowed comes with ROADMAP A7)
+        env_ct = os.environ.get("PADDLE_PREFILL_CHUNK_TOKENS", "").strip()
+        ct = _opt(prefill_chunk_tokens, "prefill_chunk_tokens",
+                  int(env_ct) if env_ct.isdigit() else None)
         self.prefill_chunk_tokens = None
         if ct is not None:
             ct = int(ct)
             if ct < 1:
-                raise ValueError(f"prefill_chunk_tokens {ct} must be >= 1")
+                raise ValueError(
+                    f"prefill_chunk_tokens {ct} must be >= 1 "
+                    "(PADDLE_PREFILL_CHUNK_TOKENS / "
+                    "enable_serving(prefill_chunk_tokens=...))")
             if self._alloc is not None and ct % self.page_size:
                 raise ValueError(
                     f"prefill_chunk_tokens {ct} must be a multiple of "
@@ -261,6 +317,15 @@ class ServingEngine:
         self._steps = torch.zeros(B, dtype=torch.int32, device=dev)
         self._budget = torch.zeros(B, dtype=torch.int32, device=dev)
         self._out_buf = torch.zeros((B, cap), dtype=torch.int64, device=dev)
+        if self._spec is not None:
+            # drafter lanes: each slot's token history (prompt + emitted,
+            # the n-gram lookup corpus) and the proposed/accepted
+            # counters the poll drains into stats
+            self._tok_buf = torch.zeros((B, self.max_len), dtype=torch.int64,
+                                        device=dev)
+            self._tok_len = torch.zeros(B, dtype=torch.int64, device=dev)
+            self._proposed = torch.zeros((), dtype=torch.int64, device=dev)
+            self._accepted = torch.zeros((), dtype=torch.int64, device=dev)
 
         # ------------------------------------------------- host state
         self._slots: List[Optional[Request]] = [None] * B
@@ -272,7 +337,7 @@ class ServingEngine:
         self.stats: Dict[str, int] = dict(
             submitted=0, admitted=0, completed=0, cancelled=0,
             rejected=0, slots_reused=0, decode_steps=0, prefills=0,
-            prefill_chunks=0)
+            prefill_chunks=0, spec_proposed=0, spec_accepted=0)
 
     # -------------------------------------------------------- admission
     def submit(self, prompt, params: Optional[RequestParams] = None) \
@@ -372,7 +437,10 @@ class ServingEngine:
                     if self._blocked_key == (req.id, ver):
                         self._page_blocked = True
                         return None
-                    plan = self._alloc.plan(req.prompt, req.budget)
+                    # the plan covers the budget AND the speculative
+                    # overhang: the last window writes k positions past it
+                    plan = self._alloc.plan(req.prompt,
+                                            req.budget + self._overhang)
                     pages = self._alloc.commit(plan)
                     if pages is None:
                         # a failed commit may still have reclaimed cached
@@ -444,6 +512,16 @@ class ServingEngine:
         self._out_buf[slot] = 0
         self._out_buf[slot, 0] = tok[0]
         self._finished[slot] = fin[0] | (req.budget <= 1)
+        if self._spec is not None:
+            # the drafter's corpus row: the padded prompt with the first
+            # token appended
+            n = int(req.prompt.size)
+            row = torch.full((self.max_len,), self._cfg.pad_value,
+                             dtype=torch.int64, device=self.device)
+            row[:n] = torch.as_tensor(req.prompt, device=self.device)
+            row[n] = tok[0]
+            self._tok_buf[slot] = row
+            self._tok_len[slot] = n + 1
         if self._alloc is not None:
             # popped only once the install landed: a failed install
             # leaves it for _release_pending to roll back
@@ -590,7 +668,13 @@ class ServingEngine:
     @torch.no_grad()
     def _dispatch_decode(self):
         """The fixed-batch decode step over every slot (the JAX
-        package's step_fn), entirely on the device."""
+        package's step_fn, or its spec_step_fn on a speculative engine),
+        entirely on the device."""
+        self._steps_since_poll += 1
+        self.stats["decode_steps"] += 1
+        if self._spec is not None:
+            self._dispatch_verify()
+            return
         logits, _ = self.network(self._tok[:, None], cache=self._cache)
         nxt = sample(logits[:, -1], self._gen, **self._cfg.sample_kwargs())
         idx = self._steps.clamp(0, self._out_buf.shape[1] - 1).long()
@@ -607,8 +691,24 @@ class ServingEngine:
         # ring or walks the position table out of range
         self._cache.kv_len.masked_fill_(self._finished, 0)
         self._tok = nxt
-        self._steps_since_poll += 1
-        self.stats["decode_steps"] += 1
+
+    def _dispatch_verify(self):
+        """The speculative step: an ngram draft for every slot, ONE
+        forward over the [max_batch, k + 1] window, then the shared
+        acceptance, clamp, scatter and rollback core, with finished
+        slots pinned at kv_len 0."""
+        spec = self._spec
+        draft = ngram_propose(self._tok_buf, self._tok_len, k=spec.k,
+                              n=spec.ngram)
+        window = torch.cat([self._tok[:, None], draft], dim=1)
+        logits, _ = self.network(window, cache=self._cache)
+        (self._tok, _, self._finished, self._steps, self._out_buf,
+         self._tok_buf, self._tok_len, self._proposed,
+         self._accepted) = apply_verify_window(
+            logits.float(), draft, self._gen, self._cfg, spec, self._tok,
+            self._cache, self._finished, self._steps, self._budget,
+            self._out_buf, self._tok_buf, self._tok_len, self._proposed,
+            self._accepted, pin_finished_kv=True)
 
     def _poll(self):
         """Read the [batch] finished/step lanes, complete finished rows,
@@ -618,6 +718,15 @@ class ServingEngine:
         self._steps_since_poll = 0
         fin = self._finished.cpu().numpy()
         steps = self._steps.cpu().numpy()
+        if self._spec is not None:
+            # drain the speculation counters in the same poll: read,
+            # add to stats, reset on the device
+            prop, acc = torch.stack([self._proposed,
+                                     self._accepted]).tolist()
+            self.stats["spec_proposed"] += prop
+            self.stats["spec_accepted"] += acc
+            self._proposed.zero_()
+            self._accepted.zero_()
         now = time.monotonic()
         for i, req in enumerate(self._slots):
             if req is None or req.status is RequestStatus.PENDING_PREFILL:
@@ -737,6 +846,8 @@ class ServingEngine:
             f", pages={self._alloc.n_pages}x{self.page_size}"
         chunk = "" if self.prefill_chunk_tokens is None else \
             f", prefill_chunk_tokens={self.prefill_chunk_tokens}"
+        spec = "" if self._spec is None else \
+            f", speculative=ngram(k={self._spec.k}, n={self._spec.ngram})"
         return (f"ServingEngine(max_batch={self.max_batch}, "
                 f"buckets={self.buckets}, max_len={self.max_len}"
-                f"{paged}{chunk}, device={self.device})")
+                f"{paged}{chunk}{spec}, device={self.device})")

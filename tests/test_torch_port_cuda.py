@@ -890,6 +890,84 @@ def test_int8_engines_on_card_match_cpu(dev):
             np.testing.assert_array_equal(b, a)
 
 
+# ------------------------------------------------ speculative verify windows
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_verify_window_at_gpt2_small_heads(dev, int8):
+    """A k=4 verify window at gpt2-small's head layout (q [8,5,12,64]
+    bf16, cache [8,640,12,64], ragged kv_len, each row attending to its
+    own position): the split body's multi-row route against the plain
+    version on the dense cache, and through a 128-row page table (the
+    41-page pool of the paged engine) bitwise equal to it."""
+    gen = torch.Generator(device=dev).manual_seed(16 + int8)
+    b, sq, t, h, d = 8, 5, 640, 12, 64
+    if int8:
+        k, v, ks, vs = _int8_cache(gen, (b, t, h, d), dev)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (_randn(gen, (b, t, h, d), torch.bfloat16, dev)
+                for _ in range(2))
+        scales = {}
+    q = _randn(gen, (b, sq, h, d), torch.bfloat16, dev)
+    kv = torch.tensor([5, 6, 22, 205, 338, 517, 582, 640], dtype=torch.int32,
+                      device=dev)
+    fa.reset_counts()
+    out = fa.flash_attention_decode(q, k, v, kv, **scales)
+    paged = _decode_call(q, k, v, kv, scales, 128, gen)
+    torch.cuda.synchronize()
+    launches = (fa.flash_attention_decode.launches_int8,
+                fa.flash_attention_decode_paged.launches_int8) if int8 else \
+        (fa.flash_attention_decode.launches,
+         fa.flash_attention_decode_paged.launches)
+    assert launches == (1, 1)
+    assert torch.equal(paged, out)
+    _close(out, fa.flash_attention_decode_plain(q, k, v, kv, **scales))
+
+
+@pytest.mark.parametrize("serving", [dict(), dict(paged=True, kv_page_size=8),
+                                     dict(kv_cache_dtype="int8")])
+def test_speculative_engine_on_card_matches_cpu(dev, serving):
+    """test-tiny in fp32 with speculative="ngram": the engine on the card
+    gives the CPU engine's tokens and acceptances, every verify window in
+    the decode kernel of its cache, no plain version."""
+    from paddle_tpu_torch.inference import Config
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.serving import ServingEngine
+    cpu = gpt("test-tiny", device="cpu",
+              generator=torch.Generator().manual_seed(0)).eval()
+    gpu = gpt("test-tiny", device=dev).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(2)
+    motif = np.tile([11, 7, 42, 99, 3, 5], 5)[:24]
+    prompts = [rng.randint(0, 512, n) for n in (5, 30, 12, 3)] + [motif]
+    outs, stats = [], []
+    for m, on_card in ((cpu, False), (gpu, True)):
+        cfg = (Config().from_layer(m)
+               .enable_generation(max_new_tokens=8, prefill_buckets=(16, 32),
+                                  max_batch=2, speculative="ngram")
+               .enable_serving(**serving))
+        if not on_card:
+            cfg.disable_gpu()
+        else:
+            cfg.enable_use_gpu("float32")
+        fa.reset_counts()
+        eng = ServingEngine(cfg, poll_every=2)
+        outs.append([h.tokens for h in eng.serve_forever(iter(prompts))])
+        stats.append((eng.stats["spec_proposed"], eng.stats["spec_accepted"]))
+    int8 = serving.get("kv_cache_dtype") == "int8"
+    kern = fa.flash_attention_decode_paged if serving.get("paged") \
+        else fa.flash_attention_decode
+    plain = fa.flash_attention_decode_paged_plain if serving.get("paged") \
+        else fa.flash_attention_decode_plain
+    assert (kern.launches_int8 if int8 else kern.launches) == \
+        2 * eng.stats["decode_steps"]
+    assert plain.calls == plain.calls_int8 == 0
+    assert stats[0] == stats[1] and stats[1][1] > 0
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(b, a)
+
+
 # ------------------------------------------------ fused ResNet (rows 13-16)
 #
 # Tolerances, per tensor against the plain version on the same inputs:

@@ -236,7 +236,10 @@ def test_engine_validates_requests_and_config(pair):
                                    prefill_chunk_tokens=64)._serving
     assert (opts["paged"], opts["kv_page_size"], opts["kv_pages"],
             opts["prefill_chunk_tokens"]) == (True, 16, 9, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Config().enable_generation(speculative="ngram")
+    # ported since: speculative decoding, validated eagerly
+    assert Config().enable_generation(
+        speculative="ngram")._generation["speculative"] == "ngram"
+    with pytest.raises(ValueError, match="draft_model"):
+        Config().enable_generation(speculative="draft")
     with pytest.raises(TypeError):
         Config().enable_serving(no_such_option=1)
