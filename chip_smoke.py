@@ -2617,6 +2617,254 @@ def phase_generate_spec(torch, model, prompts):
     return total
 
 
+#: the serve_telemetry phase's engines: (name, enable_serving options,
+#: speculative, extra traffic of shared-prefix prompts)
+TELEMETRY_ENGINES = (
+    ("dense", {}, False, False),
+    ("paged", dict(paged=True, kv_page_size=128), False, True),
+    ("chunked", dict(paged=True, kv_page_size=128,
+                     prefill_chunk_tokens=128), False, False),
+    ("int8", dict(kv_cache_dtype="int8"), False, False),
+    ("spec", {}, True, False),
+)
+
+
+def _telemetry_reset():
+    """A clean registry, time-series ring, SLO watchtower and flight
+    recorder, with the monitor off."""
+    from paddle_tpu_torch.core import (flight_recorder, metrics, monitor,
+                                       slo, timeseries)
+    monitor.disable()
+    metrics._reset_for_tests()
+    timeseries._reset_for_tests()
+    slo._reset_for_tests()
+    flight_recorder.configure(capacity=flight_recorder.DEFAULT_CAPACITY,
+                              on=True)
+
+
+def _telemetry_serve(torch, model, prompts, shared, opts, spec, on):
+    """One engine built and served with the registry and the recorder on
+    or off; returns (engine, handles, wall, launches, plain calls)."""
+    from paddle_tpu_torch.core import flight_recorder, monitor
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    _telemetry_reset()
+    if on:
+        monitor.enable()           # before the build: kv_dtype is set there
+    else:
+        flight_recorder.disable()
+    engine = ServingEngine(_serve_config(
+        model, speculative=_spec_config() if spec else None,
+        trace_sample=1, **opts))
+    params = RequestParams(max_new_tokens=64)
+    work = [[(p, params) for p in prompts]]
+    if shared:
+        work.append([(p, params) for p in _shared_prompts(model)])
+    return (engine,) + _serve(torch, engine, work)
+
+
+def _telemetry_profile(torch, engine, prompts):
+    """Profiler(targets=[CPU, GPU]) over 8 dense decode steps with all 8
+    slots live and every request traced: the exported chrome trace must
+    hold the decode kernel's device events, the RecordEvent spans and
+    the sampled requests' spans; summary_report prints."""
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           RecordEvent, statistic)
+    from paddle_tpu_torch.serving import RequestParams
+    for p in prompts:
+        engine.submit(p, RequestParams(max_new_tokens=64))
+    engine.step()                           # admits all 8
+    trace_dir = os.path.join(HERE, "build", "profiler")
+    prof = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                    scheduler=(0, 8), trace_dir=trace_dir)
+    prof.start()
+    for _ in range(8):
+        with RecordEvent("serve_telemetry.step"):
+            engine.step()
+        prof.step()
+    prof.stop()
+    res = prof.result
+    path = res.export_chrome_tracing(os.path.join(trace_dir, "serve.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e["name"] for e in events if e.get("ph") == "X"]
+    decode = [e for e in events if e.get("cat") == "kernel"
+              and "paddle_flash::flash_decode" in e["name"]]
+    steps = spans.count("serve_telemetry.step")
+    requests = sorted({n.split(".", 1)[0] for n in spans
+                       if n.startswith("req") and "." in n})
+    summary = statistic.summary_report(res.events, res.metrics_snapshot)
+    print(summary, flush=True)
+    while engine.busy:
+        engine.step()
+    fields = dict(trace_events=len(events), decode_kernel_events=len(decode),
+                  record_event_spans=steps, traced_requests=len(requests),
+                  device_events=len(res.device_events),
+                  torch_trace_dir=os.path.relpath(res.device_trace_dir,
+                                                  HERE))
+    if steps != 8 or len(decode) < 8 * 12 or not requests:
+        fail(f"serve_telemetry profile: {fields}")
+    return fields
+
+
+def _telemetry_step_wall(torch, engine, prompts):
+    """The dense step's wall with the registry off and on, in one call
+    (off, on, on, off): 8 live slots, 16 scheduler steps (4 polls)
+    timed per round. For information: no gate."""
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.serving import RequestParams
+    walls = []
+    for on in (False, True, True, False):
+        (monitor.enable if on else monitor.disable)()
+        for p in prompts:
+            engine.submit(p, RequestParams(max_new_tokens=64))
+        engine.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            engine.step()
+        torch.cuda.synchronize()
+        walls.append(dict(registry="on" if on else "off",
+                          step_wall_ms=(time.perf_counter() - t0) * 1e3 / 16))
+        while engine.busy:
+            engine.step()
+    monitor.enable()
+    return walls
+
+
+def _telemetry_fail_admission(torch, model, prompts):
+    """fail_admission(n=2) on the card: two handles end cancelled with
+    an admission error, the engine serves the rest, the swallows are
+    counted, and flight_recorder.auto_dump writes a dump."""
+    from paddle_tpu_torch.core import flight_recorder, metrics
+    from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
+                                          ServingEngine)
+    from paddle_tpu_torch.utils.fault_injection import fail_admission
+    dump_dir = os.path.join(HERE, "build", "flightrecorder")
+    os.environ["PADDLE_FLIGHT_RECORDER_DIR"] = dump_dir
+    engine = ServingEngine(_serve_config(model))
+    with fail_admission(engine, n=2) as fa:
+        handles = engine.serve_forever(
+            (p, RequestParams(max_new_tokens=64)) for p in prompts)
+    path = flight_recorder.auto_dump("serve_admission_error")
+    snap = metrics.snapshot()
+    cancelled = [h for h in handles if h.status is RequestStatus.CANCELLED]
+    done = [h for h in handles if h.status is RequestStatus.COMPLETED]
+    fields = dict(
+        triggered=fa.triggered, cancelled=len(cancelled),
+        completed=len(done),
+        details=[h.detail[:60] for h in cancelled],
+        swallowed=snap.get("errors.swallowed{where=serving.admit}",
+                           {}).get("value"),
+        dump=None if path is None else os.path.relpath(path, HERE),
+        dumps=snap.get("flightrecorder.dumps{reason=serve_admission_error}",
+                       {}).get("value"))
+    if fa.triggered != 2 or len(cancelled) != 2 or \
+            len(done) != len(handles) - 2 or fields["swallowed"] != 2 or \
+            not all(h.detail.startswith("admission error")
+                    for h in cancelled) or \
+            path is None or not os.path.exists(path) or fields["dumps"] != 1:
+        fail(f"serve_telemetry fail_admission: {fields}")
+    return fields
+
+
+def phase_serve_telemetry(torch, model, prompts):
+    """The serving traffic (gpt2-small bf16, max_batch 8, the 16 prompts,
+    64 new tokens; the paged engine also the 8 shared-prefix ones) on
+    the dense, paged, chunked, int8 and ngram-speculative dense engines,
+    each served with the registry and the flight recorder off, then on.
+    Per engine: the streams equal bitwise between the two runs
+    (recording changes nothing computed), serve.requests{completed} and
+    serve.ttft's count equal the requests, gen.tokens the tokens the
+    handles hold, gen.decode_steps and gen.spec.* the engine's stats,
+    pages allocated equal pages freed once the drained prefix registry
+    is dropped, and the int8 engine carries serve.cache.kv_dtype{int8}.
+    Then a CPU+GPU profile of 8 dense decode steps, the dense step's
+    wall with the registry off and on, and fail_admission on the card.
+    Latency, goodput and wall figures print for information."""
+    from paddle_tpu_torch.core import metrics, monitor
+    from paddle_tpu_torch.serving import RequestStatus
+    total = {}
+    for name, opts, spec, shared in TELEMETRY_ENGINES:
+        _, off, *_ = _telemetry_serve(torch, model, prompts, shared, opts,
+                                      spec, on=False)
+        if metrics.snapshot():
+            fail(f"serve_telemetry {name}: the registry recorded while off")
+        engine, handles, wall, launches, plain = _telemetry_serve(
+            torch, model, prompts, shared, opts, spec, on=True)
+        if engine._alloc is not None:
+            engine._alloc.drop_registry()
+            engine._drain_page_stats()
+        snap = metrics.snapshot()
+        value = lambda key: snap.get(key, {}).get("value")
+        st = engine.stats
+        n_tokens = sum(int(h.tokens.size) for h in handles
+                       if h.tokens is not None)
+        differ = sum(not np.array_equal(a.tokens, b.tokens)
+                     for a, b in zip(off, handles))
+        ttft = metrics.histogram("serve.ttft")
+        tok = metrics.histogram("serve.token_latency")
+        gp = engine.goodput()
+        fields = dict(
+            engine=name, requests=len(handles),
+            completed=value("serve.requests{status=completed}"),
+            gen_tokens=value("gen.tokens"), handle_tokens=n_tokens,
+            gen_decode_steps=value("gen.decode_steps"),
+            spec_proposed=value("gen.spec.proposed"),
+            spec_accepted=value("gen.spec.accepted"),
+            ttft_count=snap.get("serve.ttft", {}).get("count"),
+            pages_allocated=value("gen.cache.pages_allocated"),
+            pages_freed=value("gen.cache.pages_freed"),
+            prefix_hits=value("serve.cache.prefix_hits"),
+            prefill_chunks=value("serve.prefill.chunks"),
+            kv_dtype=sorted(k for k in snap
+                            if k.startswith("serve.cache.kv_dtype")),
+            streams_differing_with_telemetry_off=differ,
+            p50_ttft_ms=ttft.percentile(50) * 1e3,
+            p95_ttft_ms=ttft.percentile(95) * 1e3,
+            p50_per_token_ms=tok.percentile(50) * 1e3,
+            goodput_fraction=gp["goodput_fraction"],
+            goodput_buckets_s=gp["buckets"], wall_s=wall,
+            tokens_per_s=n_tokens / wall, launches=launches,
+            plain_calls=plain, stats=st, metrics=len(snap))
+        say("serve_telemetry", **fields)
+        done = [h for h in handles if h.status is RequestStatus.COMPLETED]
+        bad = []
+        if differ or len(done) != len(handles):
+            bad.append("streams")
+        if fields["completed"] != len(handles) or \
+                fields["ttft_count"] != len(handles):
+            bad.append("requests")
+        if fields["gen_tokens"] != n_tokens or \
+                fields["gen_decode_steps"] != st["decode_steps"]:
+            bad.append("gen")
+        if spec and (fields["spec_proposed"] != st["spec_proposed"]
+                     or fields["spec_accepted"] != st["spec_accepted"]
+                     or not st["spec_accepted"]):
+            bad.append("spec")
+        if engine._alloc is not None and (
+                not fields["pages_allocated"]
+                or fields["pages_allocated"] != fields["pages_freed"]):
+            bad.append("pages")
+        if (name == "int8") != (fields["kv_dtype"] ==
+                                ["serve.cache.kv_dtype{dtype=int8}"]):
+            bad.append("kv_dtype")
+        if plain:
+            bad.append("plain")
+        if bad:
+            fail(f"serve_telemetry {name}: {bad}: {fields}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        if name == "dense":
+            profile = _telemetry_profile(torch, engine, prompts[8:])
+            walls = _telemetry_step_wall(torch, engine, prompts[8:])
+            say("serve_telemetry_profile", **profile, step_wall=walls)
+    say("serve_telemetry_fail_admission",
+        **_telemetry_fail_admission(torch, model, prompts[:8]))
+    _telemetry_reset()
+    monitor.disable()
+    return total
+
+
 def phase_int8_logits(torch, model):
     """At one 500-token prompt (bucket 512, cache 640): the decode logits
     over the int8 cache against those over the wide cache, and the
@@ -3389,6 +3637,10 @@ def main():
         torch, model, prompts, served["serve_chunked"])))
     paths.append(("generate_spec", phase_generate_spec(torch, model,
                                                        prompts)))
+    # the observability core on the same traffic: registry and recorder
+    # on against off, a CPU+GPU profile, fail_admission
+    paths.append(("serve_telemetry", phase_serve_telemetry(torch, model,
+                                                           prompts)))
     del served, spec_handles
     phase_int8_logits(torch, model)
     del model

@@ -71,3 +71,18 @@ def resolve(device: DeviceLike = None) -> torch.device:
     with _LOCK:
         dev = _CURRENT
     return dev if dev is not None else _parse("gpu")
+
+
+def memory_allocated(device: DeviceLike = None) -> int:
+    """Bytes the caching allocator holds in live tensors on ``device``
+    (the current card by default); 0 on the CPU, which has no device
+    allocator."""
+    dev = resolve(device)
+    return int(torch.cuda.memory_allocated(dev)) if dev.type == "cuda" else 0
+
+
+def memory_reserved(device: DeviceLike = None) -> int:
+    """Bytes the caching allocator has reserved from the card (live and
+    cached blocks); 0 on the CPU."""
+    dev = resolve(device)
+    return int(torch.cuda.memory_reserved(dev)) if dev.type == "cuda" else 0

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import monitor
 from .kv_cache import resolve_cache_dtype
 from .sampling import sample
 
@@ -142,6 +143,37 @@ def _as_int_ids(input_ids) -> np.ndarray:
         raise ValueError(f"input_ids must be [batch, seq], got "
                          f"shape {ids.shape}")
     return ids.astype(np.int64)
+
+
+def _record_call(arr, cfg, n_done, plen, cache_len, cache, sess):
+    """End-of-call telemetry of the sequential path (the JAX package's
+    ``generate``): real generated tokens (each row up to its first eos),
+    the cache occupancy, and on an int8 cache the bytes it saved against
+    the activations' width and this call's saturation count. One host
+    read of the result and of ``clips``, at call end only."""
+    if cfg.eos_token_id is not None:
+        hit = arr == cfg.eos_token_id
+        per_row = np.where(hit.any(1), hit.argmax(1) + 1, n_done)
+        tokens = int(per_row.sum())
+    else:
+        tokens = arr.shape[0] * n_done
+    monitor.record_generation(tokens=tokens)
+    monitor.record_cache_occupancy((int(plen.max()) + n_done) / cache_len)
+    if getattr(cache, "k_scale", None) is not None:
+        monitor.record_kv_quant(
+            bytes_saved=quant_bytes_saved(
+                cache, next(sess.network.parameters()).dtype),
+            scale_clips=int(cache.clips))
+
+
+def quant_bytes_saved(cache, wide_dtype) -> int:
+    """Device bytes an int8 cache saves against the wide dtype it would
+    have carried (the JAX package counts the width of the model's first
+    state value): one byte less for each K and V value, less the two
+    bf16 scale arrays (host arithmetic over shapes)."""
+    wide = wide_dtype.itemsize if wide_dtype.is_floating_point else 4
+    saved = 2 * cache.k.numel() * (wide - 1) - 2 * cache.k_scale.numel() * 2
+    return max(0, saved)
 
 
 def generate(network, input_ids, max_new_tokens: int = 32, *,
@@ -269,17 +301,24 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
     tok, cache, finished = sess.prefill(
         torch.as_tensor(ids, device=dev), torch.as_tensor(plen, device=dev),
         cfg, cache_len, generator)
+    if monitor.enabled:
+        monitor.record_generation(prefill_steps=1)
     outs = [tok]
     for i in range(max_new_tokens - 1):
         tok, emitted, cache, finished = sess.decode(tok, cache, finished,
                                                     cfg, generator)
         outs.append(emitted)
+        if monitor.enabled:
+            monitor.record_generation(decode_steps=1)
         # eos early exit: one tiny host read every K steps
         if cfg.eos_token_id is not None and \
                 (i + 1) % _EOS_CHECK_EVERY == 0 and bool(finished.all()):
             break
     result = torch.stack(outs, dim=1).to(torch.int32)
     n_done = result.shape[1]
+    if monitor.enabled:
+        _record_call(result.cpu().numpy(), cfg, n_done, plen, cache_len,
+                     cache, sess)
     if n_done < max_new_tokens:                      # early eos exit
         pad = torch.full((b, max_new_tokens - n_done), cfg.pad_value,
                          dtype=torch.int32, device=dev)

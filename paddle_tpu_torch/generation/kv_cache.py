@@ -52,8 +52,9 @@ def validate_cache_dtype(value):
 def resolve_cache_dtype(explicit=None):
     """The effective KV-cache dtype: an explicit value wins (and is
     validated: a typo'd config raises, never silently serves wide),
-    else ``PADDLE_KV_CACHE_DTYPE``; garbage in the environment falls
-    back to full width."""
+    else ``PADDLE_KV_CACHE_DTYPE``; garbage in the environment is
+    recorded through ``record_swallowed`` and falls back to full width
+    (the same contract as ``PADDLE_KV_PAGE_SIZE``)."""
     if explicit is not None:
         return validate_cache_dtype(explicit)
     env = os.environ.get("PADDLE_KV_CACHE_DTYPE", "").strip().lower()
@@ -61,6 +62,10 @@ def resolve_cache_dtype(explicit=None):
         return None
     if env in CACHE_DTYPES:
         return env
+    from ..core import monitor
+    monitor.record_swallowed(
+        "generation.kv_cache_dtype",
+        ValueError(f"PADDLE_KV_CACHE_DTYPE={env!r}"))
     return None
 
 
@@ -187,6 +192,12 @@ class KVCache:
         kv_len = torch.as_tensor(kv_len, device=self.k.device)
         self.kv_len.copy_(kv_len.to(torch.int32).expand(self.batch))
         return self
+
+    def occupancy(self) -> float:
+        """Host-side fraction of the cache in use (max over rows): the
+        gen.cache_occupancy gauge. Reads kv_len ([batch] int32) on the
+        host, so callers read it only at a poll."""
+        return float(int(self.kv_len.max())) / self.max_len
 
     def __repr__(self):
         return (f"KVCache(layers={self.num_layers}, batch={self.batch}, "

@@ -225,6 +225,13 @@ class PagedKVCache:
         self.kv_len.copy_(kv_len.to(torch.int32).expand(self.batch))
         return self
 
+    def occupancy(self) -> float:
+        """Host-side fraction of the LOGICAL per-row capacity in use
+        (max over rows): the gen.cache_occupancy gauge; page-level
+        occupancy is the allocator's ``page_occupancy``. Reads kv_len
+        on the host, so callers read it only at a poll."""
+        return float(int(self.kv_len.max())) / self.max_len
+
     def __repr__(self):
         return (f"PagedKVCache(layers={self.num_layers}, "
                 f"batch={self.batch}, pages={self.n_pages}x"

@@ -42,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import monitor
 from ..kernels.flash_attention import MAX_DECODE_QLEN
 from .sampling import apply_temperature, apply_top_k, apply_top_p
 
@@ -357,6 +358,8 @@ def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
     plen_t = torch.as_tensor(plen, device=dev)
     tok, cache, finished = session.prefill(ids_t, plen_t, cfg, cache_len,
                                            generator)
+    if monitor.enabled:
+        monitor.record_generation(prefill_steps=1)
     dcache = None
     if spec.mode == "draft":
         # the draft prefill's token is discarded: greedy, so it draws
@@ -364,6 +367,8 @@ def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
         from .api import GenerationConfig
         _, dcache, _ = spec_sess._draft_session.prefill(
             ids_t, plen_t, GenerationConfig(), cache_len)
+        if monitor.enabled:
+            monitor.record_generation(prefill_steps=1)
 
     pad = cfg.pad_value
     out_buf = torch.full((b, max_new_tokens), pad, dtype=torch.int64,
@@ -392,12 +397,32 @@ def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
          accepted) = spec_sess.verify(
             tok, draft, cache, generator, finished, done, budget, out_buf,
             tok_buf, tok_len, proposed, accepted, cfg)
+        if monitor.enabled:
+            monitor.record_generation(decode_steps=1)
         # every live row emits >= 1 token a window, so the loop also ends
         # unpolled after max_new_tokens - 1 windows
         if (w + 1) % poll_every == 0 and bool(finished.all()):
             break
     st = spec_sess.stats
     st["windows"] += windows
-    st["proposed"] += int(proposed)
-    st["accepted"] += int(accepted)
+    n_prop, n_acc = int(proposed), int(accepted)
+    st["proposed"] += n_prop
+    st["accepted"] += n_acc
+    if monitor.enabled:
+        # end-of-call telemetry (the JAX package's decode_loop): one
+        # read of the result and the per-row emit counts
+        monitor.record_speculative(n_prop, n_acc)
+        arr = out_buf.cpu().numpy()
+        done_h = done.cpu().numpy()
+        if cfg.eos_token_id is not None:
+            hit = arr == cfg.eos_token_id
+            per_row = np.where(hit.any(1), hit.argmax(1) + 1,
+                               max_new_tokens)
+            tokens = int(per_row.sum())
+        else:
+            tokens = int(done_h.sum())
+        monitor.record_generation(tokens=tokens)
+        # occupancy from the tokens actually emitted
+        monitor.record_cache_occupancy(
+            int(np.max(np.asarray(plen) + done_h)) / cache_len)
     return out_buf.to(torch.int32)

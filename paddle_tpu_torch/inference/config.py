@@ -4,8 +4,8 @@ JAX package's ``inference/config.py``: the dense, paged and chunked
 serving paths, and speculative decoding).
 
 Options of the JAX package that belong to paths not ported yet (int8
-and int4 weights, telemetry, compile cache) are accepted by name and
-raise when set, naming the ROADMAP entry.
+and int4 weights, the telemetry server, compile cache) are accepted by
+name and raise when set, naming the ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -25,8 +25,7 @@ class PrecisionType:
 #: option name -> the ROADMAP entry that ports it
 _LATER_SERVING = {
     "weight_bits": "A8 (int8/int4 weight paths)",
-    "trace_sample": "A7 (observability)",
-    "telemetry_port": "A7 (observability)",
+    "telemetry_port": "A8 (the telemetry server, with health())",
     "hbm_budget": "A12 (memory planner)",
     "drain_timeout_s": "A8 (thread mode and graceful drain)",
 }
@@ -118,7 +117,7 @@ class Config:
                        default_deadline_s=None, cache_max_len=None,
                        paged: bool = False, kv_page_size=None,
                        kv_pages=None, prefill_chunk_tokens=None,
-                       kv_cache_dtype=None, **later):
+                       kv_cache_dtype=None, trace_sample=None, **later):
         """Continuous-batching knobs for ``serving.ServingEngine``:
         ``max_queue`` bounds admission (submit past it raises
         QueueFull), ``poll_every`` sets the completion-poll cadence in
@@ -137,7 +136,10 @@ class Config:
         many tokens one chunk per scheduler iteration, between decode
         steps (on a paged engine a multiple of the page size).
         ``kv_cache_dtype="int8"`` quantizes the engine's cache, dense or
-        paged (it wins over the ``enable_generation`` value)."""
+        paged (it wins over the ``enable_generation`` value).
+        ``trace_sample`` traces 1-in-N requests end to end into the
+        flight recorder (default 8, or ``PADDLE_TRACE_SAMPLE``; 0 =
+        off)."""
         _refuse_later("enable_serving", later, _LATER_SERVING)
         validate_cache_dtype(kv_cache_dtype)
         self._serving = dict(
@@ -146,5 +148,5 @@ class Config:
             cache_max_len=cache_max_len, paged=bool(paged),
             kv_page_size=kv_page_size, kv_pages=kv_pages,
             prefill_chunk_tokens=prefill_chunk_tokens,
-            kv_cache_dtype=kv_cache_dtype)
+            kv_cache_dtype=kv_cache_dtype, trace_sample=trace_sample)
         return self

@@ -16,6 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import flags
 from ..nn.layers_common import frozen_running_stats
 from ..optimizer.lr import LRScheduler
 
@@ -26,6 +27,21 @@ def _to_device(x, device):
     if isinstance(x, (torch.Tensor, np.ndarray)):
         return torch.as_tensor(x, device=device)
     return x
+
+
+def _raise_on_nonfinite(loss, grads):
+    """Raise ``FloatingPointError`` naming the first non-finite value of
+    the step: the loss, else the first gradient in parameter order. One
+    host read of all the checks together."""
+    finite = torch.stack([torch.isfinite(loss).all()]
+                         + [torch.isfinite(g).all() for g in grads]).cpu()
+    if bool(finite.all()):
+        return
+    bad = int((~finite).nonzero()[0])
+    what = "the loss" if bad == 0 else f"the gradient of parameter {bad - 1}"
+    raise FloatingPointError(
+        f"check_nan_inf_in_program: {what} is not finite (nan or inf); "
+        "the step's update was not applied")
 
 
 class TrainStep:
@@ -45,6 +61,12 @@ class TrainStep:
     batch norm's running statistics stay as they were, as in the JAX
     package (an eager training forward updates them). ``donate`` is
     accepted for the JAX signature: the update is in place either way.
+
+    With the flag ``check_nan_inf_in_program`` on (``set_flags`` or
+    ``FLAGS_check_nan_inf_in_program=1``) a step whose loss or any
+    gradient is not finite raises ``FloatingPointError`` before the
+    update, as the JAX package's ``jax_debug_nans`` does; one host read
+    per step, and none when the flag is off.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer, loss_fn: Callable,
@@ -88,6 +110,8 @@ class TrainStep:
                  for p in self._params]
         for p in self._params:
             p.grad = None
+        if flags.get_flag("check_nan_inf_in_program"):
+            _raise_on_nonfinite(loss, grads)
         if not self._skip_nonfinite or bool(torch.isfinite(loss)):
             opt.apply_gradients(self._params, grads, lr=lr,
                                 step=opt._step_count)

@@ -32,6 +32,15 @@ SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# libraries nvcc built in this process: the serving engine's goodput
+# ledger charges a dispatch to `compile` when this moved during it (the
+# eager port's counterpart of the reference's retrace census)
+_builds_seen = 0
+
+
+def build_count() -> int:
+    """Monotonic count of the kernel libraries this process built."""
+    return _builds_seen
 
 
 def nvcc() -> str:
@@ -83,6 +92,7 @@ def build_all(names: Iterable[str] = SOURCES,
     the ones built (``log`` holds ptxas's register and shared-memory
     report). A library this process has already loaded stays loaded:
     build before the first launch."""
+    global _builds_seen
     todo = [n for n in names if force or _stale(n)]
     t0 = time.perf_counter()
     procs = {n: _start(n) for n in todo}
@@ -91,6 +101,7 @@ def build_all(names: Iterable[str] = SOURCES,
         for n, proc in procs.items():
             report[n] = {"log": _finish(n, proc),
                          "seconds": time.perf_counter() - t0}
+            _builds_seen += 1
     finally:
         for proc in procs.values():   # a failed build stops the others
             if proc.poll() is None:

@@ -48,19 +48,30 @@ chunked-prefill paths).
   completion (the row read).
 - **environment**: ``PADDLE_KV_PAGE_SIZE`` and
   ``PADDLE_PREFILL_CHUNK_TOKENS`` fill in the page size and the chunk
-  width when neither the keyword nor ``enable_serving`` sets them.
+  width when neither the keyword nor ``enable_serving`` sets them; a
+  value that is not digits is recorded (``errors.swallowed``) and the
+  default stays.
+- **telemetry** (the JAX engine's recording sites, at the same points
+  in the same order): the ``serve.*`` and ``gen.*`` metric families of
+  ``core.monitor``, the ``serve.submit/admit/prefill_chunk/evict``
+  flight-recorder events, 1-in-``trace_sample`` request spans, per
+  request cost, and the ``serve.goodput.*`` ledger (a dispatch that
+  built a kernel at its first use is charged to ``compile``). Device
+  counters (cache and page occupancy, speculation, int8 clips) are read
+  only at the poll; with the registry off every site costs one
+  ``if monitor.enabled``-style check.
 
 On a CUDA card every inline prefill's attention runs in the flash
 forward kernel, every chunk's in the chunk kernel, and every decode
 step's (a speculative verify window's too) in the flash decode kernel
 (dense cache) or the paged decode kernel (paged cache), in their int8
-modes on an int8 cache. Thread mode, the graceful-shutdown drain,
-metrics, tracing and ``health()`` come with later slices (ROADMAP A7,
-A8).
+modes on an int8 cache. Thread mode, the graceful-shutdown drain, the
+telemetry server and ``health()`` come with a later slice (ROADMAP A8).
 """
 from __future__ import annotations
 
 import collections
+import heapq
 import os
 import threading
 import time
@@ -69,14 +80,17 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from ..core import flight_recorder, goodput, monitor
+from ..core import slo as slo_mod
 from ..generation.api import (GenerationConfig, GenerationSession,
-                              _round_up)
+                              _round_up, quant_bytes_saved)
 from ..generation.kv_cache import KVCache, resolve_cache_dtype
 from ..generation.paged_cache import PageAllocator, PagedKVCache
 from ..generation.sampling import sample
 from ..generation.speculative import (apply_verify_window, as_spec_config,
                                       ngram_propose)
 from ..inference.precision import serving_params
+from ..kernels import _build
 from .request import QueueFull, Request, RequestParams, RequestStatus
 
 __all__ = ["ServingEngine"]
@@ -108,7 +122,8 @@ class ServingEngine:
                  paged: Optional[bool] = None,
                  kv_page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
-                 prefill_chunk_tokens: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None,
+                 trace_sample: Optional[int] = None):
         layer = getattr(config, "_layer", None)
         if layer is None:
             raise ValueError("ServingEngine needs a live layer: use "
@@ -131,6 +146,21 @@ class ServingEngine:
         self.default_deadline_s = _opt(default_deadline_s,
                                        "default_deadline_s", None)
         cache_max_len = _opt(cache_max_len, "cache_max_len", None)
+        # per-request tracing: 1-in-N requests carry queue-wait,
+        # prefill and decode spans into the flight recorder; 0 = off
+        env_sample = os.environ.get("PADDLE_TRACE_SAMPLE", "").strip()
+        if env_sample.lower() in ("off", "false", "no"):
+            env_default = 0
+        elif env_sample.isdigit():
+            env_default = int(env_sample)
+        else:
+            if env_sample:  # garbage must not silently re-enable
+                monitor.record_swallowed(
+                    "serving.trace_sample",
+                    ValueError(f"PADDLE_TRACE_SAMPLE={env_sample!r}"))
+            env_default = 8
+        self.trace_sample = int(_opt(trace_sample, "trace_sample",
+                                     env_default))
 
         self._sp = serving_params(layer, config)
         self.network = self._sp.layer
@@ -201,9 +231,13 @@ class ServingEngine:
         self._alloc = None
         if bool(_opt(paged, "paged", False)):
             # keyword > enable_serving > PADDLE_KV_PAGE_SIZE > 128; an
-            # environment value that is not digits falls back to the
-            # default (its record_swallowed comes with ROADMAP A7)
+            # environment value that is not digits is recorded and the
+            # default stays
             env_ps = os.environ.get("PADDLE_KV_PAGE_SIZE", "").strip()
+            if env_ps and not env_ps.isdigit():
+                monitor.record_swallowed(
+                    "serving.kv_page_size",
+                    ValueError(f"PADDLE_KV_PAGE_SIZE={env_ps!r}"))
             ps = int(_opt(kv_page_size, "kv_page_size",
                           int(env_ps) if env_ps.isdigit() else 128))
             if ps < 1 or self.max_len % ps:
@@ -231,6 +265,7 @@ class ServingEngine:
                     + f" needs {worst} pages of {ps}; raise kv_pages "
                     "or kv_page_size")
             self._alloc = PageAllocator(n_pages, ps)
+            self._page_seen: Dict[str, int] = {}
             self._pending_pages: Dict[int, tuple] = {}
             self._row_pages: List[Optional[list]] = [None] * self.max_batch
             self._page_blocked = False
@@ -241,9 +276,13 @@ class ServingEngine:
 
         # --------------------------------------------- chunked prefill
         # keyword > enable_serving > PADDLE_PREFILL_CHUNK_TOKENS > off;
-        # an environment value that is not digits leaves chunking off
-        # (its record_swallowed comes with ROADMAP A7)
+        # an environment value that is not digits is recorded and
+        # leaves chunking off
         env_ct = os.environ.get("PADDLE_PREFILL_CHUNK_TOKENS", "").strip()
+        if env_ct and not env_ct.isdigit():
+            monitor.record_swallowed(
+                "serving.prefill_chunk_tokens",
+                ValueError(f"PADDLE_PREFILL_CHUNK_TOKENS={env_ct!r}"))
         ct = _opt(prefill_chunk_tokens, "prefill_chunk_tokens",
                   int(env_ct) if env_ct.isdigit() else None)
         self.prefill_chunk_tokens = None
@@ -304,6 +343,18 @@ class ServingEngine:
                 layers, B, self._alloc.n_pages, self.page_size,
                 self.pages_per_row, heads, head_dim, dtype=wdtype,
                 device=dev, cache_dtype=cd)
+        # the served cache dtype as an info gauge, and on an int8 cache
+        # the bytes it saves against the width it would have carried
+        # (the serving compute dtype, else the model's own)
+        self._clips_seen = 0
+        if cd is not None:
+            self._kv_dtype_label = "int8"
+            monitor.record_kv_quant(bytes_saved=quant_bytes_saved(
+                self._cache, self._sp.compute_dtype or wdtype))
+        else:
+            self._kv_dtype_label = str(self._cache.k.dtype).replace(
+                "torch.", "")
+        monitor.record_kv_dtype(self._kv_dtype_label)
         # chunked prefill's persistent batch-1 side cache: zeroed after
         # each chunked admission (kv_len 0, and clips 0 on an int8 cache)
         self._row_cache = None
@@ -334,10 +385,22 @@ class ServingEngine:
         self._qlock = threading.Lock()
         self._pump_lock = threading.RLock()
         self._steps_since_poll = 0
+        self._window_t0: Optional[float] = None
+        self._window_steps = 0
         self.stats: Dict[str, int] = dict(
             submitted=0, admitted=0, completed=0, cancelled=0,
             rejected=0, slots_reused=0, decode_steps=0, prefills=0,
             prefill_chunks=0, spec_proposed=0, spec_accepted=0)
+        # top-K most expensive terminal requests: a heap of (total_s,
+        # req id, cost dict)
+        self._cost_top: List[tuple] = []
+        self._cost_topk = 10
+        # goodput ledger (serve.goodput.*): admissions and dispatch
+        # windows charge compute (compile when a kernel was built during
+        # the dispatch); the unattributed rest is idle
+        self._goodput = goodput.GoodputLedger("serve",
+                                              default_bucket="idle")
+        self._goodput.start()
 
     # -------------------------------------------------------- admission
     def submit(self, prompt, params: Optional[RequestParams] = None) \
@@ -373,11 +436,21 @@ class ServingEngine:
                     else "queue_full"
                 req._finish(RequestStatus.REJECTED, reason)
                 self.stats["rejected"] += 1
+                monitor.record_serve_request("rejected")
                 raise QueueFull(
                     f"request queue at bound ({self.max_queue}): "
                     f"{reason}", reason=reason, request=req)
+            if self.trace_sample and req.id % self.trace_sample == 0:
+                req.traced = True
+                req._t_submit_ns = flight_recorder.now_ns()
             self._queue.append(req)
             self.stats["submitted"] += 1
+            qdepth = len(self._queue)
+            monitor.record_serve_queue_depth(qdepth)
+        if flight_recorder.enabled:
+            flight_recorder.record("serve.submit", req=req.id,
+                                   prompt_len=int(ids.size),
+                                   budget=budget, queue_depth=qdepth)
         return req
 
     @property
@@ -421,6 +494,7 @@ class ServingEngine:
                 if req.deadline is not None and \
                         time.monotonic() > req.deadline:
                     self._queue.popleft()
+                    monitor.record_serve_queue_depth(len(self._queue))
                     self._unblock_if(req)
                     self._cancel(req, "deadline")
                     continue
@@ -452,6 +526,7 @@ class ServingEngine:
                     self._page_blocked = False
                     self._pending_pages[req.id] = (pages, plan)
                 self._queue.popleft()
+                monitor.record_serve_queue_depth(len(self._queue))
                 return req
         return None
 
@@ -476,15 +551,18 @@ class ServingEngine:
             except Exception as e:
                 # the request left the queue but reached no slot: it
                 # must still go terminal or its handle would hang, and
-                # its committed pages must return to the free list
+                # its committed pages must return to the free list; the
+                # engine serves the others on, and the swallow is
+                # recorded
                 if self._chunking is not None and \
                         self._chunking["req"] is req:
                     self._chunking = None
                 self._slots[slot] = None
                 self._release_pending(req)
                 self._cancel(req, f"admission error: "
-                                  f"{type(e).__name__}: {e}")
-                raise
+                                  f"{type(e).__name__}: {e}",
+                             label="error")
+                monitor.record_swallowed("serving.admit", e)
 
     def _table_row(self, pages: List[int]) -> torch.Tensor:
         """A slot's page table: the row's pages in position order, the
@@ -534,24 +612,70 @@ class ServingEngine:
         self._slots[slot] = req
         req.status = RequestStatus.RUNNING
         self.stats["admitted"] += 1
+        monitor.record_serve_slot_occupancy(self._occupied())
+
+    def _occupied(self) -> float:
+        return sum(s is not None for s in self._slots) / self.max_batch
+
+    def _exe_prefill(self, bucket: int):
+        """The batch-1 prefill call for ``bucket`` (the JAX package's
+        per-bucket prefill executable; the eager port has one callable
+        for every bucket). Fault injection wraps this fetch."""
+        return self._session.prefill
+
+    def _charged(self, req: Request, fn, *args):
+        """Run an admission dispatch and book its wall time: to the
+        request's prefill cost, and to the goodput ledger as compute, or
+        as compile when a kernel library was built during it."""
+        builds0 = _build.build_count()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            dt = time.perf_counter() - t0
+            req._cost_prefill_s += dt
+            self._goodput.charge(
+                "compile" if _build.build_count() > builds0 else "compute",
+                dt)
+
+    def _admit(self, req: Request, slot: int):
+        self._charged(req, self._admit_inner, req, slot)
 
     @torch.no_grad()
-    def _admit(self, req: Request, slot: int):
+    def _admit_inner(self, req: Request, slot: int):
         """Batch-1 bucketed prefill, then install the row into ``slot``
         (the JAX package's prefill_fn + admit_fn)."""
         bucket = next(b for b in self.buckets if b >= req.prompt.size)
         ids = np.full((1, bucket), self._cfg.pad_value, np.int64)
         ids[0, :req.prompt.size] = req.prompt
-        tok, row_cache, fin = self._session.prefill(
+        t_admit_ns = flight_recorder.now_ns() if req.traced else 0
+        prefill = self._exe_prefill(bucket)
+        tok, row_cache, fin = prefill(
             torch.as_tensor(ids, device=self.device),
             torch.as_tensor([req.prompt.size], device=self.device),
             self._cfg, self.max_len, self._gen)
         # time to first token: the first token exists once the prefill
         # lands — one small sync per admission
         tok.cpu()
-        req.admitted_at = req.first_token_at = time.monotonic()
+        now = time.monotonic()
+        req.admitted_at = req.first_token_at = now
+        monitor.record_serve_ttft(now - req.submitted_at)
+        if flight_recorder.enabled:
+            flight_recorder.record("serve.admit", req=req.id, slot=slot,
+                                   bucket=bucket)
+        if req.traced:
+            # the sampled request's first two segments: queued, then the
+            # synchronous prefill into the slot
+            t1 = flight_recorder.now_ns()
+            req.span("queue_wait", req._t_submit_ns, t_admit_ns)
+            req.span("prefill", t_admit_ns, t1, bucket=bucket, slot=slot)
+            req._t_seg_ns = t1
+        monitor.record_generation(prefill_steps=1)
         self.stats["prefills"] += 1
         self._install(req, slot, row_cache, tok, fin)
+        # the prefill sync above is not per-token decode latency: the
+        # next dispatch re-anchors the poll window
+        self._window_steps = 0
 
     # ------------------------------------------------- chunked prefill
     def _begin_chunked(self, req: Request, slot: int):
@@ -567,11 +691,14 @@ class ServingEngine:
         shared = 0
         if self._alloc is not None:
             shared = int(self._pending_pages[req.id][1].shared_len)
+        if req.traced:
+            req.span("queue_wait", req._t_submit_ns, flight_recorder.now_ns())
         self._chunking = dict(req=req, slot=slot, plen=plen, n=n, next=0,
                               ids=torch.as_tensor(ids, device=self.device),
-                              shared=shared)
+                              shared=shared, decode_steps=0)
         self._slots[slot] = req
         req.status = RequestStatus.PENDING_PREFILL
+        monitor.record_serve_slot_occupancy(self._occupied())
 
     def _advance_chunked(self):
         """Run AT MOST ONE chunk of the in-flight chunked prefill. The
@@ -585,15 +712,19 @@ class ServingEngine:
         if req.deadline is not None and time.monotonic() > req.deadline:
             self._abort_chunked("deadline")
             return
+        # the same goodput and cost contract as _admit: each chunk's
+        # wall is the request's prefill cost
         try:
-            if st["next"] < st["n"] - 1:
-                self._chunk_step(st)
-            else:
-                self._finish_chunked(st)
+            self._charged(req, self._chunk_step if st["next"] < st["n"] - 1
+                          else self._finish_chunked, st)
         except Exception as e:
             self._abort_chunked(
-                f"admission error: {type(e).__name__}: {e}")
-            raise
+                f"admission error: {type(e).__name__}: {e}",
+                label="error")
+            monitor.record_swallowed("serving.admit", e)
+        finally:
+            # the blocking chunk sync is not per-token decode latency
+            self._window_steps = 0
 
     @torch.no_grad()
     def _chunk_step(self, st: dict):
@@ -601,8 +732,9 @@ class ServingEngine:
         the side cache (the chunk kernel attends what the earlier chunks
         wrote), on a paged engine the span install into the committed
         pages, then one sync."""
-        req, k = st["req"], st["next"]
+        req, slot, k = st["req"], st["slot"], st["next"]
         C = self.prefill_chunk_tokens
+        t_ns = flight_recorder.now_ns() if req.traced else 0
         self.network(st["ids"][:, k * C:(k + 1) * C], cache=self._row_cache)
         if self._alloc is not None:
             # commit the chunk's positions now, past the shared prefix;
@@ -616,7 +748,16 @@ class ServingEngine:
         # how long a chunk holds the device between decode steps
         self._row_cache.kv_len.cpu()
         st["next"] = k + 1
+        tokens = min(C, st["plen"] - k * C)
         self.stats["prefill_chunks"] += 1
+        monitor.record_prefill_chunk(tokens)
+        if flight_recorder.enabled:
+            flight_recorder.record(
+                "serve.prefill_chunk", req=req.id, slot=slot, chunk=k,
+                start=k * C, tokens=tokens, remaining=st["n"] - k - 1)
+        if req.traced:
+            req.span("prefill_chunk", t_ns, flight_recorder.now_ns(),
+                     chunk=k, slot=slot, tokens=tokens)
 
     @torch.no_grad()
     def _finish_chunked(self, st: dict):
@@ -625,6 +766,7 @@ class ServingEngine:
         cache into the slot, flip the request to RUNNING."""
         req, slot, k = st["req"], st["slot"], st["n"] - 1
         C = self.prefill_chunk_tokens
+        t_ns = flight_recorder.now_ns() if req.traced else 0
         plen = torch.tensor([st["plen"]], device=self.device)
         logits, row_cache = self.network(st["ids"][:, k * C:(k + 1) * C],
                                          cache=self._row_cache,
@@ -635,8 +777,25 @@ class ServingEngine:
         else:
             fin = torch.zeros_like(tok, dtype=torch.bool)
         tok.cpu()                     # TTFT point, as inline admission
-        req.admitted_at = req.first_token_at = time.monotonic()
+        now = time.monotonic()
+        req.admitted_at = req.first_token_at = now
+        monitor.record_serve_ttft(now - req.submitted_at)
+        tokens = st["plen"] - k * C
         self.stats["prefill_chunks"] += 1
+        monitor.record_prefill_chunk(tokens)
+        monitor.record_prefill_interleave(st["decode_steps"] / st["n"])
+        if flight_recorder.enabled:
+            flight_recorder.record(
+                "serve.prefill_chunk", req=req.id, slot=slot, chunk=k,
+                start=k * C, tokens=tokens, remaining=0)
+            flight_recorder.record("serve.admit", req=req.id, slot=slot,
+                                   bucket=st["n"] * C, chunks=st["n"])
+        if req.traced:
+            t1 = flight_recorder.now_ns()
+            req.span("prefill_chunk", t_ns, t1, chunk=k, slot=slot,
+                     tokens=tokens)
+            req._t_seg_ns = t1
+        monitor.record_generation(prefill_steps=1)
         self.stats["prefills"] += 1
         # the spans below the final chunk's base are installed already
         self._install(req, slot, row_cache, tok, fin, start=k * C)
@@ -652,7 +811,7 @@ class ServingEngine:
             if t is not None:
                 t.zero_()
 
-    def _abort_chunked(self, reason: str):
+    def _abort_chunked(self, reason: str, label: Optional[str] = None):
         """Terminal exit for a request mid-prefill (deadline, dispatch
         error): release its committed pages and clear the slot. Its lane
         was never installed (finished, kv_len 0), so nothing on the
@@ -660,21 +819,41 @@ class ServingEngine:
         st, self._chunking = self._chunking, None
         if st is None:
             return
+        req, slot = st["req"], st["slot"]
+        if flight_recorder.enabled:
+            flight_recorder.record(
+                "serve.evict", req=req.id, slot=slot, reason=reason,
+                tokens=0, chunks_done=st["next"])
         self._zero_row_cache()
-        self._release_pending(st["req"])
-        self._slots[st["slot"]] = None
-        self._cancel(st["req"], reason)
+        self._release_pending(req)
+        self._slots[slot] = None
+        self._cancel(req, reason, label=label)
+        self._note_cost(req)
 
     @torch.no_grad()
     def _dispatch_decode(self):
         """The fixed-batch decode step over every slot (the JAX
         package's step_fn, or its spec_step_fn on a speculative engine),
         entirely on the device."""
-        self._steps_since_poll += 1
-        self.stats["decode_steps"] += 1
         if self._spec is not None:
             self._dispatch_verify()
-            return
+        else:
+            self._dispatch_step()
+        self._steps_since_poll += 1
+        if self._chunking is not None:
+            # decode steps interleaved into this chunked admission: the
+            # serve.prefill.interleave_ratio numerator
+            self._chunking["decode_steps"] += 1
+        if self._window_steps == 0:
+            # anchor the latency window at the first dispatch after a
+            # poll: idle gaps are not per-token latency
+            self._window_t0 = time.monotonic()
+        self._window_steps += 1
+        self.stats["decode_steps"] += 1
+        monitor.record_generation(decode_steps=1)
+
+    def _dispatch_step(self):
+        """The plain decode step: one token for every live slot."""
         logits, _ = self.network(self._tok[:, None], cache=self._cache)
         nxt = sample(logits[:, -1], self._gen, **self._cfg.sample_kwargs())
         idx = self._steps.clamp(0, self._out_buf.shape[1] - 1).long()
@@ -723,11 +902,42 @@ class ServingEngine:
             # add to stats, reset on the device
             prop, acc = torch.stack([self._proposed,
                                      self._accepted]).tolist()
-            self.stats["spec_proposed"] += prop
-            self.stats["spec_accepted"] += acc
+            if prop or acc:
+                self.stats["spec_proposed"] += prop
+                self.stats["spec_accepted"] += acc
+                monitor.record_speculative(prop, acc)
             self._proposed.zero_()
             self._accepted.zero_()
         now = time.monotonic()
+        window_dt = 0.0
+        if self._window_t0 is not None and self._window_steps:
+            window_dt = now - self._window_t0
+            monitor.record_serve_token_latency(
+                window_dt / self._window_steps)
+            # the dispatch window (host dispatches and the device wait
+            # the lane reads above just paid) is goodput compute
+            self._goodput.charge("compute", window_dt)
+        self._window_steps = 0   # the next dispatch re-anchors
+        if window_dt > 0.0:
+            # cost attribution: every live request owns an equal share
+            # of the window (the shares sum to it), plus page*seconds
+            # for its resident pages; charged before the completions
+            # below. A PENDING_PREFILL slot pays for its chunks instead.
+            live = sum(r is not None
+                       and r.status is not RequestStatus.PENDING_PREFILL
+                       for r in self._slots)
+            if live:
+                share = window_dt / live
+                for i, r in enumerate(self._slots):
+                    if r is None or \
+                            r.status is RequestStatus.PENDING_PREFILL:
+                        continue
+                    r._cost_decode_s += share
+                    if self._alloc is not None:
+                        pages = self._row_pages[i]
+                        if pages:
+                            r._cost_page_s += len(pages) * window_dt
+        t_poll_ns = flight_recorder.now_ns()
         for i, req in enumerate(self._slots):
             if req is None or req.status is RequestStatus.PENDING_PREFILL:
                 continue
@@ -738,34 +948,64 @@ class ServingEngine:
                 self._free_slot_pages(i)
             elif req.deadline is not None and now > req.deadline:
                 self._evict(i, req, "deadline", int(steps[i]))
+            elif req.traced:
+                # a rolling decode segment, one span per poll window
+                req.span("decode", req._t_seg_ns, t_poll_ns,
+                         tokens=int(steps[i]))
+                req._t_seg_ns = t_poll_ns
         with self._qlock:
             for req in list(self._queue):
                 if req.deadline is not None and now > req.deadline:
                     self._queue.remove(req)
                     self._unblock_if(req)
                     self._cancel(req, "deadline")
+            monitor.record_serve_queue_depth(len(self._queue))
+        monitor.record_serve_slot_occupancy(self._occupied())
+        if monitor.enabled:
+            # device-side gauges and counters are read here, at the
+            # poll, and nowhere on the decode step
+            monitor.record_cache_occupancy(self._cache.occupancy())
+            self._drain_page_stats()
+            self._drain_quant_stats()
+            self._goodput.flush()
+            # SLO watchtower: sample the time-series ring and evaluate
+            # burn rates at most once per ring period
+            slo_mod.tick()
 
     def _complete(self, req: Request, toks: np.ndarray):
         eos = self._cfg.eos_token_id
         req.n_emitted = int(toks.size)
+        n_real = int(toks.size)
         if eos is not None:
             hits = np.nonzero(toks == eos)[0]
             if hits.size:
+                n_real = int(hits[0]) + 1    # the eos itself counts
                 toks = toks[:int(hits[0])]   # result is eos-trimmed
         req.tokens = toks.astype(np.int32)
+        monitor.record_generation(tokens=n_real)
         req._finish(RequestStatus.COMPLETED)
         self.stats["completed"] += 1
+        monitor.record_serve_request("completed")
+        self._note_cost(req)
 
-    def _cancel(self, req: Request, reason: str):
-        """Terminal CANCELLED for a request not occupying a slot."""
+    def _cancel(self, req: Request, reason: str,
+                label: Optional[str] = None):
+        """Terminal CANCELLED for a request not occupying a slot.
+        ``label`` overrides the metric label when ``reason`` carries
+        free text (error messages must not become label cardinality)."""
         req._finish(RequestStatus.CANCELLED, reason)
         self.stats["cancelled"] += 1
+        monitor.record_serve_request("cancelled")
+        monitor.record_serve_cancellation(label or reason)
 
     def _evict(self, slot: int, req: Request, reason: str,
                n_done: int = 0):
         """Cancel an in-flight request: mask its lane and reset its cache
         row (the JAX package's free_fn), return its pages, keep what it
         produced."""
+        if flight_recorder.enabled:
+            flight_recorder.record("serve.evict", req=req.id, slot=slot,
+                                   reason=reason, tokens=n_done)
         self._cache.reset_rows(slot)
         self._finished[slot] = True
         if n_done:
@@ -775,6 +1015,33 @@ class ServingEngine:
         self._slots[slot] = None
         self._free_slot_pages(slot)
         self._cancel(req, reason)
+        self._note_cost(req)
+
+    def _note_cost(self, req: Request):
+        """Terminal cost attribution: the request's accumulated cost
+        into the serve.cost.* histograms, and the top-K most expensive
+        requests kept for ``cost_table``."""
+        c = req.cost()
+        monitor.record_request_cost(c["prefill_s"], c["decode_s"],
+                                    c["page_s"])
+        with self._qlock:
+            heapq.heappush(self._cost_top, (c["total_s"], req.id, c))
+            while len(self._cost_top) > self._cost_topk:
+                heapq.heappop(self._cost_top)
+
+    def cost_table(self) -> List[dict]:
+        """The top-K most expensive terminal requests, costliest
+        first."""
+        with self._qlock:
+            top = sorted(self._cost_top, reverse=True)
+        return [dict(req=rid, **{k: round(v, 6) for k, v in c.items()})
+                for _, rid, c in top]
+
+    def goodput(self) -> Dict:
+        """The serve-side goodput decomposition right now:
+        ``{"wall_s", "buckets", "goodput_fraction"}``, the buckets
+        summing to the wall time."""
+        return self._goodput.snapshot()
 
     # ------------------------------------------------- page bookkeeping
     def _free_slot_pages(self, slot: int):
@@ -794,6 +1061,34 @@ class ServingEngine:
         ent = self._pending_pages.pop(req.id, None)
         if ent is not None:
             self._alloc.free_row(ent[0])
+
+    def _drain_page_stats(self):
+        """The allocator's lifetime counters into the registry as
+        deltas, and the pool's page occupancy (host ints only)."""
+        if self._alloc is None:
+            return
+        stats = dict(self._alloc.stats)
+        prev, self._page_seen = self._page_seen, stats
+        delta = {k: stats[k] - prev.get(k, 0) for k in stats}
+        monitor.record_paged_cache(
+            allocated=delta["pages_allocated"],
+            freed=delta["pages_freed"],
+            prefix_hits=delta["prefix_hits"],
+            shared_pages=delta["shared_pages"],
+            cow_copies=delta["cow_copies"])
+        monitor.record_page_occupancy(self._alloc.page_occupancy())
+
+    def _drain_quant_stats(self):
+        """The int8 cache's on-device saturation counter into
+        ``gen.cache.quant.scale_clips``: one scalar read at the poll, as
+        a modular delta (the int32 counter may wrap)."""
+        if getattr(self._cache, "clips", None) is None:
+            return
+        clips = int(self._cache.clips)
+        d = (clips - self._clips_seen) % (1 << 32)
+        if d:
+            self._clips_seen = clips
+            monitor.record_kv_quant(scale_clips=d)
 
     # -------------------------------------------------------- front-end
     def _submit_item(self, item) -> Request:

@@ -1,6 +1,6 @@
 """Serving request front-end: Future-style handles and admission types
-(the JAX package's ``serving/request.py`` without its tracing and cost
-attribution, which come with the observability slice).
+(the JAX package's ``serving/request.py``), with its per-request trace
+spans and cost attribution.
 
 A :class:`Request` is both the scheduler's record and the caller's
 handle: ``submit()`` returns it at once, ``result()`` blocks until it is
@@ -18,11 +18,14 @@ from __future__ import annotations
 import dataclasses
 import enum
 import itertools
+import os
 import threading
 import time
 from typing import Optional
 
 import numpy as np
+
+from ..core import flight_recorder
 
 __all__ = ["QueueFull", "Request", "RequestFailed", "RequestParams",
            "RequestStatus"]
@@ -100,6 +103,31 @@ class Request:
         self.finished_at: Optional[float] = None
         self._engine = engine
         self._event = threading.Event()
+        # per-request tracing: every request carries a trace id; the
+        # ones the engine samples (traced, 1 in trace_sample) record
+        # queue-wait, prefill and decode spans into the flight
+        # recorder, and through it into the Profiler's chrome trace
+        self.trace_id = f"{os.getpid():x}.{self.id}"
+        self.traced = False
+        self._t_submit_ns = 0   # set by the engine when traced
+        self._t_seg_ns = 0      # rolling decode-segment anchor
+        # cost attribution: prefill wall at admission, this request's
+        # share of every poll window it was live in, and page*seconds
+        # held in the paged pool (read back through cost())
+        self._cost_prefill_s = 0.0
+        self._cost_decode_s = 0.0
+        self._cost_page_s = 0.0
+
+    def span(self, name: str, start_ns: int, end_ns: int, **fields):
+        """Record one trace span for this request (no-op unless the
+        engine sampled it); the tid keys each request onto its own
+        trace row."""
+        if not self.traced:
+            return
+        flight_recorder.record_span(
+            f"req{self.id}.{name}", start_ns, end_ns,
+            trace_id=self.trace_id, tid=1000 + self.id % 64,
+            req=self.id, **fields)
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -129,6 +157,20 @@ class Request:
         self.status = status
         self.detail = detail
         self.finished_at = time.monotonic()
+        if flight_recorder.enabled:
+            flight_recorder.record(
+                "serve.finish", req=self.id, status=status.value,
+                tokens=self.n_emitted,
+                **({"detail": detail} if detail else {}))
+            if self.traced:
+                t = flight_recorder.now_ns()
+                if self.admitted_at is None and self._t_submit_ns:
+                    # never admitted: its whole life was queue wait
+                    self.span("queue_wait", self._t_submit_ns, t,
+                              status=status.value)
+                elif self._t_seg_ns:
+                    self.span("decode", self._t_seg_ns, t,
+                              tokens=self.n_emitted, status=status.value)
         self._event.set()
 
     @property
@@ -147,6 +189,20 @@ class Request:
             return None
         return (self.finished_at - self.first_token_at) / \
             (self.n_emitted - 1)
+
+    def cost(self) -> dict:
+        """Attributed resource cost so far: prefill wall seconds, this
+        request's share of every decode poll window it was live in
+        (window wall / live slots: the shares of one window sum to the
+        window, so costs reconcile against the goodput ledger's compute
+        bucket), and KV page*seconds held in the paged pool (0.0 on a
+        dense cache)."""
+        return {
+            "prefill_s": self._cost_prefill_s,
+            "decode_s": self._cost_decode_s,
+            "page_s": self._cost_page_s,
+            "total_s": self._cost_prefill_s + self._cost_decode_s,
+        }
 
     def __repr__(self):
         return (f"Request(id={self.id}, status={self.status.value}, "

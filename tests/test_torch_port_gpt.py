@@ -175,7 +175,16 @@ def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models, paddle_tpu_torch.convert, "
             "paddle_tpu_torch.kernels.flash_attention, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.jit, "
+            "paddle_tpu_torch.core.metrics, paddle_tpu_torch.core.monitor, "
+            "paddle_tpu_torch.core.flight_recorder, "
+            "paddle_tpu_torch.core.timeseries, paddle_tpu_torch.core.goodput, "
+            "paddle_tpu_torch.core.slo, paddle_tpu_torch.core.flags, "
+            "paddle_tpu_torch.core.enforce, paddle_tpu_torch.core.prof_hook, "
+            "paddle_tpu_torch.profiler, paddle_tpu_torch.profiler.metrics, "
+            "paddle_tpu_torch.profiler.profiler, "
+            "paddle_tpu_torch.profiler.statistic, "
+            "paddle_tpu_torch.utils.fault_injection\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'paddle_tpu.')) or m == 'paddle_tpu' "
             "or m == 'triton']\n"
