@@ -19,7 +19,11 @@ with chunked prefill, all three again on an int8 KV cache, the same
 traffic on speculative slots (ngram, k 4: dense, paged, int8, chunked;
 the decode kernels at a verify window of 5 query rows) and speculative
 ``generate`` in both modes, each speculative stream equal to or parting
-at a near tie from its sequential one, holds the
+at a near tie from its sequential one, the same traffic with telemetry
+on and off, two replicas (dense and paged) behind the fleet router on
+pump threads through a rolling deploy that re-homes queued work (each
+stream equal to the dense serve run's), a preemption drain through
+``serve_forever``, holds the
 int8 cache's logits to the wide cache's, trains gpt2-small with
 ``bench.py``'s recipe (AdamW with fp32 masters, the fused LM-head loss,
 ``TrainStep``) at batch 16 x 1024 tokens, then trains ResNet-50 with
@@ -2865,6 +2869,275 @@ def phase_serve_telemetry(torch, model, prompts):
     return total
 
 
+def _http(url):
+    """(status, JSON or text body) of one GET, an HTTP error's too."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            code, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    try:
+        return code, json.loads(body)
+    except ValueError:
+        return code, body
+
+
+def _latency_fields(prefix, handles, submitted):
+    """Tokens/s over the first submit to the last finish, TTFT from each
+    request's own submit (a re-homed one's too) and per-token latency,
+    from the handles' host clocks."""
+    first = [h.inner.first_token_at if hasattr(h, "inner")
+             else h.first_token_at for h in handles]
+    inner = [h.inner if hasattr(h, "inner") else h for h in handles]
+    ttft = [f - s for f, s in zip(first, submitted)]
+    per_token = [r.per_token_latency for r in inner]
+    wall = max(r.finished_at for r in inner) - min(submitted)
+    return {prefix + "tokens_per_s": sum(int(r.tokens.size)
+                                         for r in inner) / wall,
+            prefix + "wall_s": wall,
+            prefix + "p50_ttft_ms": float(np.percentile(ttft, 50)) * 1e3,
+            prefix + "p95_ttft_ms": float(np.percentile(ttft, 95)) * 1e3,
+            prefix + "p50_per_token_ms":
+                float(np.percentile(per_token, 50)) * 1e3}
+
+
+def _fleet_preemption(torch, model, prompts):
+    """One chunked paged engine (page 128, chunk 128) serving the 16
+    prompts through serve_forever(work, shutdown=gs, on_step=...), the
+    GracefulShutdown triggered after 8 loop iterations: every handle
+    terminal, the queued ones REJECTED("shutdown"), the in-flight ones
+    COMPLETED or CANCELLED("shutdown"), goodput's preemption_recovery
+    bucket charged, and the flight recorder dumped under
+    build/flightrecorder/."""
+    from paddle_tpu_torch.distributed.resilience import GracefulShutdown
+    from paddle_tpu_torch.serving import (RequestParams, RequestStatus,
+                                          ServingEngine)
+    dump_dir = os.path.join(HERE, "build", "flightrecorder")
+    os.environ["PADDLE_FLIGHT_RECORDER_DIR"] = dump_dir
+    before = set(os.listdir(dump_dir)) if os.path.isdir(dump_dir) else set()
+    engine = ServingEngine(_serve_config(model, paged=True, kv_page_size=128,
+                                         prefill_chunk_tokens=128))
+    gs = GracefulShutdown(exit_on_save=False)
+    steps = [0]
+
+    def on_step(e):
+        steps[0] += 1
+        if steps[0] == 8:
+            gs.trigger()
+
+    t0 = time.perf_counter()
+    handles = engine.serve_forever(
+        [(p, RequestParams(max_new_tokens=64)) for p in prompts],
+        shutdown=gs, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dumps = sorted(f for f in set(os.listdir(dump_dir)) - before
+                   if f.startswith("flightrecorder_preemption")
+                   and f.endswith(".json"))
+    by = {}
+    for h in handles:
+        by.setdefault(f"{h.status.value}:{h.detail}", 0)
+        by[f"{h.status.value}:{h.detail}"] += 1
+    gp = engine.goodput()["buckets"]
+    fields = dict(requests=len(handles), by_status=by, loop_steps=steps[0],
+                  wall_s=wall, preemption_recovery_s=gp[
+                      "preemption_recovery"], goodput_buckets_s=gp,
+                  dumps=[os.path.join("build", "flightrecorder", f)
+                         for f in dumps], stats=engine.stats)
+    say("serve_fleet_preemption", **fields)
+    ok = {"completed:", "rejected:shutdown", "cancelled:shutdown"}
+    if not all(h.status.terminal for h in handles) or set(by) - ok or \
+            not by.get("rejected:shutdown") or \
+            gp["preemption_recovery"] <= 0.0 or not dumps:
+        fail(f"serve_fleet preemption: {fields}")
+    engine._alloc.assert_conserved()
+    engine.shutdown()
+
+
+def phase_serve_fleet(torch, model, prompts, serve_handles, card):
+    """Two replicas of the serve configuration (gpt2-small bf16,
+    max_batch 8, buckets 128/512, 64 new tokens, cache 640) behind a
+    FleetRouter in one process, each on its own pump thread: r0 on the
+    dense cache, r1 on the paged one (page 128), each with its telemetry
+    server, and a fleet TelemetryServer with the router attached. The 16
+    serve prompts go through the router; after the first 4, r0's
+    scheduler is held (its pump lock taken), so the next 4 leave work in
+    its queue; then rolling_deploy("r0") drains it (in-flight requests
+    decode to their end, queued ones re-home onto r1) and relaunches it,
+    and the last 8 and 4 more follow. Gates: every handle COMPLETED, none
+    rejected, at least one re-homed; every stream equal bit for bit to
+    that prompt's stream in the dense serve run; r1's pages allocated
+    equal its pages freed; the relaunched r0 warm, with no kernel built
+    by its warmup; r0's /readyz 200 before the deploy and 503
+    "draining" once its drain began; the fleet /metrics carries
+    serve_router_admissions and /router lists both replicas; each
+    replica's warmup peaked below its live cache's bytes. Then the
+    preemption sub-phase. Warmup, deploy and drain walls, and the
+    fleet's tokens/s, TTFT and per-token latency beside the dense serve
+    run's, print for information."""
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.core.telemetry_server import TelemetryServer
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import (InProcessFleet, RequestParams,
+                                          RequestStatus, ServingEngine)
+    _telemetry_reset()
+    warm = []
+
+    def factory(name):
+        opts = dict(paged=True, kv_page_size=128) if name == "r1" else {}
+        engine = ServingEngine(_serve_config(model, telemetry_port=0,
+                                             **opts), warmup=False)
+        b0 = _build.build_count()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine.warmup()
+        torch.cuda.synchronize()
+        c = engine._cache
+        # the peak is the card's: at the deploy it includes the other
+        # replica's traffic, so only the first two (built before any
+        # traffic) are gated
+        warm.append(dict(replica=name,
+                         warmup_s=time.perf_counter() - t0,
+                         kernel_builds=_build.build_count() - b0,
+                         warmup_peak_mb=(torch.cuda.max_memory_allocated()
+                                         - base) / 1e6,
+                         cache_mb=2 * c.k.numel() * c.k.element_size()
+                         / 1e6))
+        return engine.start()
+
+    torch.cuda.synchronize()
+    fa.reset_counts()
+    fleet = InProcessFleet(factory, names=["r0", "r1"],
+                           router_kw=dict(seed=SEED))
+    server = TelemetryServer(port=0).start().attach_router(fleet.router)
+    fleet_url = f"http://127.0.0.1:{server.port}"
+    hold = []          # r0 while this script holds its pump lock
+    try:
+        r0 = fleet["r0"]
+        r0_url = f"http://127.0.0.1:{r0.telemetry.port}"
+        ready_before = _http(r0_url + "/readyz")[0]
+        params = RequestParams(max_new_tokens=64)
+        work = list(prompts) + list(prompts[:4])
+        handles, submitted = [], []
+
+        def submit(p):
+            submitted.append(time.monotonic())
+            handles.append(fleet.router.submit(p, params))
+
+        for p in work[:4]:
+            submit(p)
+        deadline = time.monotonic() + 60
+        while r0.health()["queue_depth"] and time.monotonic() < deadline:
+            time.sleep(0.001)
+        # hold r0's scheduler: what the router places there now waits
+        r0._pump_lock.acquire()
+        hold.append(r0)
+        for p in work[4:8]:
+            submit(p)
+        queued = r0.health()["queue_depth"]
+        walls, probe = {}, {}
+        drain, shutdown = r0.drain, r0.shutdown
+
+        def timed_drain():
+            t = time.perf_counter()
+            drain()
+            walls.setdefault("drain_s", time.perf_counter() - t)
+
+        def probed_shutdown():
+            # after the drain began, before the port is released
+            probe["readyz"] = _http(r0_url + "/readyz")
+            hold.pop()._pump_lock.release()
+            shutdown()
+
+        r0.drain, r0.shutdown = timed_drain, probed_shutdown
+        builds = _build.build_count()
+        t0 = time.perf_counter()
+        fresh = fleet.rolling_deploy("r0")
+        walls["rolling_deploy_s"] = time.perf_counter() - t0
+        rejoin_builds = _build.build_count() - builds
+        for p in work[8:]:
+            submit(p)
+        for h in handles:
+            h.result(timeout=600)
+        torch.cuda.synchronize()
+        metrics_text = _http(fleet_url + "/metrics")[1]
+        router_doc = _http(fleet_url + "/router")[1]
+        stats = fleet.router.stats
+        placed = {}
+        for h in handles:
+            placed[h.replica] = placed.get(h.replica, 0) + 1
+    finally:
+        if hold:
+            hold.pop()._pump_lock.release()
+        server.stop()
+        fleet.shutdown()
+    launches_fleet, plain_fleet = _counts(fa)
+    r1 = fleet["r1"]
+    r1._alloc.drop_registry()
+    r1._alloc.assert_conserved()
+    pages = dict(r1._alloc.stats)
+    done = [h for h in handles if h.status is RequestStatus.COMPLETED]
+    ref = {id(p): h.tokens for p, h in zip(prompts, serve_handles)}
+    mismatch = [i for i, (p, h) in enumerate(zip(work, handles))
+                if not np.array_equal(h.tokens, ref[id(p)])]
+    serve_sub = [h.submitted_at for h in serve_handles]
+    fields = dict(
+        card=card, replicas={"r0": "dense", "r1": "paged page 128"},
+        requests=len(handles), completed=len(done), placed=placed,
+        router=stats, queued_on_r0_at_deploy=queued,
+        warmup=warm, rejoin_kernel_builds=rejoin_builds,
+        fresh_r0_warm=fresh._warm, **walls,
+        readyz_r0_before=ready_before,
+        readyz_r0_in_drain=[probe["readyz"][0],
+                            probe["readyz"][1].get("reason")],
+        router_replicas=[r["name"] for r in router_doc["replicas"]],
+        metrics_has_router_admissions="serve_router_admissions"
+        in metrics_text,
+        streams_differing_from_serve=mismatch,
+        r1_pages=dict(allocated=pages["pages_allocated"],
+                      freed=pages["pages_freed"]),
+        **_latency_fields("fleet_", handles, submitted),
+        **_latency_fields("serve_", serve_handles, serve_sub),
+        launches=launches_fleet, plain_calls=plain_fleet)
+    say("serve_fleet", **fields)
+    bad = []
+    if len(done) != len(handles) or stats["rejected"] or \
+            stats["rehomed"] < 1:
+        bad.append("handles")
+    if mismatch:
+        bad.append("streams")
+    if pages["pages_allocated"] == 0 or \
+            pages["pages_allocated"] != pages["pages_freed"]:
+        bad.append("pages")
+    if not fresh._warm or rejoin_builds or warm[-1]["kernel_builds"]:
+        bad.append("rejoin")
+    if any(w["warmup_peak_mb"] >= w["cache_mb"] for w in warm[:2]):
+        bad.append("warmup_memory")
+    if ready_before != 200 or fields["readyz_r0_in_drain"] != \
+            [503, "draining"]:
+        bad.append("readyz")
+    if not fields["metrics_has_router_admissions"] or \
+            sorted(fields["router_replicas"]) != ["r0", "r1"]:
+        bad.append("telemetry")
+    if bad:
+        fail(f"serve_fleet: {bad}: {fields}")
+    _fleet_preemption(torch, model, prompts)
+    launches, plain = _counts(fa)
+    want = ("flash_fwd", "flash_decode", "flash_decode_paged",
+            "flash_chunk")
+    if plain or any(launches[k] == 0 for k in want) or \
+            any(n for k, n in launches.items() if k not in want):
+        fail(f"serve_fleet launches {launches}, plain calls {plain}")
+    _telemetry_reset()
+    monitor.disable()
+    return launches
+
+
 def phase_int8_logits(torch, model):
     """At one 500-token prompt (bucket 512, cache 640): the decode logits
     over the int8 cache against those over the wide cache, and the
@@ -3641,6 +3914,10 @@ def main():
     # on against off, a CPU+GPU profile, fail_admission
     paths.append(("serve_telemetry", phase_serve_telemetry(torch, model,
                                                            prompts)))
+    # the operations surface: two replicas behind the fleet router in
+    # thread mode with a rolling deploy, then a preemption drain
+    paths.append(("serve_fleet", phase_serve_fleet(
+        torch, model, prompts, served["serve"], card)))
     del served, spec_handles
     phase_int8_logits(torch, model)
     del model

@@ -8,6 +8,8 @@ hand for Hopper (``csrc/``), beside its plain PyTorch version. Entry
 points run on the first CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise.
 """
+__version__ = "0.1.0"
+
 from .core.device import get_device, set_device  # noqa: F401
 from .core.random import seed  # noqa: F401
 

@@ -4,8 +4,8 @@ JAX package's ``inference/config.py``: the dense, paged and chunked
 serving paths, and speculative decoding).
 
 Options of the JAX package that belong to paths not ported yet (int8
-and int4 weights, the telemetry server, compile cache) are accepted by
-name and raise when set, naming the ROADMAP entry.
+and int4 weights, the memory planner) are accepted by name and raise
+when set, naming the ROADMAP entry.
 """
 from __future__ import annotations
 
@@ -25,9 +25,7 @@ class PrecisionType:
 #: option name -> the ROADMAP entry that ports it
 _LATER_SERVING = {
     "weight_bits": "A8 (int8/int4 weight paths)",
-    "telemetry_port": "A8 (the telemetry server, with health())",
     "hbm_budget": "A12 (memory planner)",
-    "drain_timeout_s": "A8 (thread mode and graceful drain)",
 }
 
 
@@ -114,14 +112,18 @@ class Config:
         return self
 
     def enable_serving(self, max_queue: int = 64, poll_every: int = 4,
+                       drain_timeout_s: float = 30.0,
                        default_deadline_s=None, cache_max_len=None,
                        paged: bool = False, kv_page_size=None,
                        kv_pages=None, prefill_chunk_tokens=None,
-                       kv_cache_dtype=None, trace_sample=None, **later):
+                       kv_cache_dtype=None, trace_sample=None,
+                       telemetry_port=None, **later):
         """Continuous-batching knobs for ``serving.ServingEngine``:
         ``max_queue`` bounds admission (submit past it raises
         QueueFull), ``poll_every`` sets the completion-poll cadence in
-        decode steps, ``default_deadline_s`` applies to requests that
+        decode steps, ``drain_timeout_s`` bounds how long a graceful
+        drain keeps decoding in-flight requests before it cancels them,
+        ``default_deadline_s`` applies to requests that
         carry none, ``cache_max_len`` overrides the shared KV ring
         length (default: largest bucket + max_new_tokens, rounded up to
         128).
@@ -139,14 +141,18 @@ class Config:
         paged (it wins over the ``enable_generation`` value).
         ``trace_sample`` traces 1-in-N requests end to end into the
         flight recorder (default 8, or ``PADDLE_TRACE_SAMPLE``; 0 =
-        off)."""
+        off), and ``telemetry_port`` starts the engine's telemetry
+        server (``/metrics``, ``/healthz``, ``/readyz``; 0 binds an
+        ephemeral port; default ``PADDLE_TELEMETRY_PORT``)."""
         _refuse_later("enable_serving", later, _LATER_SERVING)
         validate_cache_dtype(kv_cache_dtype)
         self._serving = dict(
             max_queue=int(max_queue), poll_every=int(poll_every),
+            drain_timeout_s=float(drain_timeout_s),
             default_deadline_s=default_deadline_s,
             cache_max_len=cache_max_len, paged=bool(paged),
             kv_page_size=kv_page_size, kv_pages=kv_pages,
             prefill_chunk_tokens=prefill_chunk_tokens,
-            kv_cache_dtype=kv_cache_dtype, trace_sample=trace_sample)
+            kv_cache_dtype=kv_cache_dtype, trace_sample=trace_sample,
+            telemetry_port=telemetry_port)
         return self

@@ -30,7 +30,12 @@ SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
            "fused_resnet", "fused_conv3x3", "fused_norm", "fused_adamw",
            "fused_ce")
 
-_LOCK = threading.Lock()
+# held across every stale check, build and load: engines stepping on
+# several threads (an in-process fleet, a relaunched replica warming up)
+# may ask for the same library at once, and must not build it twice or
+# see a half-declared one. A launch of a library already in _LIBS never
+# takes it (a dict read is atomic), so a build never stalls a launch.
+_LOCK = threading.RLock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # libraries nvcc built in this process: the serving engine's goodput
 # ledger charges a dispatch to `compile` when this moved during it (the
@@ -93,21 +98,22 @@ def build_all(names: Iterable[str] = SOURCES,
     report). A library this process has already loaded stays loaded:
     build before the first launch."""
     global _builds_seen
-    todo = [n for n in names if force or _stale(n)]
-    t0 = time.perf_counter()
-    procs = {n: _start(n) for n in todo}
-    report = {}
-    try:
-        for n, proc in procs.items():
-            report[n] = {"log": _finish(n, proc),
-                         "seconds": time.perf_counter() - t0}
-            _builds_seen += 1
-    finally:
-        for proc in procs.values():   # a failed build stops the others
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    return report
+    with _LOCK:
+        todo = [n for n in names if force or _stale(n)]
+        t0 = time.perf_counter()
+        procs = {n: _start(n) for n in todo}
+        report = {}
+        try:
+            for n, proc in procs.items():
+                report[n] = {"log": _finish(n, proc),
+                             "seconds": time.perf_counter() - t0}
+                _builds_seen += 1
+        finally:
+            for proc in procs.values():   # a failed build stops the rest
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return report
 
 
 def library(name: str, signatures: Optional[Dict[str, tuple]] = None
@@ -116,20 +122,22 @@ def library(name: str, signatures: Optional[Dict[str, tuple]] = None
     function in ``signatures`` (``{fn: (restype, argtypes)}``) gets its
     ctypes types declared, so pointers and 64-bit strides are never cut
     to 32-bit ints."""
-    with _LOCK:
-        lib = _LIBS.get(name)
+    lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    if _stale(name):
-        build_all([name])
-    lib = ctypes.CDLL(str(_library_path(name)))
-    for fn, (restype, argtypes) in (signatures or {}).items():
-        f = getattr(lib, fn)
-        f.restype = restype
-        f.argtypes = list(argtypes)
     with _LOCK:
+        lib = _LIBS.get(name)     # another thread may have loaded it
+        if lib is not None:
+            return lib
+        if _stale(name):
+            build_all([name])
+        lib = ctypes.CDLL(str(_library_path(name)))
+        for fn, (restype, argtypes) in (signatures or {}).items():
+            f = getattr(lib, fn)
+            f.restype = restype
+            f.argtypes = list(argtypes)
         _LIBS[name] = lib
-    return lib
+        return lib
 
 
 def raise_on(err: int, what: str):

@@ -61,12 +61,26 @@ chunked-prefill paths).
   only at the poll; with the registry off every site costs one
   ``if monitor.enabled``-style check.
 
+- **operations surface**: ``warmup()`` (on by default) loads every
+  kernel library the scheduler's programs launch and runs each program
+  once on scratch state, leaving the live cache, lanes, sampling
+  generator, stats and registry as they were; ``health()`` is the
+  readiness document a router scores and ``/readyz`` serves; ``drain()``
+  rejects the queue, aborts a pending chunked prefill, decodes the
+  in-flight slots up to ``drain_timeout_s`` and cancels the stragglers;
+  ``start()``/``shutdown()`` run the scheduler on a daemon pump thread;
+  ``serve_forever`` drains on a preemption (``distributed.resilience``);
+  ``telemetry_port`` (or ``PADDLE_TELEMETRY_PORT``) starts the
+  ``core.telemetry_server`` before warmup, so ``/healthz`` answers while
+  ``/readyz`` says ``warming``.
+
 On a CUDA card every inline prefill's attention runs in the flash
 forward kernel, every chunk's in the chunk kernel, and every decode
 step's (a speculative verify window's too) in the flash decode kernel
 (dense cache) or the paged decode kernel (paged cache), in their int8
-modes on an int8 cache. Thread mode, the graceful-shutdown drain, the
-telemetry server and ``health()`` come with a later slice (ROADMAP A8).
+modes on an int8 cache. Two engines may step at once from two threads
+(an in-process fleet): the kernel wrappers launch on each thread's
+current stream and allocate their scratch per call.
 """
 from __future__ import annotations
 
@@ -80,7 +94,7 @@ from typing import Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
-from ..core import flight_recorder, goodput, monitor
+from ..core import flight_recorder, goodput, monitor, telemetry_server
 from ..core import slo as slo_mod
 from ..generation.api import (GenerationConfig, GenerationSession,
                               _round_up, quant_bytes_saved)
@@ -110,20 +124,23 @@ class ServingEngine:
         engine = ServingEngine(cfg)
         handle = engine.submit(prompt_ids, RequestParams(max_new_tokens=32))
         tokens = handle.result()          # pumps the engine inline
-        # or: engine.serve_forever(request_iter)
+        # or: engine.serve_forever(request_iter)   # blocking loop
+        # or: engine.start(); ...; engine.shutdown()
 
     The keyword arguments override ``enable_serving()``."""
 
     def __init__(self, config, *, max_queue: Optional[int] = None,
                  poll_every: Optional[int] = None,
+                 drain_timeout_s: Optional[float] = None,
                  default_deadline_s: Optional[float] = None,
                  cache_max_len: Optional[int] = None,
-                 seed: Optional[int] = None,
+                 warmup: bool = True, seed: Optional[int] = None,
+                 trace_sample: Optional[int] = None,
+                 telemetry_port: Optional[int] = None,
                  paged: Optional[bool] = None,
                  kv_page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
-                 prefill_chunk_tokens: Optional[int] = None,
-                 trace_sample: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None):
         layer = getattr(config, "_layer", None)
         if layer is None:
             raise ValueError("ServingEngine needs a live layer: use "
@@ -143,6 +160,8 @@ class ServingEngine:
 
         self.max_queue = int(_opt(max_queue, "max_queue", 64))
         self.poll_every = max(1, int(_opt(poll_every, "poll_every", 4)))
+        self.drain_timeout_s = float(
+            _opt(drain_timeout_s, "drain_timeout_s", 30.0))
         self.default_deadline_s = _opt(default_deadline_s,
                                        "default_deadline_s", None)
         cache_max_len = _opt(cache_max_len, "cache_max_len", None)
@@ -331,18 +350,8 @@ class ServingEngine:
         B, cap, dev = self.max_batch, self.max_new_tokens, self.device
         wdtype = next(p.dtype for p in self.network.parameters()
                       if p.is_floating_point())
-        layers, heads = net_cfg.num_layers, net_cfg.num_heads
-        head_dim = net_cfg.hidden_size // heads
         cd = self.cache_dtype
-        if self._alloc is None:
-            self._cache = KVCache.create(layers, B, self.max_len, heads,
-                                         head_dim, dtype=wdtype, device=dev,
-                                         cache_dtype=cd)
-        else:
-            self._cache = PagedKVCache.create(
-                layers, B, self._alloc.n_pages, self.page_size,
-                self.pages_per_row, heads, head_dim, dtype=wdtype,
-                device=dev, cache_dtype=cd)
+        self._cache = self._new_cache(B)
         # the served cache dtype as an info gauge, and on an int8 cache
         # the bytes it saves against the width it would have carried
         # (the serving compute dtype, else the model's own)
@@ -359,9 +368,7 @@ class ServingEngine:
         # each chunked admission (kv_len 0, and clips 0 on an int8 cache)
         self._row_cache = None
         if self._chunk_enabled:
-            self._row_cache = KVCache.create(layers, 1, self.max_len, heads,
-                                             head_dim, dtype=wdtype,
-                                             device=dev, cache_dtype=cd)
+            self._row_cache = self._new_cache(1, dense=True)
         self._rows = torch.arange(B, device=dev)
         self._tok = torch.zeros(B, dtype=torch.int64, device=dev)
         self._finished = torch.ones(B, dtype=torch.bool, device=dev)
@@ -384,6 +391,9 @@ class ServingEngine:
         self._queue = collections.deque()
         self._qlock = threading.Lock()
         self._pump_lock = threading.RLock()
+        self._thread: Optional[threading.Thread] = None
+        self._warm = False
+        self._shutdown = False
         self._steps_since_poll = 0
         self._window_t0: Optional[float] = None
         self._window_steps = 0
@@ -401,6 +411,136 @@ class ServingEngine:
         self._goodput = goodput.GoodputLedger("serve",
                                               default_bucket="idle")
         self._goodput.start()
+        # live export surface: telemetry_port= (here or in
+        # enable_serving) or PADDLE_TELEMETRY_PORT. Started BEFORE warmup
+        # so /healthz answers while the replica warms (/readyz stays 503
+        # until warm). A bind failure never aborts the engine: it serves
+        # un-scraped and the swallow is recorded.
+        self.telemetry = None
+        tp = _opt(telemetry_port, "telemetry_port", None)
+        try:
+            if tp is not None:
+                self.telemetry = telemetry_server.TelemetryServer(
+                    port=int(tp)).start().attach_engine(self)
+            else:
+                self.telemetry = telemetry_server.start_from_env(self)
+        except OSError as e:
+            monitor.record_swallowed("serving.telemetry_bind", e)
+        if warmup:
+            try:
+                self.warmup()
+            except BaseException:
+                # the caller never gets a handle, so nothing else could
+                # release the port
+                if self.telemetry is not None:
+                    self.telemetry.stop()
+                    self.telemetry = None
+                raise
+
+    def _new_cache(self, batch: int, dense: bool = False,
+                   n_pages: Optional[int] = None):
+        """A zeroed cache of the engine's geometry for ``batch`` rows:
+        the slots' dense or paged cache (a pool of ``n_pages``, default
+        the allocator's), or (``dense``) a batch-1 row cache like the
+        chunked side cache."""
+        net_cfg = self.network.cfg
+        heads = net_cfg.num_heads
+        wdtype = next(p.dtype for p in self.network.parameters()
+                      if p.is_floating_point())
+        if dense or self._alloc is None:
+            return KVCache.create(net_cfg.num_layers, batch, self.max_len,
+                                  heads, net_cfg.hidden_size // heads,
+                                  dtype=wdtype, device=self.device,
+                                  cache_dtype=self.cache_dtype)
+        return PagedKVCache.create(
+            net_cfg.num_layers, batch, n_pages or self._alloc.n_pages,
+            self.page_size,
+            self.pages_per_row, heads, net_cfg.hidden_size // heads,
+            dtype=wdtype, device=self.device, cache_dtype=self.cache_dtype)
+
+    # ----------------------------------------------------------- warmup
+    @torch.no_grad()
+    def warmup(self):
+        """The eager counterpart of compiling every program the
+        scheduler can dispatch: build or load every kernel library those
+        programs launch, then run each program once on scratch state —
+        one prefill per bucket, the admission install, one decode step
+        (a verify window on speculative slots), the free, and with
+        chunked prefill the chunk and final-chunk pair and (paged) the
+        span install. The live cache, lanes, page allocator, slots,
+        sampling generator, stats and metrics are left as they were; a
+        kernel build here is charged to goodput's ``compile`` bucket."""
+        builds0 = _build.build_count()
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            # the flash forward (inline prefill), the slots' decode
+            # kernel, and the chunk kernel (in the dense decode library)
+            from ..kernels import flash_attention as fa
+            libs = {"flash_fwd": fa._FWD_SIG}
+            if self._alloc is None or self._chunk_enabled:
+                libs["flash_decode"] = fa._DECODE_SIG
+            if self._alloc is not None:
+                libs["flash_decode_paged"] = fa._PAGED_SIG
+            for name, sig in libs.items():
+                _build.library(name, sig)
+        self._warm_programs()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if _build.build_count() > builds0:
+            self._goodput.charge("compile", time.perf_counter() - t0)
+        self._warm = True
+        return self
+
+    def _warm_programs(self):
+        """Each scheduler program once, on a scratch cache of ONE row of
+        the live geometry (a paged pool of that row's pages and the null
+        page) and a scratch generator. The kernels are built per
+        library, not per shape, so one row loads and runs what the
+        fixed batch does, and warmup's memory stays a row's next to the
+        live cache."""
+        dev = self.device
+        gen = None
+        if self._gen is not None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+        skw = self._cfg.sample_kwargs()
+        table = None
+        if self._alloc is None:
+            cache = self._new_cache(1)
+        else:
+            cache = self._new_cache(1, n_pages=self.pages_per_row + 1)
+            table = self._table_row(list(range(1, self.pages_per_row + 1)))
+        for bucket in self.buckets:
+            ids = torch.full((1, bucket), self._cfg.pad_value,
+                             dtype=torch.int64, device=dev)
+            tok, row, _ = self._session.prefill(
+                ids, torch.ones(1, dtype=torch.int64, device=dev),
+                self._cfg, self.max_len, gen)
+        # admission install into slot 0, then one decode step (a verify
+        # window on speculative slots), then free
+        if self._alloc is None:
+            cache.copy_row_from(row, 0, 0)
+        else:
+            cache.install_row(row, 0, table, 0)
+        window = tok[:1, None]
+        if self._spec is not None:
+            window = torch.cat([window, window.new_zeros(
+                (1, self._spec.k))], dim=1)
+        logits, _ = self.network(window, cache=cache)
+        sample(logits[:, -1], gen, **skw)
+        cache.reset_rows(0)
+        if self._chunk_enabled:
+            C = self.prefill_chunk_tokens
+            side = self._new_cache(1, dense=True)
+            ids = torch.full((1, C), self._cfg.pad_value,
+                             dtype=torch.int64, device=dev)
+            self.network(ids, cache=side)
+            if self._alloc is not None:
+                cache.install_span(side, table, 0)
+            logits, side = self.network(
+                ids, cache=side,
+                prompt_len=torch.tensor([2 * C], device=dev))
+            sample(logits[:, -1], gen, **skw)
 
     # -------------------------------------------------------- admission
     def submit(self, prompt, params: Optional[RequestParams] = None) \
@@ -430,10 +570,14 @@ class ServingEngine:
         deadline = None if dl is None else time.monotonic() + float(dl)
         req = Request(ids, params, budget, deadline, engine=self)
         with self._qlock:
+            if self._shutdown:
+                req._finish(RequestStatus.REJECTED, "shutdown")
+                self.stats["rejected"] += 1
+                monitor.record_serve_request("rejected")
+                raise RuntimeError(
+                    "serving engine is shut down; no new requests")
             if len(self._queue) >= self.max_queue:
-                busy = all(s is not None for s in self._slots)
-                reason = "queue_full:no_free_slots" if busy \
-                    else "queue_full"
+                reason = self._rejection_reason()
                 req._finish(RequestStatus.REJECTED, reason)
                 self.stats["rejected"] += 1
                 monitor.record_serve_request("rejected")
@@ -452,6 +596,20 @@ class ServingEngine:
                                    prompt_len=int(ids.size),
                                    budget=budget, queue_depth=qdepth)
         return req
+
+    def _rejection_reason(self) -> str:
+        """The structured reason a queue-bound rejection carries on both
+        the ``QueueFull`` and the terminal handle (callers hold
+        ``_qlock``): ``queue_full:no_free_pages`` when the paged queue
+        head waits on pool pages, ``queue_full:no_free_slots`` when every
+        decode lane is busy, bare ``queue_full`` when the blocker is not
+        known yet (a submit burst filled the queue between scheduler
+        steps while slots were free). A router re-routes on it."""
+        if self._alloc is not None and self._page_blocked:
+            return "queue_full:no_free_pages"
+        if sum(s is not None for s in self._slots) >= self.max_batch:
+            return "queue_full:no_free_slots"
+        return "queue_full"
 
     @property
     def busy(self) -> bool:
@@ -1097,52 +1255,265 @@ class ServingEngine:
             return self.submit(item[0], item[1])
         return self.submit(item)
 
-    def serve_forever(self, request_iter: Iterable) -> List[Request]:
-        """Blocking serve loop: pull prompts (or ``(prompt,
-        RequestParams)`` tuples) from ``request_iter`` whenever the
-        queue has room, and return the handles once the iterator is
-        exhausted and every request is terminal."""
+    def serve_forever(self, request_iter: Optional[Iterable] = None, *,
+                      shutdown=None, on_step=None,
+                      idle_sleep_s: float = 0.0005) -> List[Request]:
+        """Blocking serve loop. With ``request_iter`` it pulls prompts
+        (or ``(prompt, RequestParams)`` tuples; the iterator must not
+        block in ``__next__``) whenever the queue has room and returns
+        the handles once the iterator is exhausted and every request is
+        terminal. With ``request_iter=None`` it serves ``submit()``
+        traffic from other threads until ``shutdown()`` or a preemption
+        ends it.
+
+        Preemption: when ``shutdown`` (a ``GracefulShutdown``, else the
+        active one) reports preempted, or ``shutdown()`` was called, the
+        loop drains: queued requests end REJECTED, in-flight slots decode
+        up to ``drain_timeout_s`` and the rest are cancelled. A
+        preemption records ``serve.preempted``, dumps the flight recorder
+        first, and charges the drain's wall (less the compute recorded
+        inside it) to goodput's ``preemption_recovery`` bucket.
+        ``on_step(engine)`` runs once per loop iteration."""
+        from ..distributed import resilience
         handles: List[Request] = []
-        it = iter(request_iter)
-        exhausted = False
-        while True:
-            while not exhausted and self._queue_room():
-                try:
-                    item = next(it)
-                except StopIteration:
-                    exhausted = True
+        it = iter(request_iter) if request_iter is not None else None
+        exhausted = False   # an iterator-less loop never finishes
+        try:
+            while True:
+                gs = shutdown if shutdown is not None \
+                    else resilience.active()
+                if self._shutdown or (gs is not None and gs.preempted):
+                    preempted_drain = gs is not None and \
+                        gs.preempted and not self._shutdown
+                    if preempted_drain:
+                        # the black box first, while the in-flight
+                        # requests' spans still show what was running
+                        flight_recorder.record(
+                            "serve.preempted",
+                            in_flight=sum(s is not None
+                                          for s in self._slots))
+                        flight_recorder.auto_dump("preemption")
+                    compute0 = self._goodput.bucket_total("compute")
+                    t_drain = time.perf_counter()
+                    self.drain()
+                    if preempted_drain:
+                        dc = self._goodput.bucket_total("compute") \
+                            - compute0
+                        self._goodput.charge(
+                            "preemption_recovery",
+                            max(time.perf_counter() - t_drain - dc, 0.0))
                     break
-                handles.append(self._submit_item(item))
-            if self.busy:
-                self.step()
-            elif exhausted:
-                break
+                while it is not None and not exhausted and \
+                        self._queue_room():
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    handles.append(self._submit_item(item))
+                if on_step is not None:
+                    on_step(self)
+                if self.busy:
+                    self.step()
+                elif exhausted:
+                    break
+                else:
+                    time.sleep(idle_sleep_s)
+        except BaseException as e:
+            # an uncaught scheduler or device error, or an operator's
+            # Ctrl-C: dump, then propagate (SystemExit is a preemption
+            # path that already dumped)
+            if not isinstance(e, SystemExit):
+                flight_recorder.record(
+                    "serve.crash", error=f"{type(e).__name__}: {e}")
+                flight_recorder.auto_dump("serve_crash")
+            raise
         return handles
+
+    def drain(self):
+        """Graceful shutdown: reject everything still queued, abort a
+        pending chunked prefill (its pages return), keep decoding the
+        in-flight slots until each is terminal or ``drain_timeout_s``
+        passes, take a final poll, then cancel the stragglers
+        ``CANCELLED("shutdown")``. Every request ends terminal; none
+        hang. Idempotent; the engine accepts no new work afterwards."""
+        with self._pump_lock:
+            with self._qlock:
+                already = self._shutdown and not self._queue \
+                    and all(s is None for s in self._slots)
+                self._shutdown = True
+                queued, self._queue = \
+                    list(self._queue), collections.deque()
+                if self._alloc is not None:
+                    self._blocked_key = None
+                    self._page_blocked = False
+                monitor.record_serve_queue_depth(0)
+            if flight_recorder.enabled and not already:
+                flight_recorder.record(
+                    "serve.drain_begin", queued=len(queued),
+                    in_flight=sum(s is not None for s in self._slots))
+            for req in queued:
+                req._finish(RequestStatus.REJECTED, "shutdown")
+                self.stats["rejected"] += 1
+                monitor.record_serve_request("rejected")
+            # a PENDING_PREFILL slot never decodes to terminal: abort it
+            # now, or the drain below would spin on it until the timeout
+            self._abort_chunked("shutdown")
+            deadline = time.monotonic() + self.drain_timeout_s
+            while any(s is not None for s in self._slots) and \
+                    time.monotonic() < deadline:
+                self._dispatch_decode()
+                if self._steps_since_poll >= self.poll_every:
+                    self._poll()
+            if any(s is not None for s in self._slots):
+                # rows that finished since the last cadence poll must
+                # complete, not be called stragglers
+                self._poll()
+            steps = self._steps.cpu().numpy()
+            for i, req in enumerate(self._slots):
+                if req is not None:
+                    self._evict(i, req, "shutdown", int(steps[i]))
+            monitor.record_serve_slot_occupancy(0.0)
+            if monitor.enabled:
+                self._drain_page_stats()
+                self._drain_quant_stats()
+                self._goodput.flush()
+            if flight_recorder.enabled and not already:
+                flight_recorder.record("serve.drain_end")
+
+    shutdown_now = drain
+
+    # ----------------------------------------------------- thread mode
+    def start(self) -> "ServingEngine":
+        """Background pump thread: ``submit()``/``result()`` from any
+        thread, ``shutdown()`` to drain and stop."""
+        if self._thread is not None and self._thread.is_alive():
+            return self
+        self._thread = threading.Thread(
+            target=self._run_loop, daemon=True, name="serving-engine")
+        self._thread.start()
+        return self
+
+    def _run_loop(self):
+        while not self._shutdown:
+            if self.busy:
+                with self._pump_lock:
+                    if not self._shutdown:
+                        self.step()
+            else:
+                time.sleep(0.001)
+
+    def shutdown(self):
+        """Drain (every request terminal), stop the pump thread, free
+        the caches, close the goodput ledger and release the telemetry
+        port. ``drain()``
+        alone keeps the server up (a scrape after the drain is how a
+        fleet sees the exit); ``shutdown()`` frees the port so an engine
+        relaunched on the same fixed port can bind it."""
+        self.drain()
+        if self._thread is not None:
+            self._thread.join(timeout=self.drain_timeout_s + 5.0)
+            self._thread = None
+        # the caches go with the engine: handles keep the engine itself
+        # referenced, and a replica relaunched in its place must not
+        # hold two of them
+        self._cache = self._row_cache = None
+        self._goodput.close()
+        if self.telemetry is not None:
+            self.telemetry.stop()
+            self.telemetry = None
 
     def _queue_room(self) -> bool:
         with self._qlock:
             return len(self._queue) < self.max_queue
 
     def _try_pump(self) -> bool:
-        """Inline pump for ``handle.result()``; True when it made
-        progress."""
+        """Inline pump for ``handle.result()`` when no thread owns the
+        engine; True when it made progress."""
+        if self._thread is not None and self._thread.is_alive():
+            return False
         if not self._pump_lock.acquire(blocking=False):
             return False
         try:
-            if self.busy:
+            if self.busy and not self._shutdown:
                 self.step()
                 return True
             return False
         finally:
             self._pump_lock.release()
 
+    # ----------------------------------------------------------- health
+    def health(self) -> Dict:
+        """Readiness document for ``/readyz`` and the fleet router:
+        ready iff warm, not draining and the queue below its bound,
+        always with the capacity detail that explains a 503 — queue
+        depth and what its head waits on (``pages``: pool memory;
+        ``slots``: every decode lane busy), slot occupancy, the cache
+        capacity and headroom in tokens (slots x max_len dense, pool
+        pages x page size paged), the chunked-prefill backlog, and on a
+        paged cache the pool's pages."""
+        with self._qlock:
+            depth = len(self._queue)
+        busy = sum(s is not None for s in self._slots)
+        paged = self._alloc is not None
+        blocked_on = None
+        if depth:
+            if paged and self._page_blocked:
+                blocked_on = "pages"
+            elif busy >= self.max_batch:
+                blocked_on = "slots"
+        reasons = []
+        if self._shutdown:
+            reasons.append("draining")
+        if not self._warm:
+            reasons.append("warming")
+        if depth >= self.max_queue:
+            reasons.append("queue_full" if blocked_on is None
+                           else f"queue_full:no_free_{blocked_on}")
+        if paged:
+            cap_tokens = (self._alloc.n_pages - 1) * self.page_size
+            free_tokens = self._alloc.free_pages() * self.page_size
+        else:
+            cap_tokens = self.max_batch * self.max_len
+            free_tokens = (self.max_batch - busy) * self.max_len
+        pp_tokens = pp_chunks = 0
+        st = self._chunking
+        if st is not None:
+            pp_tokens = max(
+                0, st["plen"] - st["next"] * self.prefill_chunk_tokens)
+            pp_chunks = st["n"] - st["next"]
+        return {
+            "ready": not reasons,
+            **({"reason": ",".join(reasons)} if reasons else {}),
+            "queue_depth": depth, "max_queue": self.max_queue,
+            "queue_blocked_on": blocked_on,
+            "slots_busy": busy, "max_batch": self.max_batch,
+            "free_slots": self.max_batch - busy,
+            "kv_cache_dtype": self._kv_dtype_label,
+            "capacity_tokens": cap_tokens,
+            "free_tokens": free_tokens,
+            "pending_prefill_tokens": pp_tokens,
+            "prefill_chunks_queued": pp_chunks,
+            **({"free_pages": self._alloc.free_pages(),
+                "total_pages": self._alloc.n_pages - 1,
+                "page_occupancy": round(
+                    self._alloc.page_occupancy(), 4)} if paged else {}),
+            "warm": self._warm, "draining": self._shutdown,
+        }
+
     def __repr__(self):
+        occ = sum(s is not None for s in self._slots)
+        with self._qlock:
+            q = len(self._queue)
         paged = "" if self._alloc is None else \
-            f", pages={self._alloc.n_pages}x{self.page_size}"
+            (f", pages={self._alloc.used_pages()}"
+             f"/{self._alloc.n_pages - 1}x{self.page_size}")
         chunk = "" if self.prefill_chunk_tokens is None else \
             f", prefill_chunk_tokens={self.prefill_chunk_tokens}"
         spec = "" if self._spec is None else \
             f", speculative=ngram(k={self._spec.k}, n={self._spec.ngram})"
-        return (f"ServingEngine(max_batch={self.max_batch}, "
-                f"buckets={self.buckets}, max_len={self.max_len}"
-                f"{paged}{chunk}{spec}, device={self.device})")
+        return (f"ServingEngine(slots={occ}/{self.max_batch}, "
+                f"queued={q}, buckets={self.buckets}, "
+                f"max_len={self.max_len}{paged}{chunk}{spec}, "
+                f"device={self.device}, warm={self._warm}, "
+                f"shutdown={self._shutdown})")

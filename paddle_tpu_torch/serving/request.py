@@ -4,14 +4,17 @@ spans and cost attribution.
 
 A :class:`Request` is both the scheduler's record and the caller's
 handle: ``submit()`` returns it at once, ``result()`` blocks until it is
-terminal, pumping the engine inline (no background thread owns it yet),
-so a single-threaded ``submit(); result()`` makes progress.
+terminal, pumping the engine inline when no pump thread owns it
+(``ServingEngine.start()``), so a single-threaded ``submit(); result()``
+makes progress.
 
 Terminal statuses:
 
     COMPLETED   decoded to eos or its token budget
-    CANCELLED   deadline expired (queued, mid-prefill or mid-decode)
-    REJECTED    queue at bound when submitted
+    CANCELLED   deadline expired (queued, mid-prefill or mid-decode), or
+                the drain timeout hit during a graceful shutdown
+    REJECTED    queue at bound when submitted, or still queued when a
+                drain started
 """
 from __future__ import annotations
 
@@ -60,9 +63,10 @@ class RequestParams:
 
 class QueueFull(RuntimeError):
     """Admission control: the request queue is at its depth bound.
-    ``reason`` is ``queue_full:no_free_slots`` when every decode lane is
-    busy, bare ``queue_full`` otherwise; ``request`` is the already
-    REJECTED handle."""
+    ``reason`` is ``queue_full:no_free_pages`` when the paged queue head
+    waits on pool pages, ``queue_full:no_free_slots`` when every decode
+    lane is busy, bare ``queue_full`` otherwise; ``request`` is the
+    already REJECTED handle (a router re-routes on the reason)."""
 
     def __init__(self, msg: str = "", *, reason: str = "queue_full",
                  request: Optional["Request"] = None):
@@ -133,7 +137,8 @@ class Request:
         return self._event.is_set()
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
-        """Block until terminal, pumping the engine inline."""
+        """Block until terminal, pumping the engine inline when no pump
+        thread owns it."""
         deadline = None if timeout is None \
             else time.monotonic() + float(timeout)
         while not self._event.is_set():

@@ -492,6 +492,36 @@ def test_paged_and_chunked_refuse_what_they_do_not_take(dev):
         fa.flash_attention_decode_paged(q, pool, pool, table.cpu(), kv)
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_warmup_peak_memory_is_a_row_next_to_the_cache(dev, paged):
+    """warmup() runs its programs on a one-row scratch cache: its peak
+    allocation over what the engine held before stays under a quarter
+    of the live cache of 64 rows (a scratch of the live cache's size
+    doubled it). Measured on a second warmup, so that the libraries'
+    one-time workspaces (cuBLAS's) are not counted."""
+    from paddle_tpu_torch.inference import Config
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.serving import ServingEngine
+    model = gpt("test-tiny", device=dev).eval()
+    cfg = (Config().from_layer(model)
+           .enable_generation(max_new_tokens=32, prefill_buckets=(16, 64),
+                              max_batch=64)
+           .enable_serving(**(dict(paged=True, kv_page_size=16)
+                              if paged else {})))
+    cfg.enable_use_gpu("float32")
+    eng = ServingEngine(cfg)
+    cache = eng._cache
+    live = 2 * cache.k.numel() * cache.k.element_size()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng.warmup()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert eng._warm and peak < live / 4, (peak, live)
+    eng.shutdown()
+
+
 def test_paged_chunked_engine_on_card_matches_cpu(dev):
     """test-tiny in fp32: the paged engine with chunked prefill on the
     card gives the CPU engine's tokens, through the paged decode, chunk
@@ -951,8 +981,8 @@ def test_speculative_engine_on_card_matches_cpu(dev, serving):
             cfg.disable_gpu()
         else:
             cfg.enable_use_gpu("float32")
-        fa.reset_counts()
         eng = ServingEngine(cfg, poll_every=2)
+        fa.reset_counts()                # after warmup's one of each
         outs.append([h.tokens for h in eng.serve_forever(iter(prompts))])
         stats.append((eng.stats["spec_proposed"], eng.stats["spec_accepted"]))
     int8 = serving.get("kv_cache_dtype") == "int8"
