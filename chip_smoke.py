@@ -23,7 +23,14 @@ at a near tie from its sequential one, the same traffic with telemetry
 on and off, two replicas (dense and paged) behind the fleet router on
 pump threads through a rolling deploy that re-homes queued work (each
 stream equal to the dense serve run's), a preemption drain through
-``serve_forever``, holds the
+``serve_forever``, the Predictor in generation mode on the same 16
+prompts (no kernel built after ``create_predictor``, streams equal to
+the serve run's or parting at a near tie, ``run()`` bitwise to the
+served module and timed by ``device_time_per_run``), int8 and int4
+weight-only engines and an int4 paged engine on the int8 cache (the
+first 8 streams equal batch-1 ``generate`` on the quantized module,
+every weight within its step, the decode step beside bf16's, the int8
+compute layer's accumulators equal to the CPU's), holds the
 int8 cache's logits to the wide cache's, trains gpt2-small with
 ``bench.py``'s recipe (AdamW with fp32 masters, the fused LM-head loss,
 ``TrainStep``) at batch 16 x 1024 tokens, then trains ResNet-50 with
@@ -2033,9 +2040,10 @@ def _spec_config():
     return SpeculativeConfig(mode="ngram", k=SPEC_K, ngram=SPEC_NGRAM)
 
 
-def _serve_config(model, speculative=None, **serving):
+def _serve_config(model, speculative=None, precision="bfloat16",
+                  **serving):
     from paddle_tpu_torch.inference import Config
-    return (Config().from_layer(model).enable_use_gpu("bfloat16")
+    return (Config().from_layer(model).enable_use_gpu(precision)
             .enable_generation(max_new_tokens=64, prefill_buckets=(128, 512),
                                max_batch=8, speculative=speculative)
             .enable_serving(max_queue=64, poll_every=4, **serving))
@@ -3138,6 +3146,238 @@ def phase_serve_fleet(torch, model, prompts, serve_handles, card):
     return launches
 
 
+def _busy_ms(torch, fn, n):
+    """Device busy ms per call of ``fn`` over ``n`` calls, from the
+    profiler's device-side events (kernels and copies, no host time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_time_total > 0 and e.cpu_time_total == 0]
+    return sum(e.device_time_total for e in dev) / (1e3 * n), \
+        sum(e.count for e in dev) / n
+
+
+def phase_predictor(torch, model, prompts, serve_handles, card):
+    """``create_predictor`` in generation mode on the serve configuration
+    (gpt2-small bf16, max_batch 8, buckets 128/512, 64 new tokens), then
+    ``generate()`` over the 16 serve prompts (two chunks of 8, each
+    right-padded to its bucket). Gates: no kernel built after
+    ``create_predictor``; every stream equal to the dense serve run's or
+    parting from it at a near tie (teacher-forced logit gap < 0.1: a
+    bucket-padded batch-8 prefill rounds its GEMMs other than the
+    engine's batch-1 prefill, ROADMAP C12); rows 1 and 5 launched, no
+    plain version; ``run()`` on a [8, 128] id batch equal bit for bit to
+    the served module's own logits. Printed: ``device_time_per_run`` of
+    that ``run()`` beside the profiler's busy time and the wall per run
+    (eager launches come from the host: the slope is the larger of the
+    host's and the card's time per run)."""
+    from paddle_tpu_torch.inference import (create_predictor,
+                                            device_time_per_run)
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    cfg = (_serve_config(model).enable_generation(
+        max_new_tokens=64, prefill_buckets=(128, 512), max_batch=8))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = create_predictor(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    builds = _build.build_count()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    outs = pred.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = _counts(fa)
+    new_builds = _build.build_count() - builds
+    ref = [h.tokens for h in serve_handles]
+    ties = _near_ties(torch, model, prompts, outs, ref, 640, None)
+    # run(): the served module's own logits, bit for bit
+    dev = torch.device("cuda", 0)
+    ids = np.random.RandomState(SEED + 9).randint(
+        0, model.cfg.vocab_size, (8, 128))
+    got = pred.run([ids])[0]
+    with torch.no_grad():
+        direct = pred._serving_params.layer(torch.as_tensor(ids, device=dev))
+    run_bitwise = bool(np.array_equal(got, direct.float().cpu().numpy()))
+    slope_ms = device_time_per_run(pred, [ids], iters=(4, 12),
+                                   repeats=2) * 1e3
+    feeds = [torch.as_tensor(ids, device=dev)]
+    run_wall_ms = span_ms(torch, lambda: pred._run_fn(feeds), n=5)[1]
+    busy_ms, run_launches = _busy_ms(torch, lambda: pred._run_fn(feeds), 4)
+    fields = dict(
+        card=card, requests=len(prompts), buckets=pred._gen_buckets,
+        cache_lens=pred._gen_cache_lens, create_predictor_s=build_s,
+        kernel_builds_after_create=new_builds, wall_s=wall,
+        tokens_per_s=sum(int(o.size) for o in outs) / wall,
+        launches=launches, plain_calls=plain,
+        streams_differing_from_serve=len(ties), near_ties=ties,
+        run_shape=list(got.shape), run_dtype=str(got.dtype),
+        run_bitwise_to_served_module=run_bitwise,
+        run_slope_ms=slope_ms, run_wall_ms=run_wall_ms,
+        run_device_busy_ms=busy_ms, run_launches=run_launches,
+        run_idle_share=max(0.0, 1.0 - busy_ms / run_wall_ms))
+    say("predictor", **fields)
+    bad = []
+    if new_builds:
+        bad.append("builds")
+    if any(o.size != 64 for o in outs) or len(outs) != len(prompts):
+        bad.append("budgets")
+    if [t for t in ties if not t["gap"] < LOGIT_TOL]:
+        bad.append("streams")
+    if plain or not launches["flash_fwd"] or not launches["flash_decode"] \
+            or any(n for k, n in launches.items()
+                   if k not in ("flash_fwd", "flash_decode")):
+        bad.append("launches")
+    if not run_bitwise or got.dtype != np.float32:
+        bad.append("run")
+    if not (slope_ms >= 0 and math.isfinite(slope_ms)):
+        bad.append("slope")
+    if bad:
+        fail(f"predictor: {bad}: {fields}")
+    return launches
+
+
+def _weight_bound_check(engine, model):
+    """Each quantized weight of the engine's served module against the
+    bf16 model's: the layer's bf16 weight equal bit for bit to
+    ``materialize`` of its stored tensor; int4 within 0.75 of its
+    per-channel step (absmax / 7; the JAX package's bound), int8's
+    quantization (q * absmax / 127 in fp32) within half a step + 1e-6.
+    Returns (worst error over step, Linear weight bytes stored)."""
+    sp = engine._sp
+    orig = model.state_dict()
+    mat = dict(zip(sp.names, sp.materialize(sp.vals)))
+    worst, stored, bad = 0.0, 0, []
+    for n, step in sp.scales.items():
+        mod = sp.layer.get_submodule(n[:-len(".weight")])
+        w = orig[n].float()
+        if not bool((mod.weight == mat[n]).all()):
+            bad.append(n)
+        if n in sp.int4:
+            err = (mod.weight.float() - w).abs() / step
+            lim = 0.75
+        else:
+            err = ((mod.weight_q.float() * step - w).abs() - 1e-6) / step
+            lim = 0.5
+        e = float(err.max())
+        worst = max(worst, e)
+        if e > lim:
+            bad.append(n)
+        stored += mod.weight_q.numel() + step.numel() * 4
+    return worst, stored, bad
+
+
+def _logit_agreement(torch, model, served, ids):
+    """Top-1 agreement and the largest logit gap of ``served`` against
+    the bf16 model on one id batch."""
+    with torch.no_grad():
+        a = model(ids).float()
+        b = served(ids).float()
+    return float((a.argmax(-1) == b.argmax(-1)).float().mean()), \
+        float((a - b).abs().max())
+
+
+def phase_serve_weights(torch, model, prompts, card, attention_ms):
+    """Weight-only int8 and int4 serving of the serve configuration
+    (precision Int8, ``weight_bits`` 8 and 4 on the dense engine; 4 on a
+    paged engine, page 128, with the int8 KV cache, as the JAX package's
+    ``test_int4_weight_serving`` configures it). Gates: every request
+    completes with its 64 tokens through rows 1 and 5 (7 in its int8
+    mode on the paged engine), no plain version; the first 8 streams
+    equal batch-1 ``generate`` on the same quantized served module bit
+    for bit (dequantization is per element; Sq = 1 rows keep their
+    bits, C12); every dequantized weight within its step
+    (``_weight_bound_check``); ``Int8ComputeLinear``'s int32
+    accumulators at gpt2-small's fc1 shape equal the CPU's on the same
+    int8 operands. Printed: Linear weight bytes at bf16, int8 and int4,
+    top-1 agreement and the largest logit gap against bf16, and the
+    decode step's wall, busy time and idle share for bf16, w8 and w4 in
+    this call."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.quantization import Int8ComputeLinear
+    from paddle_tpu_torch.quantization.int8_compute import int8_matmul
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    dev = torch.device("cuda", 0)
+    lin_bytes = sum(m.weight.numel() * 2 for m in model.modules()
+                    if type(m).__name__ == "Linear")
+    ids = torch.as_tensor(np.random.RandomState(SEED + 11).randint(
+        0, model.cfg.vocab_size, (4, 128)), device=dev)
+    launches_all = {}
+    results = {}
+    for name, opts in (("w8", dict(weight_bits=8)),
+                       ("w4", dict(weight_bits=4)),
+                       ("w4_paged_int8kv", dict(weight_bits=4, paged=True,
+                                                kv_page_size=128,
+                                                kv_cache_dtype="int8"))):
+        kv = opts.get("kv_cache_dtype")
+        engine = ServingEngine(_serve_config(model, precision="int8",
+                                             **opts))
+        handles, wall, launches, plain_calls = _serve(
+            torch, engine, [[(p, RequestParams(max_new_tokens=64))
+                             for p in prompts]])
+        for k, n in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + n
+        sequential = []
+        for i, (p, h) in enumerate(zip(prompts[:8], handles)):
+            bucket = next(bk for bk in engine.buckets if bk >= p.size)
+            row = np.zeros((1, bucket), np.int64)
+            row[0, :p.size] = p
+            ref = generate(engine.network, row, 64, prompt_len=[p.size],
+                           cache_max_len=engine.max_len,
+                           kv_cache_dtype=kv).cpu().numpy()[0]
+            if not np.array_equal(ref, h.tokens):
+                sequential.append(dict(request=i, first_differing_token=int(
+                    np.argmax(ref != h.tokens))))
+        worst, stored, bad_w = _weight_bound_check(engine, model)
+        top1, gap = _logit_agreement(torch, model, engine.network, ids)
+        decode = ("flash_decode_paged" if opts.get("paged")
+                  else "flash_decode") + ("_int8" if kv else "")
+        _check_served(engine, handles, wall, launches, plain_calls,
+                      (decode,), "serve_" + name, card=card,
+                      linear_weight_bytes=dict(bf16=lin_bytes,
+                                               stored=stored),
+                      worst_error_over_step=worst,
+                      top1_agreement_vs_bf16=top1,
+                      max_logit_gap_vs_bf16=gap,
+                      streams_differing_from_sequential_generate=sequential)
+        if sequential:
+            fail(f"serve_{name}: streams differ from batch-1 generate on "
+                 f"the served module: {sequential}")
+        if bad_w:
+            fail(f"serve_{name}: weights off their step or materialize: "
+                 f"{bad_w[:4]}")
+        results[name] = engine
+    # the decode step, all 8 slots live, bf16 beside w8 and w4
+    for name in ("bf16", "w8", "w4"):
+        engine = ServingEngine(_serve_config(model)) if name == "bf16" \
+            else results[name]
+        _decode_step_profile(torch, engine, prompts[8:], attention_ms,
+                             "dense_" + name)
+    del results
+    # Int8ComputeLinear at gpt2-small's fc1 ([rows, 768] x [768, 3072]):
+    # the card's int32 accumulators against the CPU's on the same operands
+    fc1 = Int8ComputeLinear.from_linear(model.gpt.blocks[0].mlp.fc1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    checks = []
+    for rows in (5, 8, 1024):
+        x = torch.randn((rows, 768), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        qx, _, acc = fc1.accumulate(x)
+        want = int8_matmul(qx.cpu(), fc1.weight_int8.cpu())
+        checks.append(dict(rows=rows, equal=bool(torch.equal(acc.cpu(),
+                                                              want))))
+    say("int8_compute_accumulators", card=card, shape=[768, 3072],
+        checks=checks)
+    if not all(c["equal"] for c in checks):
+        fail(f"int8 compute accumulators differ from the CPU's: {checks}")
+    return launches_all
+
+
 def phase_int8_logits(torch, model):
     """At one 500-token prompt (bucket 512, cache 640): the decode logits
     over the int8 cache against those over the wide cache, and the
@@ -3918,6 +4158,11 @@ def main():
     # thread mode with a rolling deploy, then a preemption drain
     paths.append(("serve_fleet", phase_serve_fleet(
         torch, model, prompts, served["serve"], card)))
+    # the Predictor in generation mode, then weight-only int8/int4 serving
+    paths.append(("predictor", phase_predictor(torch, model, prompts,
+                                               served["serve"], card)))
+    paths.append(("serve_weights", phase_serve_weights(
+        torch, model, prompts, card, rows["flash_decode"]["ms"])))
     del served, spec_handles
     phase_int8_logits(torch, model)
     del model

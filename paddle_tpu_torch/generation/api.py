@@ -76,6 +76,8 @@ class GenerationSession:
         self.cache_dtype = resolve_cache_dtype(cache_dtype) \
             if cache_dtype is not None else None
         self._spec_sessions = {}  # (SpeculativeConfig, draft id) -> sess
+        #: the shapes ``aot_compile`` warmed: (kind, shape, cache_len, cfg)
+        self.registered = set()
 
     @property
     def device(self) -> torch.device:
@@ -119,6 +121,41 @@ class GenerationSession:
             finished = finished | (nxt == cfg.eos_token_id)
         return nxt, emitted, cache, finished
 
+    @torch.no_grad()
+    def aot_compile(self, batch: int, prompt_len: int, cache_len: int,
+                    cfg: GenerationConfig, decode: bool = True):
+        """The warm build of the (prefill, decode) pair for one padded
+        shape (the JAX package compiles it ahead of time): load every
+        kernel library the pair launches, run the pair once on scratch
+        state (a pad-token batch, a scratch cache and a scratch sampling
+        generator) and register the shape. Nothing is recorded.
+        ``decode=False`` runs the prefill only (the draft model's
+        admission path)."""
+        ids, plen, gen = self.scratch_batch(batch, prompt_len, cfg)
+        tok, cache, finished = self.prefill(ids, plen, cfg, cache_len, gen)
+        self.registered.add(("prefill", (batch, prompt_len), cache_len,
+                             cfg))
+        if decode:
+            self.decode(tok, cache, finished, cfg, gen)
+            self.registered.add(("decode", (batch,), cache_len, cfg))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def scratch_batch(self, batch: int, prompt_len: int,
+                      cfg: GenerationConfig):
+        """A warm build's inputs: a pad-token [batch, prompt_len] batch,
+        prompt lengths of 1, and a scratch sampling generator (None when
+        greedy), so nothing draws from the caller's generators."""
+        dev = self.device
+        gen = None
+        if cfg.do_sample:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+        ids = torch.full((batch, prompt_len), cfg.pad_value,
+                         dtype=torch.int64, device=dev)
+        return ids, torch.ones(batch, dtype=torch.int64, device=dev), gen
+
     def speculative(self, spec, draft_network=None):
         """The cached :class:`speculative.SpeculativeSession` (the draft
         and verify pair) for one SpeculativeConfig and draft network,
@@ -147,10 +184,11 @@ def _as_int_ids(input_ids) -> np.ndarray:
 
 def _record_call(arr, cfg, n_done, plen, cache_len, cache, sess):
     """End-of-call telemetry of the sequential path (the JAX package's
-    ``generate``): real generated tokens (each row up to its first eos),
-    the cache occupancy, and on an int8 cache the bytes it saved against
-    the activations' width and this call's saturation count. One host
-    read of the result and of ``clips``, at call end only."""
+    ``generate``): real generated tokens (the live rows ``arr`` holds,
+    each up to its first eos), the cache occupancy, and on an int8 cache
+    the bytes it saved against the activations' width and this call's
+    saturation count. One host read of the result and of ``clips``, at
+    call end only."""
     if cfg.eos_token_id is not None:
         hit = arr == cfg.eos_token_id
         per_row = np.where(hit.any(1), hit.argmax(1) + 1, n_done)
@@ -184,6 +222,7 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
              prompt_len=None, cache_max_len: Optional[int] = None,
              seed: Optional[int] = None,
              session: Optional[GenerationSession] = None,
+             live_rows: Optional[int] = None,
              speculative=None, draft_model=None,
              kv_cache_dtype=None) -> torch.Tensor:
     """Generate ``max_new_tokens`` tokens after ``input_ids`` on the
@@ -204,6 +243,10 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
     scales, dequantized inside the decode kernel (half the cache bytes
     per step). ``session`` reuses a :class:`GenerationSession`; asking
     it for another cache dtype than it serves raises.
+
+    ``live_rows`` marks how many leading batch rows are real requests
+    (the Predictor pads its fixed batch with dummy rows): the
+    ``gen.tokens`` metric counts only those, each up to its first eos.
     """
     ids = _as_int_ids(input_ids)
     b, s = ids.shape
@@ -296,7 +339,8 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
     if spec is not None:
         from .speculative import decode_loop
         return decode_loop(sess, ids, plen, cfg, spec, draft_model,
-                           cache_len, max_new_tokens, generator)
+                           cache_len, max_new_tokens, generator,
+                           live_rows=live_rows)
 
     tok, cache, finished = sess.prefill(
         torch.as_tensor(ids, device=dev), torch.as_tensor(plen, device=dev),
@@ -317,8 +361,9 @@ def generate(network, input_ids, max_new_tokens: int = 32, *,
     result = torch.stack(outs, dim=1).to(torch.int32)
     n_done = result.shape[1]
     if monitor.enabled:
-        _record_call(result.cpu().numpy(), cfg, n_done, plen, cache_len,
-                     cache, sess)
+        live = b if live_rows is None else min(int(live_rows), b)
+        _record_call(result[:live].cpu().numpy(), cfg, n_done, plen,
+                     cache_len, cache, sess)
     if n_done < max_new_tokens:                      # early eos exit
         pad = torch.full((b, max_new_tokens - n_done), cfg.pad_value,
                          dtype=torch.int32, device=dev)

@@ -285,6 +285,9 @@ class SpeculativeSession:
         #: lifetime counters over this session's ``generate`` calls:
         #: verify windows, draft tokens proposed to live rows, accepted
         self.stats = dict(windows=0, proposed=0, accepted=0)
+        #: the verify shapes ``aot_compile`` warmed: ("verify", (batch,),
+        #: (batch, out-buffer width), cache_len, cfg)
+        self.registered = set()
         if spec.mode == "draft":
             if draft_network is None:
                 raise ValueError("speculative mode 'draft' needs a "
@@ -294,6 +297,56 @@ class SpeculativeSession:
             # prefill fills the draft cache (full width, as the JAX
             # package's) at the start of generate()
             self._draft_session = GenerationSession(draft_network)
+
+    def registered_buf_width(self, batch: int, cache_len: int, cfg,
+                             min_width: int) -> int:
+        """The smallest registered verify out-buffer width that holds
+        ``min_width`` tokens (``min_width`` itself when none matches).
+        A caller asking for fewer tokens than the warmed budget
+        (``Predictor.generate(max_new_tokens=...)``) decodes into the
+        warmed width: the budget is a lane, and the result is sliced
+        back."""
+        widths = [k[2][1] for k in self.registered
+                  if k[0] == "verify" and k[1] == (batch,)
+                  and k[3] == cache_len and k[4] == cfg
+                  and k[2][1] >= min_width]
+        return min(widths) if widths else min_width
+
+    @torch.no_grad()
+    def aot_compile(self, batch: int, prompt_len: int, cache_len: int,
+                    max_new: int, cfg):
+        """The warm build of the (draft, verify) pair for one padded
+        shape: one draft and one verify window on scratch state after a
+        scratch prefill (in draft mode the draft model's prefill too),
+        nothing recorded, and the verify shape registered for
+        ``registered_buf_width``. The base pair is warmed by
+        ``GenerationSession.aot_compile``."""
+        sess = self.session
+        dev = sess.device
+        ids, plen, gen = sess.scratch_batch(batch, prompt_len, cfg)
+        tok, cache, finished = sess.prefill(ids, plen, cfg, cache_len, gen)
+        tok_buf = torch.full((batch, cache_len), cfg.pad_value,
+                             dtype=torch.int64, device=dev)
+        tok_len = plen + 1
+        if self.spec.mode == "draft":
+            from .api import GenerationConfig
+            _, dcache, _ = self._draft_session.prefill(
+                ids, plen, GenerationConfig(), cache_len)
+            draft, _ = self.draft(tok, dcache, cache.kv_len)
+        else:
+            draft = self.draft(tok_buf, tok_len)
+        lane = torch.zeros(batch, dtype=torch.int64, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        out_buf = torch.full((batch, int(max_new)), cfg.pad_value,
+                             dtype=torch.int64, device=dev)
+        self.verify(tok, draft, cache, gen, finished, lane,
+                    torch.full_like(lane, int(max_new)), out_buf, tok_buf,
+                    tok_len, zero, zero, cfg)
+        self.registered.add(("verify", (batch,), (batch, int(max_new)),
+                             cache_len, cfg))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return self
 
     @torch.no_grad()
     def draft(self, *args):
@@ -344,13 +397,17 @@ class SpeculativeSession:
 
 @torch.no_grad()
 def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
-                max_new_tokens, generator, poll_every: int = 4):
+                max_new_tokens, generator, poll_every: int = 4,
+                live_rows=None):
     """The speculative ``generate()`` loop: one prefill, then draft +
     verify windows until every row finishes (eos or budget). Rows
     advance raggedly: per-row emit counts live on the device, and the
     host reads one bool every ``poll_every`` windows. Returns the
     [B, max_new_tokens] int32 result with post-eos padding, the
-    sequential path's contract (and, under greedy, its tokens)."""
+    sequential path's contract (and, under greedy, its tokens). The
+    output buffer takes the registered verify width when one holds the
+    budget (``registered_buf_width``); ``live_rows`` limits the
+    ``gen.tokens`` count to the leading real rows."""
     spec_sess = session.speculative(spec, draft_model)
     dev = session.device
     b = ids.shape[0]
@@ -371,8 +428,9 @@ def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
             monitor.record_generation(prefill_steps=1)
 
     pad = cfg.pad_value
-    out_buf = torch.full((b, max_new_tokens), pad, dtype=torch.int64,
-                         device=dev)
+    width = spec_sess.registered_buf_width(b, cache_len, cfg,
+                                           max_new_tokens)
+    out_buf = torch.full((b, width), pad, dtype=torch.int64, device=dev)
     out_buf[:, 0] = tok
     # the drafter's token history: the padded prompt + the pending token
     hist = np.full((b, cache_len), pad, np.int64)
@@ -403,6 +461,7 @@ def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
         # unpolled after max_new_tokens - 1 windows
         if (w + 1) % poll_every == 0 and bool(finished.all()):
             break
+    result = out_buf[:, :max_new_tokens]
     st = spec_sess.stats
     st["windows"] += windows
     n_prop, n_acc = int(proposed), int(accepted)
@@ -412,7 +471,8 @@ def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
         # end-of-call telemetry (the JAX package's decode_loop): one
         # read of the result and the per-row emit counts
         monitor.record_speculative(n_prop, n_acc)
-        arr = out_buf.cpu().numpy()
+        live = b if live_rows is None else min(int(live_rows), b)
+        arr = result[:live].cpu().numpy()
         done_h = done.cpu().numpy()
         if cfg.eos_token_id is not None:
             hit = arr == cfg.eos_token_id
@@ -420,9 +480,9 @@ def decode_loop(session, ids, plen, cfg, spec, draft_model, cache_len,
                                max_new_tokens)
             tokens = int(per_row.sum())
         else:
-            tokens = int(done_h.sum())
+            tokens = int(done_h[:live].sum())
         monitor.record_generation(tokens=tokens)
         # occupancy from the tokens actually emitted
         monitor.record_cache_occupancy(
             int(np.max(np.asarray(plen) + done_h)) / cache_len)
-    return out_buf.to(torch.int32)
+    return result.to(torch.int32)

@@ -2100,3 +2100,90 @@ def test_sdpa_and_cached_attention_at_head_dim_80(dev):
     assert (fa.flash_attention_plain.calls,
             fa.flash_attention_decode_plain.calls,
             fa.flash_attention_chunk_plain.calls) == (0, 0, 0)
+
+
+# ------------------------------------------- int8 compute, weight-only
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 40, 300])
+@pytest.mark.parametrize("k,n", [(64, 24), (60, 20), (768, 3072)])
+def test_int8_matmul_accumulators_match_the_cpu(dev, m, k, n):
+    """``int8_matmul`` on the card (cuBLASLt's int8 GEMM through
+    ``torch._int_mm``, operands zero-padded to the shapes it takes)
+    gives the CPU's exact int32 sums, also at row, inner and column
+    counts the card refuses unpadded."""
+    from paddle_tpu_torch.quantization.int8_compute import int8_matmul
+    gen = torch.Generator().manual_seed(m * 1000 + k)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    want = torch._int_mm(a, b)
+    got = int8_matmul(a.to(dev), b.to(dev))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_compute_layers_on_card_match_the_cpu(dev):
+    """Int8ComputeLinear and Int8ComputeConv2D (im2col into int8_matmul)
+    on the card: int32 accumulators equal to the CPU's."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+    from paddle_tpu_torch.quantization import (Int8ComputeConv2D,
+                                               Int8ComputeLinear)
+    g = torch.Generator().manual_seed(3)
+    lin = Linear(96, 40, device="cpu", generator=g)
+    conv = Conv2D(4, 6, 3, padding=[1, 2, 0, 1], stride=2, device="cpu",
+                  generator=g)
+    x_lin = torch.randn((3, 5, 96), generator=g)
+    x_conv = torch.randn((2, 4, 9, 7), generator=g)
+    for layer, build, x in ((lin, Int8ComputeLinear.from_linear, x_lin),
+                            (conv, Int8ComputeConv2D.from_conv, x_conv)):
+        cpu = build(layer)
+        card = build(layer).to(dev)
+        _, _, want = cpu.accumulate(x)
+        _, _, got = card.accumulate(x.to(dev))
+        assert torch.equal(got.cpu(), want)
+        torch.testing.assert_close(card(x.to(dev)).cpu(), cpu(x),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("opts", [dict(weight_bits=8), dict(weight_bits=4),
+                                  dict(weight_bits=4, paged=True,
+                                       kv_page_size=8,
+                                       kv_cache_dtype="int8")],
+                         ids=["w8", "w4", "w4_paged_int8kv"])
+def test_weight_only_engine_matches_batch1_generate(dev, opts):
+    """test-tiny served with int8 / int4 weights on the card: each
+    stream equals batch-1 ``generate`` on the engine's own quantized
+    module, through the decode kernels and no plain version."""
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.inference import Config
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.serving import RequestParams, ServingEngine
+    model = gpt("test-tiny", device=dev).eval()
+    with torch.no_grad():                # streams that vary
+        for name, p in model.named_parameters():
+            if p.dim() == 2 and "wte" not in name:
+                p.mul_(2.0)
+    cfg = (Config().from_layer(model).enable_use_gpu("int8")
+           .enable_generation(max_new_tokens=8, prefill_buckets=(16, 32),
+                              max_batch=2)
+           .enable_serving(**opts))
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 512, n) for n in (5, 12, 20, 7, 3, 31)]
+    eng = ServingEngine(cfg, poll_every=2)
+    fa.reset_counts()
+    hs = [eng.submit(p, RequestParams(max_new_tokens=8)) for p in prompts]
+    while eng.busy:
+        eng.step()
+    kv = opts.get("kv_cache_dtype")
+    for p, h in zip(prompts, hs):
+        bucket = next(b for b in eng.buckets if b >= p.size)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :p.size] = p
+        ref = generate(eng.network, ids, 8, prompt_len=[p.size],
+                       cache_max_len=eng.max_len, kv_cache_dtype=kv)
+        np.testing.assert_array_equal(h.result(timeout=60),
+                                      ref.cpu().numpy()[0])
+    assert fa.flash_attention_decode_plain.calls == 0
+    assert fa.flash_attention_decode_paged_plain.calls == 0
+    assert all(p.dtype == torch.bfloat16 for p in eng.network.parameters())
+    eng.shutdown()

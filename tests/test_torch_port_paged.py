@@ -385,7 +385,9 @@ def test_paged_config_validation(pair):
     assert eng._alloc.n_pages == 2 * eng.pages_per_row + 1
     assert eng._cache.k.shape[1:3] == (eng._alloc.n_pages, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Config().enable_serving(paged=True, weight_bits=4)
+        Config().enable_serving(paged=True, hbm_budget=1 << 30)
+    assert Config().enable_serving(
+        paged=True, weight_bits=4)._serving["weight_bits"] == 4
     eng = ServingEngine(_config(tm, paged=True, kv_page_size=32,
                                 kv_cache_dtype="int8"))
     assert eng._cache.cache_dtype == "int8"

@@ -226,8 +226,12 @@ def test_engine_validates_requests_and_config(pair):
     with pytest.raises(ValueError, match="max_new_tokens"):
         eng.submit([1, 2], RequestParams(max_new_tokens=9))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Config().enable_serving(weight_bits=4)
-    # ported since: the paged cache and chunked prefill, the int8 cache
+        Config().enable_serving(hbm_budget="16GiB")
+    # ported since: the paged cache and chunked prefill, the int8 cache,
+    # the int8 and int4 weight paths
+    assert Config().enable_serving(weight_bits=4)._serving["weight_bits"] == 4
+    with pytest.raises(ValueError, match="weight_bits"):
+        Config().enable_serving(weight_bits=2)
     assert Config().enable_serving(
         kv_cache_dtype="int8")._serving["kv_cache_dtype"] == "int8"
     with pytest.raises(ValueError, match="kv_cache_dtype"):
