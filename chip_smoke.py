@@ -42,7 +42,16 @@ and runs them on the trained gpt2-small's 25 LayerNorm inputs and
 gradients and on copies of its optimizer state, holds the fused
 linear + cross-entropy kernels against their plain versions and runs
 them on the trained gpt2-small's LM head (hidden states and tied
-embedding) beside the model's own fused loss, and checks
+embedding) beside the model's own fused loss, trains gpt2-small again
+under activation recompute (per block, selective and full, and the
+whole loss as one region; losses held to the plain run's, the flash
+forward twice a block; with dropout, gradients bitwise equal to no
+recompute), with the optimizer state offloaded to pinned host memory
+(bitwise to resident), under AMP O1 (bf16 from fp32 weights) and O2
+(fp16 with ``GradScaler``), each first held to the plain path, and
+under quantization-aware training, trains ResNet-50 with its first two
+stages recomputed (losses held to the run without, BN running
+statistics frozen), and checks
 that each path went through its kernels and never through a plain
 version. Phases
 print one line each; the line before the last is the kernel table as
@@ -3445,6 +3454,82 @@ def phase_int8_logits(torch, model):
                             .abs().max()))
 
 
+def _train_check(torch, phase, model, x, y, dtype, context=None,
+                 loss_scale=1.0, **fields):
+    """One forward and backward of ``model`` on (x, y) through the flash
+    kernels and through their plain versions, under ``context`` (a
+    function giving a context manager, e.g. an AMP state), the backward
+    from the loss times ``loss_scale`` and the gradients divided by it
+    again (as ``GradScaler`` runs an fp16 step): the loss within
+    TRAIN_LOSS_TOL and every gradient within GRAD_NORM_TOL of its norm
+    and GRAD_MAX_TOL of its largest magnitude (the training rule).
+    Prints the ``phase`` line; returns the dtypes the forward kernel
+    received (the backward kernel takes the tensors it saved)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    context = context or contextlib.nullcontext
+    seen = set()
+    fwd = fa._forward
+
+    def fwd_spy(q, *a):
+        seen.add(str(q.dtype).split(".")[-1])
+        return fwd(q, *a)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        with context():
+            loss = model.loss(model(x), y)
+        (loss * loss_scale).backward()
+        grads = {n: p.grad.float() / loss_scale
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    fa.reset_counts()
+    with mock.patch.object(fa, "_forward", fwd_spy):
+        k_loss, k_grads = loss_and_grads()
+    k_counts = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    fa.reset_counts()
+    with mock.patch.object(fa, "_forward", fa.flash_attention_plain), \
+            mock.patch.object(fa, "flash_attention_bwd",
+                              fa.flash_attention_bwd_plain):
+        p_loss, p_grads = loss_and_grads()
+    p_counts = (fa.flash_attention_plain.calls,
+                fa.flash_attention_bwd_plain.calls,
+                fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    nonfinite = [n for n in k_grads if not (torch.isfinite(k_grads[n]).all()
+                                            and torch.isfinite(p_grads[n])
+                                            .all())]
+    if nonfinite:
+        fail(f"{phase}: non-finite gradients {nonfinite[:5]}")
+    norm_err, max_err = {}, {}
+    for n, g in k_grads.items():
+        ref = p_grads[n]
+        norm_err[n] = float((g - ref).norm() / ref.norm().clamp_min(1e-30))
+        max_err[n] = float((g - ref).abs().max()
+                           / ref.abs().max().clamp_min(1e-30))
+    worst_norm = max(norm_err, key=norm_err.get)
+    worst_max = max(max_err, key=max_err.get)
+    say(phase, config="gpt2-small", dtype=dtype, batch=x.shape[0],
+        seq=x.shape[1], **fields, kernel_loss=k_loss, plain_loss=p_loss,
+        loss_diff=abs(k_loss - p_loss), loss_tol=TRAIN_LOSS_TOL,
+        kernel_launches=list(k_counts), plain_run_counts=list(p_counts),
+        worst_grad_norm_err=[worst_norm, norm_err[worst_norm]],
+        worst_grad_max_err=[worst_max, max_err[worst_max]],
+        grad_tols=[GRAD_NORM_TOL, GRAD_MAX_TOL], params=len(k_grads),
+        kernel_input_dtypes=sorted(seen), loss_scale=loss_scale)
+    del k_grads, p_grads
+    if k_counts != (12, 12) or p_counts != (12, 12, 0, 0):
+        fail(f"{phase} counts: kernel path {k_counts}, plain path "
+             f"{p_counts}")
+    if not (math.isfinite(k_loss) and abs(k_loss - p_loss) <= TRAIN_LOSS_TOL):
+        fail(f"{phase}: kernel and plain losses {k_loss} / {p_loss}")
+    if norm_err[worst_norm] > GRAD_NORM_TOL or \
+            max_err[worst_max] > GRAD_MAX_TOL:
+        fail(f"{phase}: kernel and plain gradients differ: {worst_norm} "
+             f"{norm_err[worst_norm]}, {worst_max} {max_err[worst_max]}")
+    return seen
+
+
 def phase_train(torch):
     """gpt2-small with bench.py's recipe: bf16 params, AdamW(1e-4,
     multi_precision=True), the fused LM-head loss with one saved-logits
@@ -3468,50 +3553,7 @@ def phase_train(torch):
     y = torch.as_tensor(ids.astype(np.int64), device=dev)
 
     # -- kernel path against plain path at b4
-    def loss_and_grads():
-        model.zero_grad(set_to_none=True)
-        loss = model.loss(model(x[:4]), y[:4])
-        loss.backward()
-        grads = {n: p.grad.float() for n, p in model.named_parameters()}
-        model.zero_grad(set_to_none=True)
-        return loss.item(), grads
-
-    fa.reset_counts()
-    k_loss, k_grads = loss_and_grads()
-    k_counts = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
-    fa.reset_counts()
-    with mock.patch.object(fa, "_forward", fa.flash_attention_plain), \
-            mock.patch.object(fa, "flash_attention_bwd",
-                              fa.flash_attention_bwd_plain):
-        p_loss, p_grads = loss_and_grads()
-    p_counts = (fa.flash_attention_plain.calls,
-                fa.flash_attention_bwd_plain.calls,
-                fa.flash_attention.launches, fa.flash_attention_bwd.launches)
-    norm_err, max_err = {}, {}
-    for n, g in k_grads.items():
-        ref = p_grads[n]
-        norm_err[n] = float((g - ref).norm() / ref.norm().clamp_min(1e-30))
-        max_err[n] = float((g - ref).abs().max()
-                           / ref.abs().max().clamp_min(1e-30))
-    worst_norm = max(norm_err, key=norm_err.get)
-    worst_max = max(max_err, key=max_err.get)
-    say("train_check", config="gpt2-small", dtype="bfloat16", batch=4,
-        seq=seq, kernel_loss=k_loss, plain_loss=p_loss,
-        loss_diff=abs(k_loss - p_loss), loss_tol=TRAIN_LOSS_TOL,
-        kernel_launches=list(k_counts), plain_run_counts=list(p_counts),
-        worst_grad_norm_err=[worst_norm, norm_err[worst_norm]],
-        worst_grad_max_err=[worst_max, max_err[worst_max]],
-        grad_tols=[GRAD_NORM_TOL, GRAD_MAX_TOL], params=len(k_grads))
-    del k_grads, p_grads
-    if k_counts != (12, 12) or p_counts != (12, 12, 0, 0):
-        fail(f"train check counts: kernel path {k_counts}, plain path "
-             f"{p_counts}")
-    if not (math.isfinite(k_loss) and abs(k_loss - p_loss) <= TRAIN_LOSS_TOL):
-        fail(f"kernel and plain losses {k_loss} / {p_loss}")
-    if norm_err[worst_norm] > GRAD_NORM_TOL or \
-            max_err[worst_max] > GRAD_MAX_TOL:
-        fail(f"kernel and plain gradients differ: {worst_norm} "
-             f"{norm_err[worst_norm]}, {worst_max} {max_err[worst_max]}")
+    _train_check(torch, "train_check", model, x[:4], y[:4], "bfloat16")
 
     # -- 10 TrainSteps at the flagship shape
     opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
@@ -3570,7 +3612,7 @@ def phase_train(torch):
         fail(f"train launches {launches}, expected 12 + 12 per step")
     if plain_calls:
         fail(f"plain versions ran {plain_calls} times on the train path")
-    return launches, (model, opt, x, y)
+    return launches, (model, opt, x, y), losses
 
 
 def phase_train_fused_ops(torch, model, opt, x, y):
@@ -4064,14 +4106,15 @@ def phase_train_resnet50(torch):
                  f"path ({route})")
         if not frozen:
             fail(f"TrainStep moved BN running statistics ({route})")
-        return launches, wall_ms, fwd3
+        return launches, wall_ms, fwd3, dict(losses=losses, wall_ms=wall_ms,
+                                             peak_gib=peak / 2 ** 30)
 
     # the 13 stride-1 3x3s of a step, by the route their forward takes
     want3 = {"gemm": 0, "window": 0}
     for (h3, w3, c3, o3), k in _RESNET50_STRIDE1_3X3:
         want3[fr._conv3x3_route(h3, w3, c3, o3)] += k
     # the main path: the reference's default route, the fused 3x3 kernels
-    launches, on_ms, fwd3 = timed_steps("fused 3x3 kernels")
+    launches, on_ms, fwd3, fused_run = timed_steps("fused 3x3 kernels")
     if list(launches.values()) != [10 * c for c in per_step]:
         fail(f"resnet50 train launches {launches}, expected {per_step} "
              "per step")
@@ -4080,13 +4123,490 @@ def phase_train_resnet50(torch):
     # the yardstick: the same recipe with the 3x3s on cuDNN, the port's
     # own switch set for this run only
     with mock.patch.object(resnet_mod, "_PALLAS3X3", False):
-        off, off_ms, off3 = timed_steps("cuDNN 3x3 (_PALLAS3X3 False)")
+        off, off_ms, off3, _ = timed_steps("cuDNN 3x3 (_PALLAS3X3 False)")
     if list(off.values()) != [10 * c for c in per_step[:4]] + [0, 0] or \
             any(off3.values()):
         fail(f"resnet50 cuDNN-route launches {off}, {off3}")
     say("resnet50_3x3_route", fused_step_ms=on_ms,
         fused_images_per_s=batch / (on_ms / 1e3), cudnn_step_ms=off_ms,
         cudnn_images_per_s=batch / (off_ms / 1e3))
+    return launches, fused_run
+
+
+# ------------------------------------------------------------- training, A4
+
+def _gpt_steps(torch, label, steps=10, batch=16, dtype=None, model_kw=None,
+               step_kw=None, opt_kw=None, context=None, prepare=None,
+               between=None):
+    """``steps`` TrainSteps of gpt2-small from SEED on one fixed batch
+    (``phase_train``'s recipe unless overridden), each timed to its
+    synchronize, then one profiled step. ``prepare(model)`` runs before
+    the optimizer is built, ``between(opt)`` after each timed step.
+    Returns the run's numbers, the model and the optimizer."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.nn.functional import attention as att
+    dev = torch.device("cuda", 0)
+    seq = 1024
+    dtype = torch.bfloat16 if dtype is None else dtype
+    model = gpt("gpt2-small", device=dev, dtype=dtype,
+                generator=torch.Generator(device=dev).manual_seed(SEED),
+                max_position_embeddings=seq, fused_lm_loss=True,
+                lm_loss_chunk=seq, **(model_kw or {}))
+    model.train()
+    if prepare is not None:
+        prepare(model)
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, model.cfg.vocab_size, (16, seq)).astype(np.int32)
+    x = torch.as_tensor(ids[:batch], device=dev)
+    y = torch.as_tensor(ids[:batch].astype(np.int64), device=dev)
+    opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
+                          **(dict(multi_precision=True) if opt_kw is None
+                             else opt_kw))
+    step = jit.TrainStep(model, opt, lambda out, lbl: model.loss(out, lbl),
+                         **(step_kw or {}))
+    context = context or contextlib.nullcontext
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    xla0 = att.sdpa_xla.calls
+    losses, walls, checks = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with context():
+            losses.append(step(x, y))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if between is not None:
+            checks.append(between(opt))
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "flash_bwd": fa.flash_attention_bwd.launches}
+    plain_calls = (fa.flash_attention_plain.calls
+                   + fa.flash_attention_bwd_plain.calls)
+    xla_calls = att.sdpa_xla.calls - xla0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    wall_ms = float(np.median(walls[1:]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with context():
+            step(x, y)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_time_total > 0 and e.cpu_time_total == 0) / 1e3
+    run = dict(run=label, batch=batch, seq=seq,
+               dtype=str(dtype).split(".")[-1], losses=losses,
+               step_wall_ms=walls, median_step_ms=wall_ms,
+               tokens_per_s=batch * seq / (wall_ms / 1e3),
+               peak_memory_gib=peak / 2 ** 30, launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               plain_calls=plain_calls, sdpa_xla_calls=xla_calls,
+               device_busy_ms=busy_ms,
+               device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms))
+    return run, model, opt, checks
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_train_recompute(torch, train_losses):
+    """Recompute on ``phase_train``'s recipe (gpt2-small bf16, AdamW with
+    fp32 masters, the saved-logits fused loss, b16 s1024, 10 TrainSteps
+    from SEED): ``use_recompute`` with the "selective" and the "full"
+    granularity, and ``TrainStep(recompute="full")``. Each step's loss is
+    held to ``phase_train``'s within TRAIN_LOSS_TOL (and printed as
+    bitwise equal or not); the flash forward launches twice a block (24
+    a step), the backward once (12). Then, at b4 with dropout 0.1, one
+    eager forward and backward with "full" recompute and one without,
+    from the same generator state: every gradient bitwise equal (the
+    recompute puts the port's generators back), attention on sdpa_xla
+    and no flash launch, as the reference routes dropout."""
+    from paddle_tpu_torch import seed as port_seed
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.nn.functional import attention as att
+    total = {}
+    for label, model_kw, step_kw in (
+            ("selective", dict(use_recompute=True,
+                               recompute_granularity="selective"), None),
+            ("full", dict(use_recompute=True,
+                          recompute_granularity="full"), None),
+            ("trainstep_full", None, dict(recompute="full"))):
+        run, model, opt, _ = _gpt_steps(torch, label, model_kw=model_kw,
+                                        step_kw=step_kw)
+        gaps = [abs(a - b) for a, b in zip(run["losses"], train_losses)]
+        say("train_recompute", config="gpt2-small", **run,
+            max_loss_gap_to_train=max(gaps), loss_tol=TRAIN_LOSS_TOL,
+            bitwise_equal_to_train=run["losses"] == train_losses)
+        _add(total, run["launches"])
+        del model, opt
+        torch.cuda.empty_cache()
+        if max(gaps) > TRAIN_LOSS_TOL:
+            fail(f"train_recompute {label}: losses {run['losses']} against "
+                 f"train {train_losses}")
+        if run["launches"] != {"flash_fwd": 240, "flash_bwd": 120}:
+            fail(f"train_recompute {label}: launches {run['launches']}, "
+                 "expected 24 + 12 a step")
+        if run["plain_calls"] or run["sdpa_xla_calls"]:
+            fail(f"train_recompute {label}: plain {run['plain_calls']}, "
+                 f"sdpa_xla {run['sdpa_xla_calls']}")
+
+    # -- dropout 0.1 at b4: recompute against none from one generator state
+    dev = torch.device("cuda", 0)
+    model = gpt("gpt2-small", device=dev, dtype=torch.bfloat16,
+                generator=torch.Generator(device=dev).manual_seed(SEED),
+                fused_lm_loss=True, lm_loss_chunk=1024, dropout=0.1)
+    model.train()
+    ids = np.random.RandomState(SEED).randint(0, model.cfg.vocab_size,
+                                              (4, 1024))
+    x = torch.as_tensor(ids, device=dev)
+
+    def grads(recompute):
+        model.cfg.use_recompute = recompute
+        model.cfg.recompute_granularity = "full"
+        model.zero_grad(set_to_none=True)
+        port_seed(SEED)
+        loss = model.loss(model(x), x)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    fa.reset_counts()
+    xla0 = att.sdpa_xla.calls
+    ref_loss, ref = grads(False)
+    got_loss, got = grads(True)
+    torch.cuda.synchronize()
+    xla_calls = att.sdpa_xla.calls - xla0
+    flash = fa.flash_attention.launches + fa.flash_attention_bwd.launches
+    unequal = [n for n in ref if not torch.equal(ref[n], got[n])]
+    say("train_recompute_dropout", config="gpt2-small dropout 0.1",
+        batch=4, seq=1024, loss=ref_loss, recompute_loss=got_loss,
+        grads_bitwise_equal=not unequal, unequal=unequal[:5],
+        params=len(ref), sdpa_xla_calls=xla_calls, flash_launches=flash)
+    del model, ref, got
+    torch.cuda.empty_cache()
+    if unequal or got_loss != ref_loss:
+        fail(f"recompute with dropout changed {len(unequal)} gradients "
+             f"(loss {got_loss} vs {ref_loss})")
+    # 12 blocks without recompute, 12 + 12 recomputed with it
+    if xla_calls != 36 or flash:
+        fail(f"dropout routing: sdpa_xla {xla_calls} (expected 36), "
+             f"flash launches {flash}")
+    return total
+
+
+def phase_train_offload(torch):
+    """``phase_train``'s recipe with ``offload_opt_state=True`` against
+    the same run with the state resident, 10 steps each (and a profiled
+    one): losses and final parameters bitwise equal, and between steps
+    every state tensor (moments, fp32 masters) on the host and pinned.
+    Prints each run's peak device memory and step wall."""
+    def parked(opt):
+        return all(t.device.type == "cpu" and t.is_pinned()
+                   for st in opt._state.values() for t in st.values())
+
+    total, runs = {}, {}
+    for label, kw in (("resident", None),
+                      ("offload", dict(offload_opt_state=True))):
+        run, model, opt, checks = _gpt_steps(torch, label, step_kw=kw,
+                                             between=parked)
+        state = sum(t.numel() * t.element_size()
+                    for st in opt._state.values() for t in st.values())
+        runs[label] = (run, [p.detach().clone() for p in model.parameters()])
+        say("train_offload", config="gpt2-small", **run,
+            state_pinned_between_steps=checks,
+            optimizer_state_gib=state / 2 ** 30)
+        _add(total, run["launches"])
+        if kw and not all(checks):
+            fail(f"offloaded optimizer state not pinned on the host: "
+                 f"{checks}")
+        del model, opt
+        torch.cuda.empty_cache()
+    (r0, p0), (r1, p1) = runs["resident"], runs["offload"]
+    same_params = all(torch.equal(a, b) for a, b in zip(p0, p1))
+    say("train_offload_compare", losses_bitwise=r1["losses"] == r0["losses"],
+        params_bitwise=same_params,
+        peak_memory_saved_gib=r0["peak_memory_gib"] - r1["peak_memory_gib"],
+        step_ms_added=r1["median_step_ms"] - r0["median_step_ms"])
+    if r1["losses"] != r0["losses"] or not same_params:
+        fail("offloaded state gave other losses or parameters than "
+             "resident state")
+    if r1["launches"] != {"flash_fwd": 120, "flash_bwd": 120} or \
+            r1["plain_calls"]:
+        fail(f"train_offload launches {r1['launches']}, plain "
+             f"{r1['plain_calls']}")
+    return total
+
+
+def phase_train_amp(torch):
+    """AMP through rows 1-4. (a) O1: gpt2-small with fp32 weights under
+    ``auto_cast()`` (bf16), fp32 AdamW, first the kernel path against
+    the plain path at b4 (the training rule), then 10 TrainSteps at b16
+    s1024: the flash kernels receive bf16, launch 12 + 12 a step, no
+    sdpa_xla call, losses finite and falling. (b) O2:
+    ``decorate(level="O2", dtype="float16")``, AdamW with fp32 masters
+    and ``GradScaler()`` (2^15), the fp16 kernels against their plain
+    versions at b4, then 20 eager steps at b4 s1024 (``scale(loss)
+    .backward()``, ``step``): losses finite and falling over the applied
+    steps, at least one applied."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.profiler import metrics
+    total = {}
+
+    def o1():
+        return amp.auto_cast()
+
+    holder = {}
+
+    def check_o1(model):
+        rng = np.random.RandomState(SEED)
+        ids = torch.as_tensor(rng.randint(0, model.cfg.vocab_size,
+                                          (4, 1024)), device="cuda")
+        holder["seen"] = _train_check(torch, "train_amp_check", model, ids,
+                                      ids, "float32 weights, O1 bfloat16",
+                                      context=o1, level="O1")
+
+    run, model, opt, _ = _gpt_steps(torch, "O1 bfloat16",
+                                    dtype=torch.float32, opt_kw={},
+                                    context=o1, prepare=check_o1)
+    losses = run["losses"]
+    say("train_amp", config="gpt2-small", level="O1",
+        optimizer="AdamW(1e-4) fp32", **run,
+        kernel_input_dtypes=sorted(holder["seen"]))
+    _add(total, run["launches"])
+    del model, opt
+    torch.cuda.empty_cache()
+    if holder["seen"] != {"bfloat16"}:
+        fail(f"O1: the flash forward received {holder['seen']}")
+    if run["launches"] != {"flash_fwd": 120, "flash_bwd": 120} or \
+            run["plain_calls"] or run["sdpa_xla_calls"]:
+        fail(f"O1 launches {run['launches']}, plain {run['plain_calls']}, "
+             f"sdpa_xla {run['sdpa_xla_calls']}")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"O1 losses not finite or not falling: {losses}")
+
+    # -- (b) O2 in fp16 with the GradScaler, eager
+    from paddle_tpu_torch.models.gpt import gpt
+    dev = torch.device("cuda", 0)
+    model = gpt("gpt2-small", device=dev,
+                generator=torch.Generator(device=dev).manual_seed(SEED),
+                fused_lm_loss=True, lm_loss_chunk=1024)
+    amp.decorate(model, level="O2", dtype="float16")
+    model.train()
+    ids = np.random.RandomState(SEED).randint(0, model.cfg.vocab_size,
+                                              (4, 1024))
+    x = torch.as_tensor(ids, device=dev)
+
+    def o2():
+        return amp.auto_cast(level="O2", dtype="float16")
+
+    # the backward from the loss scaled as the O2 steps scale it: without
+    # it the last blocks' fp16 gradients fall below fp16's normal range
+    # (6.1e-5), where the two versions' roundings differ by whole
+    # subnormal steps (5.3e-2 of a norm unscaled, on an H100)
+    scaler = amp.GradScaler()
+    seen = _train_check(torch, "train_amp_check", model, x, x,
+                        "float16 (O2)", context=o2,
+                        loss_scale=scaler.get_loss_scaling(), level="O2")
+    opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
+                          multi_precision=True)
+    metrics.enable()
+    was = {k: v["value"] for k, v in metrics.snapshot().items()
+           if k.startswith("amp.")}
+    fa.reset_counts()
+    losses, scales, skipped, walls = [], [], [], []
+    try:
+        for i in range(20):
+            t0 = time.perf_counter()
+            with o2():
+                loss = model.loss(model(x), x)
+            scaler.scale(loss).backward()
+            scales.append(scaler.get_loss_scaling())
+            scaler.step(opt)
+            opt.clear_grad()
+            losses.append(loss.item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if scaler._found_inf:
+                skipped.append(i)
+        snap = {k: v["value"] for k, v in metrics.snapshot().items()
+                if k.startswith("amp.")}
+    finally:
+        metrics.disable()
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "flash_bwd": fa.flash_attention_bwd.launches}
+    plain = fa.flash_attention_plain.calls + \
+        fa.flash_attention_bwd_plain.calls
+    applied = [v for i, v in enumerate(losses) if i not in skipped]
+    say("train_amp", config="gpt2-small", level="O2", dtype="float16",
+        optimizer="AdamW(1e-4, multi_precision=True) + GradScaler()",
+        batch=4, seq=1024, losses=losses, scale_before_step=scales,
+        final_scale=scaler.get_loss_scaling(), skipped_steps=skipped,
+        amp_metrics=snap, amp_metrics_before=was, launches=launches,
+        plain_calls=plain, median_step_ms=float(np.median(walls[1:])),
+        kernel_input_dtypes=sorted(seen), scaler_state=scaler.state_dict())
+    _add(total, launches)
+    del model, opt
+    torch.cuda.empty_cache()
+    if seen != {"float16"}:
+        fail(f"O2: the flash forward received {seen}")
+    if not applied or not all(math.isfinite(v) for v in losses) or \
+            applied[-1] >= applied[0]:
+        fail(f"O2 losses not finite or not falling over the applied "
+             f"steps: {losses}, skipped {skipped}")
+    if launches != {"flash_fwd": 240, "flash_bwd": 240} or plain:
+        fail(f"O2 launches {launches}, plain {plain}")
+    if snap.get("amp.scaler.steps", 0) - was.get("amp.scaler.steps", 0) \
+            != 20 or snap.get("amp.scaler.skipped", 0) \
+            - was.get("amp.scaler.skipped", 0) != len(skipped):
+        fail(f"amp.scaler metrics {snap} (before {was}), skipped {skipped}")
+    return total
+
+
+def phase_train_qat(torch):
+    """``QAT().quantize`` on ``phase_train``'s gpt2-small (bf16, AdamW
+    with fp32 masters, fused loss), 5 TrainSteps at b4 s1024: 48
+    ``QuantedLinear``s (the 12 blocks' qkv, out, fc1, fc2; the tied head
+    is no Linear), the flash kernels 12 + 12 a step, losses finite; after
+    ``QAT.convert`` the model's logits equal those of a plain model that
+    carries the same trained weights."""
+    from paddle_tpu_torch.models.gpt import gpt
+    from paddle_tpu_torch.quantization import QAT, QuantedLinear
+    holder = {}
+
+    def quantize(model):
+        QAT().quantize(model)
+        holder["wrapped"] = sum(isinstance(m, QuantedLinear)
+                                for m in model.modules())
+
+    run, model, opt, _ = _gpt_steps(torch, "qat", steps=5, batch=4,
+                                    prepare=quantize)
+    dev = torch.device("cuda", 0)
+    QAT.convert(model)
+    plain = gpt("gpt2-small", device=dev, dtype=torch.bfloat16,
+                max_position_embeddings=1024, fused_lm_loss=True,
+                lm_loss_chunk=1024)
+    plain.load_state_dict(model.state_dict())
+    x = torch.as_tensor(np.random.RandomState(SEED).randint(
+        0, model.cfg.vocab_size, (2, 1024)), device=dev)
+    model.eval()
+    plain.eval()
+    with torch.no_grad():
+        got = model._logits(model.gpt(x))
+        ref = plain._logits(plain.gpt(x))
+    equal = torch.equal(got, ref)
+    left = sum(isinstance(m, QuantedLinear) for m in model.modules())
+    say("train_qat", config="gpt2-small", **run,
+        quanted_linears=holder["wrapped"], left_after_convert=left,
+        converted_logits_equal_plain=equal)
+    del model, opt, plain
+    torch.cuda.empty_cache()
+    if holder["wrapped"] != 48 or left:
+        fail(f"QAT wrapped {holder['wrapped']} Linears ({left} left after "
+             "convert), expected 48")
+    if run["launches"] != {"flash_fwd": 60, "flash_bwd": 60} or \
+            run["plain_calls"]:
+        fail(f"train_qat launches {run['launches']}, plain "
+             f"{run['plain_calls']}")
+    if not all(math.isfinite(v) for v in run["losses"]):
+        fail(f"train_qat losses not finite: {run['losses']}")
+    if not equal:
+        fail("converted QAT model's logits differ from the plain model's")
+    return dict(run["launches"])
+
+
+def phase_train_resnet50_recompute(torch, ref):
+    """``phase_train_resnet50``'s fused recipe (NHWC, space-to-depth
+    stem, fused BN, bf16, Momentum with fp32 masters, b128 224x224 from
+    SEED) with ``recompute_stages=(1, 2)``, the bandwidth-bound early
+    stages: a warm-up step and 10 counted TrainSteps. The losses within
+    RESNET_LOSS_TOL of the ``train_resnet50`` run's (and printed as
+    bitwise equal or not), BN running statistics unchanged by the steps,
+    each kernel's launches those of a step plus the forward kernels of
+    the recomputed blocks, no plain version."""
+    from paddle_tpu_torch import jit, nn, optimizer
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    from paddle_tpu_torch.models import resnet as resnet_mod
+    dev = torch.device("cuda", 0)
+    batch, hw, stages = 128, 224, (1, 2)
+    model = resnet_mod.resnet50(
+        num_classes=1000, data_format="NHWC", stem_space_to_depth=True,
+        fused_bn=True, recompute_stages=stages, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    model.to(torch.float32).to(torch.bfloat16)
+    model.train()
+    rng = np.random.RandomState(SEED)
+    img = rng.randn(batch, 3, hw, hw).astype(np.float32)
+    y = torch.as_tensor(rng.randint(0, 1000, (batch,)).astype(np.int64),
+                        device=dev)
+    x = torch.as_tensor(img, device=dev).to(torch.bfloat16)
+    ce = nn.CrossEntropyLoss()
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.parameters(),
+                             multi_precision=True)
+    step = jit.TrainStep(model, opt, lambda lg, lbl: ce(lg.float(), lbl))
+    # a step's launches (phase_train_resnet50) plus each recomputed
+    # block's forward kernels: conv1 (+ the downsample), conv3, and the
+    # fused 3x3 of a stride-1 block
+    want = [20, 16, 20, 16, 13, 13]
+    for i in stages:
+        for blk in getattr(model, f"layer{i}"):
+            want[0] += 1 + (blk.downsample is not None)
+            want[1] += 1
+            want[4] += resnet_mod._stride0(blk.conv2) == 1
+    names = [r[0] for r in _FUSED_ROWS + _CONV3_ROWS]
+
+    def running():
+        return {k: v.clone() for k, v in model.state_dict().items()
+                if k.endswith(("._mean", "._variance"))}
+
+    step(x, y)
+    torch.cuda.synchronize()
+    before = running()
+    torch.cuda.reset_peak_memory_stats()
+    fr.reset_counts()
+    losses, walls = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: f.launches for n, f in zip(names, fr.KERNEL_WRAPPERS)}
+    plain_calls = sum(f.calls for f in fr.PLAIN_VERSIONS)
+    peak = torch.cuda.max_memory_allocated()
+    frozen = all(torch.equal(before[k], v) for k, v in running().items())
+    losses = [float(v) for v in losses]
+    wall_ms = float(np.median(walls))
+    gaps = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+    say("train_resnet50_recompute", config="resnet50 NHWC s2d fused_bn",
+        recompute_stages=list(stages), dtype="bfloat16", batch=batch,
+        image=hw, losses=losses, step_wall_ms=walls, median_step_ms=wall_ms,
+        images_per_s=batch / (wall_ms / 1e3), peak_memory_gib=peak / 2 ** 30,
+        without_recompute=dict(median_step_ms=ref["wall_ms"],
+                               images_per_s=batch / (ref["wall_ms"] / 1e3),
+                               peak_memory_gib=ref["peak_gib"]),
+        max_loss_gap=max(gaps), loss_tol=RESNET_LOSS_TOL,
+        bitwise_equal_to_train_resnet50=losses == ref["losses"],
+        launches=launches,
+        launches_per_step={k: v / 10 for k, v in launches.items()},
+        expected_per_step=want, plain_calls=plain_calls,
+        running_stats_frozen=frozen)
+    del model, opt, step, x
+    torch.cuda.empty_cache()
+    if max(gaps) > RESNET_LOSS_TOL or not all(map(math.isfinite, losses)):
+        fail(f"resnet50 recompute losses {losses} against {ref['losses']}")
+    if not frozen:
+        fail("recomputed BN blocks moved the running statistics")
+    if list(launches.values()) != [10 * c for c in want]:
+        fail(f"resnet50 recompute launches {launches}, expected {want} "
+             "per step")
+    if plain_calls:
+        fail(f"plain versions ran {plain_calls} times on the resnet50 "
+             "recompute path")
     return launches
 
 
@@ -4167,13 +4687,22 @@ def main():
     phase_int8_logits(torch, model)
     del model
     torch.cuda.empty_cache()
-    launches, trained = phase_train(torch)
+    launches, trained, train_losses = phase_train(torch)
     paths.append(("train", launches))
     paths.append(("train_fused_ops", phase_train_fused_ops(torch, *trained)))
     paths.append(("train_fused_ce", phase_train_fused_ce(torch, *trained)))
     del trained
     torch.cuda.empty_cache()
-    paths.append(("train_resnet50", phase_train_resnet50(torch)))
+    # the rest of training: recompute, optimizer-state offload, AMP, QAT
+    paths.append(("train_recompute", phase_train_recompute(torch,
+                                                           train_losses)))
+    paths.append(("train_offload", phase_train_offload(torch)))
+    paths.append(("train_amp", phase_train_amp(torch)))
+    paths.append(("train_qat", phase_train_qat(torch)))
+    launches, resnet_run = phase_train_resnet50(torch)
+    paths.append(("train_resnet50", launches))
+    paths.append(("train_resnet50_recompute",
+                  phase_train_resnet50_recompute(torch, resnet_run)))
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths
                    if name in counts}

@@ -5,8 +5,11 @@
 each into this package's parameter of the same name. Both packages use
 the same names and shapes (Paddle's ``[in, out]`` Linear layout), so the
 copy is one to one. It is strict: a missing, extra, mis-shaped or
-differently typed entry raises before anything is written. This module
-imports no JAX; the caller produces the arrays, e.g.
+differently typed entry raises before anything is written. A name may
+differ only by ``inner`` components, which the wrappers of
+``quantization.QAT`` add: a plain state loads into a quantized model and
+a quantized one into a plain model. This module imports no JAX; the
+caller produces the arrays, e.g.
 ``{k: np.asarray(v._data) for k, v in jax_model.state_dict().items()}``.
 
 ``load_reference_optimizer_state(optimizer, state)`` takes the JAX
@@ -48,10 +51,28 @@ def _as_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _without_inner(name: str) -> str:
+    return ".".join(p for p in name.split(".") if p != "inner")
+
+
+def _match_inner(own, arrays):
+    """``arrays`` under ``own``'s names where the two differ only by
+    ``inner`` components; ``arrays`` unchanged where that does not give
+    one name for one name."""
+    own_by = {_without_inner(k): k for k in own}
+    arr_by = {_without_inner(k): k for k in arrays}
+    if len(own_by) != len(own) or len(arr_by) != len(arrays) or \
+            set(own_by) != set(arr_by):
+        return arrays
+    return {own_by[k]: arrays[v] for k, v in arr_by.items()}
+
+
 def load_reference_state(model: torch.nn.Module,
                          arrays: Mapping[str, np.ndarray]) -> None:
     """Copy ``arrays`` into ``model``'s state, name for name."""
     own = model.state_dict()
+    if set(own) != set(arrays):
+        arrays = _match_inner(own, arrays)
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
     if missing or extra:

@@ -9,9 +9,10 @@ env vars honored at first read, same set/get API shape.
 The port's copy of the JAX package's ``core/flags.py``: the same names,
 defaults and validators. ``check_nan_inf_in_program`` turns on the
 eager ``TrainStep``'s non-finite check (one host read a step, none when
-off) where the reference turns on ``jax_debug_nans``. ``use_native_tensor_store``,
-``amp_dtype`` and ``jit_cache_dir`` are registered for modules not
-ported yet and read by nothing.
+off) where the reference turns on ``jax_debug_nans``; ``amp_dtype`` is
+``amp.auto_cast``'s default low-precision dtype.
+``use_native_tensor_store`` and ``jit_cache_dir`` are registered for
+modules not ported yet and read by nothing.
 """
 from __future__ import annotations
 

@@ -42,3 +42,18 @@ def generator(device: DeviceLike = None) -> torch.Generator:
                             else int.from_bytes(os.urandom(4), "little"))
             _GENERATORS[key] = gen
         return gen
+
+
+def get_states() -> Dict[str, torch.Tensor]:
+    """The state of every default generator made so far, by device
+    (``recompute`` puts them back around a recomputed forward)."""
+    with _LOCK:
+        return {key: gen.get_state() for key, gen in _GENERATORS.items()}
+
+
+def set_states(states: Dict[str, torch.Tensor]) -> None:
+    """Restore states taken by ``get_states``; a generator made since
+    keeps its own."""
+    with _LOCK:
+        for key, state in states.items():
+            _GENERATORS[key].set_state(state)

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from ..core import flags
-from ..nn.layers_common import frozen_running_stats
+from ..distributed.fleet.utils.recompute import _as_config
+from ..nn.layers_common import frozen_running_stats, train_step_trace
 from ..optimizer.lr import LRScheduler
 
 
@@ -67,20 +68,34 @@ class TrainStep:
     gradient is not finite raises ``FloatingPointError`` before the
     update, as the JAX package's ``jax_debug_nans`` does; one host read
     per step, and none when the flag is off.
+
+    ``recompute`` (a ``fleet.utils.RecomputeConfig`` or a policy name)
+    runs the model and the loss as one recompute region under the
+    config's policy, as the JAX package wraps its loss function in
+    ``jax.checkpoint``; the model definition stays as it is. Each call
+    runs once under that region: the JAX package's "recompute costs
+    one compile" has no counterpart here.
+
+    ``offload_opt_state`` keeps the optimizer's state (moments and fp32
+    masters) in pinned host memory between steps, copied to the card for
+    the update and back after it (``Optimizer.offload_state``). As in
+    the JAX package, which turns it off where the device has no memory
+    space of its own besides the host's, it is off for a model on the
+    CPU. ``optimizer.state_dict()`` then holds the host tensors.
+
+    The forward runs under ``train_step_trace``, where the JAX package
+    traces: batch norm keeps its running statistics,
+    ``ResNet(recompute_stages=)`` engages and attention dropout is off
+    (ROADMAP C18).
     """
 
     def __init__(self, model: torch.nn.Module, optimizer, loss_fn: Callable,
                  donate: bool = True, sharding=None,
                  offload_opt_state: bool = False,
                  skip_nonfinite: bool = False, recompute=None):
-        unported = {"sharding": (sharding is not None, "A11"),
-                    "offload_opt_state": (offload_opt_state, "A4"),
-                    "recompute": (recompute is not None, "A4")}
-        for name, (given, item) in unported.items():
-            if given:
-                raise NotImplementedError(
-                    f"TrainStep({name}=...) is not ported yet (ROADMAP "
-                    f"{item})")
+        if sharding is not None:
+            raise NotImplementedError(
+                "TrainStep(sharding=...) is not ported yet (ROADMAP A11)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -91,6 +106,14 @@ class TrainStep:
             raise ValueError(f"TrainStep needs the model's parameters on "
                              f"one device, found {sorted(map(str, devices))}")
         self.device = devices.pop()
+        recompute = _as_config(recompute)
+        self._loss_of = self._loss if recompute is None \
+            else recompute.wrap(self._loss, model.modules())
+        optimizer.offload_state = offload_opt_state and \
+            self.device.type == "cuda"
+
+    def _loss(self, *batch):
+        return self.loss_fn(self.model(*batch[:-1]), batch[-1])
 
     def __call__(self, *batch):
         opt = self.optimizer
@@ -101,8 +124,8 @@ class TrainStep:
             p.grad = None
         # the JAX package traces this forward, so batch norm leaves its
         # running statistics as they were: freeze them here too
-        with frozen_running_stats():
-            loss = self.loss_fn(self.model(*batch[:-1]), batch[-1])
+        with frozen_running_stats(), train_step_trace():
+            loss = self._loss_of(*batch)
         loss.backward()
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.grad gives it (AdamW still decays it and moves its moments)

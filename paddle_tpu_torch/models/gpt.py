@@ -7,8 +7,10 @@ prefill attention go through ``nn.functional.scaled_dot_product_attention``
 (the flash forward and backward kernels on a card), decode attention
 through ``generation.attention.cached_attention`` (the flash decode,
 chunk or paged decode kernel). The tied LM head is a plain ``torch.matmul`` against ``wte``,
-as the JAX package leaves it to XLA. Options of the JAX config that
-are not ported yet (recompute, sequence parallelism, experts) raise.
+as the JAX package leaves it to XLA. ``use_recompute`` runs each block
+in training as a recompute region (``distributed.parallel.recompute``)
+under ``recompute_granularity``'s policy. Options of the JAX config that
+are not ported yet (sequence parallelism, experts) raise.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ import torch.nn.functional as TF
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import amp
 from ..core import device as device_mod
+from ..distributed.parallel.recompute import recompute
 from ..generation.attention import cached_attention
 from ..generation.kv_cache import KVCache
 from ..nn import functional as F
@@ -41,6 +45,9 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
     use_recompute: bool = False
+    #: the recompute policy of use_recompute: "selective" keeps the
+    #: Linear products (save_dots_no_batch), "full" keeps nothing; also
+    #: "core_attn" and fleet.utils.RecomputeConfig's policy names
     recompute_granularity: str = "selective"
     #: fuse the LM head into the loss: forward() returns (hidden, head
     #: weight) and loss() applies the head and cross entropy per
@@ -61,14 +68,36 @@ class GPTConfig:
 
     def check_ported(self):
         """Raise on the JAX config's options this package lacks."""
-        unported = [name for name in ("use_recompute", "sequence_parallel")
-                    if getattr(self, name)]
+        unported = ["sequence_parallel"] if self.sequence_parallel else []
         if self.moe_num_experts > 0:
             unported.append("moe_num_experts")
         if unported:
             raise NotImplementedError(
-                f"GPTConfig {unported}: not ported yet (ROADMAP A3 "
-                "recompute, A11 sequence parallelism and experts)")
+                f"GPTConfig {unported}: not ported yet (ROADMAP A11 "
+                "sequence parallelism and experts)")
+
+
+#: recompute_granularity -> distributed.parallel.recompute policy name:
+#: the reference's granularities and fleet.utils.RecomputeConfig's names
+_REMAT_POLICY = {
+    "selective": "save_dots_no_batch",
+    "dots_with_no_batch_dims_saveable": "save_dots_no_batch",
+    "core_attn": "save_dots",
+    "dots_saveable": "save_dots",
+    "full": "full",
+    "nothing_saveable": "full",
+}
+
+
+def _remat_policy(granularity: str) -> str:
+    """The recompute policy of ``granularity``; an unknown one raises
+    rather than train under a default the user did not ask for."""
+    try:
+        return _REMAT_POLICY[granularity]
+    except KeyError:
+        raise ValueError(
+            f"unknown recompute_granularity {granularity!r}; one of "
+            f"{sorted(_REMAT_POLICY)}") from None
 
 
 class GPTAttention(nn.Module):
@@ -177,8 +206,13 @@ class GPTModel(nn.Module):
                                         prompt_len, cache_max_len,
                                         cache_dtype)
         x = self.embed(input_ids)
-        for block in self.blocks:
-            x = block(x, attn_mask)
+        if self.cfg.use_recompute and self.training:
+            policy = _remat_policy(self.cfg.recompute_granularity)
+            for block in self.blocks:
+                x = recompute(block, x, attn_mask, policy=policy)
+        else:
+            for block in self.blocks:
+                x = block(x, attn_mask)
         return self.ln_f(x)
 
     def _forward_cached(self, input_ids, attn_mask, cache, prompt_len,
@@ -241,7 +275,9 @@ class GPTForCausalLM(nn.Module):
     def _logits(self, h):
         if self.lm_head is not None:
             return self.lm_head(h)
-        return torch.matmul(h, self.gpt.embed.wte.weight.t())
+        # the JAX package's F.linear against the transposed wte
+        h, w = amp.maybe_cast("linear", h, self.gpt.embed.wte.weight)
+        return torch.matmul(h, w.t())
 
     def forward(self, input_ids, attn_mask=None, cache=None,
                 use_cache=False, prompt_len=None, cache_max_len=None,

@@ -20,6 +20,12 @@ block's shape. Any other 3x3 runs through the ordinary conv with
 ``_PALLAS3X3`` False (the JAX package's
 ``experiments/fused_bn_ablate.py`` configuration).
 
+``recompute_stages`` names stages (1-4) whose blocks each run as a
+recompute region (``distributed.parallel.recompute``, policy "full")
+inside ``jit.TrainStep``, as in the JAX package, where they engage only
+under the step's trace; an eager forward runs the normal path, so the
+running statistics keep moving there.
+
 Every constructor takes ``device`` (the first card unless
 ``device="cpu"``; without a card it raises), ``dtype`` and a
 ``torch.Generator`` for the initial weights.
@@ -29,12 +35,13 @@ from __future__ import annotations
 from torch import nn
 
 from ..core import device as device_mod
+from ..distributed.parallel.recompute import recompute
 from ..nn import functional as F
 from ..nn.container import Sequential
 from ..kernels.fused_resnet import conv3x3_vmem_ok
 from ..nn.functional import fused_conv as FC
 from ..nn.layers_common import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D,
-                                Linear, MaxPool2D, ReLU)
+                                Linear, MaxPool2D, ReLU, in_train_step)
 
 # route the 3x3 of a fused stride-1 block through the fused 3x3 kernels
 # (True, the JAX package's default) or the ordinary conv (False)
@@ -166,10 +173,12 @@ class ResNet(nn.Module):
         if data_format not in ("NCHW", "NHWC"):
             raise ValueError(f"data_format must be NCHW or NHWC, "
                              f"got {data_format!r}")
-        if tuple(recompute_stages):
-            raise NotImplementedError(
-                "ResNet(recompute_stages=...) is not ported yet "
-                "(ROADMAP A4)")
+        self.recompute_stages = tuple(recompute_stages)
+        bad = [s for s in self.recompute_stages if s not in (1, 2, 3, 4)]
+        if bad:
+            raise ValueError(
+                f"recompute_stages entries must be stage numbers 1-4 "
+                f"(1-indexed: layer1..layer4), got {bad}")
         dev = device_mod.resolve(device)
         self._mk = dict(device=dev, dtype=dtype, generator=generator)
         self.inplanes = 64
@@ -260,7 +269,16 @@ class ResNet(nn.Module):
         return self._trunk(self.maxpool(self.relu(self.bn1(stem))))
 
     def _trunk(self, x):
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        if self.training and self.recompute_stages and in_train_step():
+            stages = (self.layer1, self.layer2, self.layer3, self.layer4)
+            for i, stage in enumerate(stages, 1):
+                if i in self.recompute_stages:
+                    for blk in stage:
+                        x = recompute(blk, x)
+                else:
+                    x = stage(x)
+        else:
+            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         if self.with_pool:
             x = self.avgpool(x)
         if self.num_classes > 0:

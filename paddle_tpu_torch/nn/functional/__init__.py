@@ -1,7 +1,7 @@
 """Functionals the ported modules use (``torch.nn.functional`` covers
 the rest)."""
 from .attention import scaled_dot_product_attention  # noqa: F401
-from .common import flatten, pad, relu  # noqa: F401
+from .common import flatten, linear, pad, relu  # noqa: F401
 from .conv import conv2d  # noqa: F401
 from .loss import (binary_cross_entropy,  # noqa: F401
                    binary_cross_entropy_with_logits, cosine_embedding_loss,

@@ -19,22 +19,19 @@ from typing import Optional
 
 import torch
 
+from ... import amp
+from ...core import random as random_mod
 from ...kernels.flash_attention import KERNEL_HEAD_DIMS, flash_attention
+from ..layers_common import in_train_step
 
 
-def sdpa_xla(query, key, value, attn_mask=None, is_causal: bool = False,
-             scale: Optional[float] = None):
-    """The JAX package's ``_sdpa_xla`` without dropout: fp32 logits of
-    the inputs' products, times ``scale``; causal masking aligned
-    bottom-right (column c visible to row r iff c <= r + sk - sq); a
-    boolean ``attn_mask`` keeps the True positions, any other is added
-    to the logits (either broadcast against [batch, heads, sq, sk]); an
-    fp32 softmax rounded to the query's dtype, times V in that dtype.
-    A row with nothing visible gives NaN, as the reference's does.
-    Grouped-query heads map query head h to kv head h // (hq // hk), as
-    the kernels do (the reference's einsum takes equal head counts).
-    Counts its calls in ``sdpa_xla.calls``."""
-    sdpa_xla.calls += 1
+def _sdpa_xla(query, key, value, attn_mask=None, is_causal: bool = False,
+              scale: Optional[float] = None, dropout_p: float = 0.0,
+              keep=None):
+    """``sdpa_xla`` with attention dropout from a given boolean ``keep``
+    mask over the probabilities [batch, heads, sq, sk] (the JAX
+    package's ``jax.random.bernoulli(rng, 1 - p, probs.shape)``), used
+    when ``dropout_p > 0``."""
     b, sq, hq, d = query.shape
     sk, hk = key.shape[1], key.shape[2]
     g = hq // hk
@@ -52,9 +49,39 @@ def sdpa_xla(query, key, value, attn_mask=None, is_causal: bool = False,
         else:
             logits = logits + attn_mask
     probs = torch.softmax(logits, dim=-1).to(query.dtype)
+    if dropout_p > 0.0:
+        # the divisor in the query's dtype, as JAX's weak-typed scalar
+        kept = probs / torch.tensor(1.0 - dropout_p, dtype=probs.dtype,
+                                    device=probs.device)
+        probs = torch.where(keep, kept, torch.zeros_like(probs))
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.reshape(b, hk, g, sq, sk),
                        value.to(query.dtype))
     return out.reshape(b, sq, hq, d)
+
+
+def sdpa_xla(query, key, value, attn_mask=None, is_causal: bool = False,
+             scale: Optional[float] = None, dropout_p: float = 0.0):
+    """The JAX package's ``_sdpa_xla``: fp32 logits of the inputs'
+    products, times ``scale``; causal masking aligned bottom-right
+    (column c visible to row r iff c <= r + sk - sq); a boolean
+    ``attn_mask`` keeps the True positions, any other is added to the
+    logits (either broadcast against [batch, heads, sq, sk]); an fp32
+    softmax rounded to the query's dtype, then dropout when
+    ``dropout_p > 0`` (its keep mask drawn from the device's default
+    generator), times V in that dtype. A row with nothing visible gives
+    NaN, as the reference's does. Grouped-query heads map query head h
+    to kv head h // (hq // hk), as the kernels do (the reference's
+    einsum takes equal head counts). Counts its calls in
+    ``sdpa_xla.calls``."""
+    sdpa_xla.calls += 1
+    keep = None
+    if dropout_p > 0.0:
+        b, sq, hq, _ = query.shape
+        keep = torch.rand((b, hq, sq, key.shape[1]), device=query.device,
+                          generator=random_mod.generator(query.device)) \
+            < 1.0 - dropout_p
+    return _sdpa_xla(query, key, value, attn_mask, is_causal, scale,
+                     dropout_p, keep)
 
 
 sdpa_xla.calls = 0
@@ -66,12 +93,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training: bool = True,
                                  scale: Optional[float] = None):
     """query/key/value: [batch, seq, heads, head_dim]. The route is
-    chosen before any launch, from the head_dim and the mask alone (see
-    the module note). Attention dropout, which the JAX package also
-    takes, is not ported yet and raises."""
-    if training and dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP A4)")
-    if attn_mask is not None or query.shape[-1] not in KERNEL_HEAD_DIMS:
-        return sdpa_xla(query, key, value, attn_mask, is_causal, scale)
+    chosen before any launch, from the head_dim, the mask and dropout
+    alone (see the module note)."""
+    query, key, value, attn_mask = amp.maybe_cast(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
+    if not training:
+        dropout_p = 0.0
+    if attn_mask is not None or dropout_p > 0.0 or \
+            query.shape[-1] not in KERNEL_HEAD_DIMS:
+        if in_train_step():
+            dropout_p = 0.0       # the reference's trace: no dropout key
+        return sdpa_xla(query, key, value, attn_mask, is_causal, scale,
+                        dropout_p)
     return flash_attention(query, key, value, causal=is_causal, scale=scale)

@@ -1,9 +1,18 @@
-"""``relu``, ``pad`` and ``flatten`` (the JAX package's
-``nn/functional/activation.py:12`` and ``ops/manipulation.py:30, 269``)."""
+"""``linear``, ``relu``, ``pad`` and ``flatten`` (the JAX package's
+``nn/functional/common.py:13``, ``activation.py:12`` and
+``ops/manipulation.py:30, 269``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as TF
+
+from ... import amp
+
+
+def linear(x, weight, bias=None):
+    """y = x @ weight + bias with Paddle's [in, out] ``weight``."""
+    x, weight, bias = amp.maybe_cast("linear", x, weight, bias)
+    return TF.linear(x, weight.t(), bias)
 
 
 def relu(x):

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch.nn.functional as TF
 
+from ... import amp
+
 
 def _tuple(v, n):
     return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
@@ -50,6 +52,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"data_format must be NCHW or NHWC, got "
                          f"{data_format!r}")
+    x, weight, bias = amp.maybe_cast("conv2d", x, weight, bias)
     nchw = x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
     stride, dilation = _tuple(stride, 2), _tuple(dilation, 2)
     pads = _pads(padding, tuple(weight.shape[2:]), stride, dilation,

@@ -9,7 +9,8 @@ unreduced loss, as in the JAX package. ``ctc_loss`` runs
 ``torch.nn.functional.ctc_loss`` on the log-softmax of its input (the
 JAX package calls ``optax.ctc_loss``, which normalizes its input the
 same way).
-``edit_distance`` is a metric: no gradient.
+``edit_distance`` is a metric: no gradient. The losses on AMP's black
+list cast their inputs through ``amp.auto_cast.maybe_cast`` first.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import math
 
 import torch
 import torch.nn.functional as TF
+
+from ... import amp
 
 
 def _reduce(loss, reduction):
@@ -44,6 +47,8 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,
     (at least 1). Soft labels are distributions over ``axis``, smoothed
     toward uniform; ``weight`` and ``ignore_index`` do not apply to
     them."""
+    input, label, weight = amp.maybe_cast("cross_entropy", input, label,
+                                          weight)
     logp = torch.log_softmax(input, dim=axis)
     k = input.shape[axis]
     if soft_label:
@@ -82,6 +87,7 @@ def nll_loss(input, label, weight=None, ignore_index: int = -100,
     ``label`` [...], skipping ``ignore_index``. A weighted "mean" divides
     by the kept labels' weights (no floor, as in the JAX package), an
     unweighted one by their count (at least 1)."""
+    input, label, weight = amp.maybe_cast("nll_loss", input, label, weight)
     valid = label != ignore_index
     safe = torch.where(valid, label, _zero(label)).long()
     picked = -input.gather(-1, safe[..., None])[..., 0]
@@ -97,10 +103,12 @@ def nll_loss(input, label, weight=None, ignore_index: int = -100,
 
 
 def mse_loss(input, label, reduction: str = "mean"):
+    input, label = amp.maybe_cast("mse_loss", input, label)
     return _reduce((input - label).square(), reduction)
 
 
 def l1_loss(input, label, reduction: str = "mean"):
+    input, label = amp.maybe_cast("l1_loss", input, label)
     return _reduce((input - label).abs(), reduction)
 
 
@@ -112,6 +120,8 @@ def smooth_l1_loss(input, label, reduction: str = "mean", delta=1.0):
 
 def binary_cross_entropy(input, label, weight=None, reduction="mean"):
     """BCE of probabilities ``input``, each log clamped at 1e-12."""
+    input, label, weight = amp.maybe_cast("binary_cross_entropy", input,
+                                          label, weight)
     eps = 1e-12
     loss = -(label * torch.log(input.clamp_min(eps))
              + (1 - label) * torch.log((1 - input).clamp_min(eps)))
@@ -124,6 +134,8 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None):
     """BCE of logits in the stable form max(x, 0) - x*y + log1p(e^-|x|);
     ``pos_weight`` scales the loss by (pos_weight - 1)*y + 1."""
+    logit, label, weight, pos_weight = amp.maybe_cast(
+        "binary_cross_entropy_with_logits", logit, label, weight, pos_weight)
     loss = logit.clamp_min(0.0) - logit * label + \
         torch.log1p(torch.exp(-logit.abs()))
     if pos_weight is not None:
@@ -136,6 +148,7 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
 def kl_div(input, label, reduction="mean"):
     """label * (log label - input), log clamped at 1e-12; "batchmean"
     divides the sum by the batch size."""
+    input, label = amp.maybe_cast("kl_div", input, label)
     loss = label * (torch.log(label.clamp_min(1e-12)) - input)
     if reduction == "batchmean":
         return loss.sum() / input.shape[0]

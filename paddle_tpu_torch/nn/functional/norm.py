@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
+from ... import amp
+
 
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
                epsilon: float = 1e-5):
@@ -17,6 +19,7 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     depend on how many rows the call holds: two ``mean`` reductions would
     spread a row over more threads the fewer rows there are, and a
     serving batch would drift from batch-1 ``generate``."""
+    x, weight, bias = amp.maybe_cast("layer_norm", x, weight, bias)
     if normalized_shape is None:
         ndims = 1
     else:
@@ -51,6 +54,7 @@ def rms_norm(x, weight=None, epsilon: float = 1e-6):
     fewer rows there are, as ``layer_norm`` did). That kernel multiplies
     by rsqrt(mean + eps) instead of dividing by sqrt(mean + eps), which
     can move the fp32 value by an ulp before the cast."""
+    x, weight = amp.maybe_cast("rms_norm", x, weight)
     xf = x.float() if x.dtype == torch.bfloat16 else x
     if xf.is_cuda:
         out = TF.rms_norm(xf, xf.shape[-1:], eps=epsilon).to(x.dtype)
@@ -74,6 +78,8 @@ def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
                      epsilon: float = 1e-5, data_format: str = "NCHW"):
     """BN with the running statistics: (x - mean) / sqrt(var + eps),
     then weight and bias, in the promoted dtype of x and the stats."""
+    x, running_mean, running_var, weight, bias = amp.maybe_cast(
+        "batch_norm_infer", x, running_mean, running_var, weight, bias)
     _, shape = _channel_shape(x, data_format)
     out = (x - running_mean.reshape(shape)) / torch.sqrt(
         running_var.reshape(shape) + epsilon)
@@ -91,6 +97,7 @@ def batch_norm_train(x, weight=None, bias=None, epsilon: float = 1e-5,
     the normalization are fp32 for bf16 inputs, the normalized value is
     cast to the input dtype, then scaled and shifted in that dtype (the
     JAX package's order of rounding)."""
+    x, weight, bias = amp.maybe_cast("batch_norm_train", x, weight, bias)
     ch, shape = _channel_shape(x, data_format)
     axes = tuple(a for a in range(x.dim()) if a != ch)
     xf = x.float() if x.dtype == torch.bfloat16 else x

@@ -67,7 +67,7 @@ class Linear(nn.Module):
             if bias else None
 
     def forward(self, x):
-        return TF.linear(x, self.weight.t(), self.bias)
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in_features={self.in_features}, " \
@@ -193,13 +193,34 @@ _FROZEN = threading.local()
 def frozen_running_stats():
     """Inside, batch norm layers leave their running statistics as they
     are. ``jit.TrainStep`` runs its forward here: the JAX package traces
-    that forward, and a traced forward cannot update them."""
+    that forward, and a traced forward cannot update them. A recomputed
+    forward (``distributed.parallel.recompute``) runs here too."""
     depth = getattr(_FROZEN, "depth", 0)
     _FROZEN.depth = depth + 1
     try:
         yield
     finally:
         _FROZEN.depth = depth
+
+
+@contextlib.contextmanager
+def train_step_trace():
+    """Marks the forward of ``jit.TrainStep``, which the JAX package
+    traces. Two behaviours of the reference hang on that trace and key
+    on this mark here: ``ResNet(recompute_stages=)`` engages only inside
+    it, and attention dropout is off inside it (the traced forward gets
+    no dropout key; ROADMAP C18)."""
+    prev = getattr(_FROZEN, "traced", False)
+    _FROZEN.traced = True
+    try:
+        yield
+    finally:
+        _FROZEN.traced = prev
+
+
+def in_train_step() -> bool:
+    """True inside ``train_step_trace``."""
+    return getattr(_FROZEN, "traced", False)
 
 
 class BatchNorm2D(nn.Module):

@@ -9,6 +9,14 @@ gradients, which is how ``jit.TrainStep`` calls it. State is kept per
 parameter tensor, and ``state_dict()`` lays it out as the JAX package
 does (``param_{i}`` by position in the parameter list, plus
 ``_step_count`` and ``LR_Scheduler``).
+
+A parameter's ``regularizer`` attribute (``regularizer.L1Decay`` or
+``L2Decay``) wins over the optimizer's ``weight_decay`` for that
+parameter. With ``offload_state`` (``jit.TrainStep(offload_opt_state=
+True)`` sets it on a CUDA card), the state lives in pinned host memory
+between updates: each parameter's state is copied to the card for its
+update and back after it, and the update waits for the copies before it
+returns.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ class Optimizer:
         self.multi_precision = multi_precision
         self._state: Dict[torch.Tensor, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
+        self.offload_state = False
 
     # ------------------------------------------------------------- LR
     def get_lr(self) -> float:
@@ -62,10 +71,13 @@ class Optimizer:
     def _decoupled_decay(self) -> bool:
         return False
 
-    def _apply_decay(self, g, p):
-        """A float weight decay is coupled L2 (added to the gradient)
-        except for decoupled optimizers (AdamW); a callable weight decay
-        maps (grad, param) to the decayed grad."""
+    def _apply_decay(self, g, p, reg=None):
+        """A parameter's own regularizer ``reg`` wins; else a float
+        weight decay is coupled L2 (added to the gradient) except for
+        decoupled optimizers (AdamW), and a callable weight decay maps
+        (grad, param) to the decayed grad."""
+        if reg is not None:
+            return reg(g, p)
         wd = self._weight_decay
         if callable(wd) and not isinstance(wd, float):
             return wd(g, p)
@@ -82,14 +94,59 @@ class Optimizer:
         one) at step number ``step`` (default: the next)."""
         lr = self.get_lr() if lr is None else float(lr)
         step = (self._step_count + 1) if step is None else int(step)
-        grads = list(grads)
+        params, grads = list(params), list(grads)
+        regs = self._param_regularizers(params) or [None] * len(params)
         if self._grad_clip is not None:
             grads = self._grad_clip(grads)
-        for p, g in zip(params, grads):
+        offload = self.offload_state and any(p.is_cuda for p in params)
+        for p, g, reg in zip(params, grads, regs):
             if g.dtype != p.dtype:
                 g = g.to(p.dtype)
-            g = self._apply_decay(g, p)
-            self._update(p, g, self.state_for(p), lr, step)
+            g = self._apply_decay(g, p, reg)
+            if offload:
+                self._update_offloaded(p, g, lr, step)
+            else:
+                self._update(p, g, self.state_for(p), lr, step)
+        if offload:
+            torch.cuda.current_stream(params[0].device).synchronize()
+
+    def _update_offloaded(self, p, g, lr, step):
+        """``_update`` on a card copy of ``p``'s state, which then goes
+        back into pinned host tensors (made at the first update)."""
+        host = self.state_for(p)
+        dev = {k: v.to(p.device, non_blocking=True)
+               for k, v in host.items()}
+        self._update(p, g, dev, lr, step)
+        parked = {}
+        for k, v in dev.items():
+            h = host.get(k)
+            if h is None or h.is_cuda:
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            parked[k] = h.copy_(v, non_blocking=True)
+        self._state[p] = parked
+
+    def _param_regularizers(self, params):
+        """The ``regularizer`` of each of ``params``, or None when no
+        parameter of the optimizer has one. Parameters of the
+        optimizer's list match by identity; otherwise the list is read
+        in order, and a count mismatch raises (the JAX package's rule
+        for its functional update)."""
+        plist = self._parameter_list
+        if plist is None:
+            return None
+        by_id = {id(p): getattr(p, "regularizer", None) for p in plist}
+        if not any(r is not None for r in by_id.values()):
+            return None
+        if all(id(p) in by_id for p in params):
+            return [by_id[id(p)] for p in params]
+        if len(plist) != len(params):
+            raise ValueError(
+                f"per-parameter regularizers are set but the update "
+                f"received {len(params)} params vs the optimizer's "
+                f"{len(plist)} — construct the optimizer with the same "
+                f"parameter list the train step uses (e.g. "
+                f"model.parameters()) so they can be matched")
+        return [getattr(p, "regularizer", None) for p in plist]
 
     # ------------------------------------------------------------- dygraph
     def step(self):

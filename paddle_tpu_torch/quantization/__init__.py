@@ -1,7 +1,6 @@
-"""Post-training quantization and the int8 compute path (the JAX
-package's ``quantization/``). Quantization-aware training (``QAT``,
-``QuantedLinear``, ``QuantedConv2D``) is not ported yet: it waits for
-the training surface of ROADMAP A4 and A13."""
+"""Quantization (the JAX package's ``quantization/``): post-training
+quantization, the int8 compute path and quantization-aware training
+(``QAT``, ``QuantedLinear``, ``QuantedConv2D``)."""
 from .config import QuantConfig  # noqa: F401
 from .fake_quant import (dequantize_int8, fake_quant,  # noqa: F401
                          fake_quant_channelwise, quantize_int8)
@@ -10,3 +9,4 @@ from .int8_compute import (Int8ComputeConv2D,  # noqa: F401
 from .observers import (AbsmaxObserver, AVGObserver,  # noqa: F401
                         ChannelWiseAbsmaxObserver)
 from .ptq import PTQ  # noqa: F401
+from .qat import QAT, QuantedConv2D, QuantedLinear  # noqa: F401

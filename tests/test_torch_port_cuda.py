@@ -2187,3 +2187,135 @@ def test_weight_only_engine_matches_batch1_generate(dev, opts):
     assert fa.flash_attention_decode_paged_plain.calls == 0
     assert all(p.dtype == torch.bfloat16 for p in eng.network.parameters())
     eng.shutdown()
+
+
+# ---------------------------------------------- training: A4
+
+
+def test_flash_fp16_training_shape_matches_plain(dev):
+    """Rows 1-4 in fp16 at gpt2-small's heads, b2 s512 (AMP O2 runs
+    them in fp16): forward and backward within one fp16 ulp of the plain
+    versions."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, do = _bwd_inputs(gen, 2, 512, 512, 12, 12, 64, torch.float16,
+                              dev)
+    out = fa.flash_attention(q, k, v, causal=True)
+    _close(out, fa.flash_attention_plain(q, k, v, causal=True))
+    _check_bwd(q, k, v, do, True)
+
+
+def _tiny_train(dev, steps, **step_kw):
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.gpt import gpt
+    m = gpt("test-tiny", device=dev, dtype=torch.bfloat16,
+            generator=torch.Generator(device=dev).manual_seed(0))
+    opt = optimizer.AdamW(1e-3, parameters=m.parameters(),
+                          multi_precision=True)
+    step = jit.TrainStep(m, opt, lambda o, y: m.loss(o, y), **step_kw)
+    ids = torch.as_tensor(np.random.RandomState(0).randint(0, 512, (3, 50)),
+                          device=dev)
+    losses, pinned = [], []
+    for _ in range(steps):
+        losses.append(step(ids, ids).item())
+        pinned.append(all(t.device.type == "cpu" and t.is_pinned()
+                          for st in opt._state.values() for t in st.values()))
+    return m, opt, losses, pinned
+
+
+def test_offload_state_is_pinned_and_bitwise_to_resident(dev):
+    """``offload_opt_state`` keeps the moments and fp32 masters in
+    pinned host memory between steps; the losses, parameters and state
+    equal the resident run's bit for bit."""
+    m0, o0, l0, _ = _tiny_train(dev, 3)
+    m1, o1, l1, pinned = _tiny_train(dev, 3, offload_opt_state=True)
+    assert o1.offload_state and all(pinned)
+    assert l1 == l0
+    for a, b in zip(m0.parameters(), m1.parameters()):
+        assert torch.equal(a, b)
+    s0, s1 = o0.state_dict(), o1.state_dict()
+    for key in s0:
+        if key.startswith("param_"):
+            assert set(s0[key]) == {"moment1", "moment2", "master"}
+            for name, t in s0[key].items():
+                assert torch.equal(s1[key][name], t.cpu())
+
+
+@pytest.mark.parametrize("how", ["selective", "full", "trainstep"])
+def test_recompute_with_kernels_is_bitwise(dev, how):
+    """Recompute on the card: the flash forward runs twice a block, the
+    backward once, and the loss and every gradient equal the run
+    without recompute bit for bit (the kernels repeat their bits)."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.models.gpt import gpt
+    ids = torch.as_tensor(np.random.RandomState(1).randint(0, 512, (2, 64)),
+                          device=dev)
+    runs = []
+    for on in (False, True):
+        m = gpt("test-tiny", device=dev, dtype=torch.bfloat16,
+                generator=torch.Generator(device=dev).manual_seed(0),
+                use_recompute=on and how != "trainstep",
+                recompute_granularity=how)
+        fa.reset_counts()
+        if how == "trainstep":
+            opt = optimizer.SGD(0.0, parameters=m.parameters())
+            step = jit.TrainStep(m, opt, lambda o, y, m=m: m.loss(o, y),
+                                 recompute="full" if on else None)
+            grads = {}
+            orig = opt.apply_gradients
+
+            def keep(params, gs, **kw):
+                grads.update({i: g.clone() for i, g in enumerate(gs)})
+                return orig(params, gs, **kw)
+            opt.apply_gradients = keep
+            loss = step(ids, ids).item()
+        else:
+            loss = m.loss(m(ids), ids)
+            loss.backward()
+            loss = loss.item()
+            grads = {n: p.grad for n, p in m.named_parameters()}
+        torch.cuda.synchronize()
+        runs.append((loss, grads, fa.flash_attention.launches,
+                     fa.flash_attention_bwd.launches,
+                     fa.flash_attention_plain.calls))
+    (l0, g0, f0, b0, p0), (l1, g1, f1, b1, p1) = runs
+    assert (f0, b0, p0) == (2, 2, 0) and (f1, b1, p1) == (4, 2, 0)
+    assert l1 == l0
+    assert g1.keys() == g0.keys()
+    for n in g0:
+        assert torch.equal(g1[n], g0[n]), n
+
+
+def test_recomputed_bn_blocks_leave_running_stats(dev):
+    """A small fused ResNet in bf16 with ``recompute_stages=(1, 2)``: in
+    ``TrainStep`` the recomputed blocks' BN forwards move no running
+    statistic, the loss equals the run without recompute, and the
+    stages' forward kernels launch once more."""
+    from paddle_tpu_torch import jit, nn, optimizer
+    from paddle_tpu_torch.kernels import fused_resnet as fr
+    from paddle_tpu_torch.models import resnet as rn
+    img = torch.as_tensor(np.random.RandomState(2).randn(4, 3, 64, 64)
+                          .astype(np.float32), device=dev).bfloat16()
+    lbl = torch.as_tensor([1, 2, 3, 4], device=dev)
+    runs = []
+    for stages in ((), (1, 2)):
+        m = rn.ResNet(rn.BottleneckBlock, [2, 1, 1, 2], num_classes=10,
+                      data_format="NHWC", fused_bn=True,
+                      stem_space_to_depth=True, recompute_stages=stages,
+                      device=dev, dtype=torch.bfloat16,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        opt = optimizer.Momentum(0.1, 0.9, parameters=m.parameters(),
+                                 multi_precision=True)
+        ce = nn.CrossEntropyLoss()
+        step = jit.TrainStep(m, opt, lambda o, y: ce(o.float(), y))
+        before = {k: v.clone() for k, v in m.state_dict().items()
+                  if k.endswith(("_mean", "_variance"))}
+        fr.reset_counts()
+        losses = [step(img, lbl).item() for _ in range(2)]
+        torch.cuda.synchronize()
+        after = m.state_dict()
+        assert all(torch.equal(after[k], v) for k, v in before.items())
+        runs.append((losses, [f.launches for f in fr.KERNEL_WRAPPERS],
+                     sum(f.calls for f in fr.PLAIN_VERSIONS)))
+    (l0, k0, p0), (l1, k1, p1) = runs
+    assert l1 == l0 and p0 == p1 == 0
+    assert [b - a for a, b in zip(k0, k1)] == [10, 6, 0, 0, 4, 0]

@@ -146,13 +146,13 @@ def test_bf16_layer_norm_matches_jax():
 
 
 def test_training_options_raise():
-    """Options the port has not taken yet raise; the fused LM loss is
-    ported and builds."""
-    for opt in (dict(use_recompute=True), dict(sequence_parallel=True),
-                dict(moe_num_experts=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Options the port has not taken yet raise (ROADMAP A11); the fused
+    LM loss and recompute are ported and build."""
+    for opt in (dict(sequence_parallel=True), dict(moe_num_experts=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             gpt("test-tiny", device="cpu", **opt)
     assert gpt("test-tiny", device="cpu", fused_lm_loss=True).cfg.fused_lm_loss
+    assert gpt("test-tiny", device="cpu", use_recompute=True).cfg.use_recompute
 
 
 def test_initializer_is_seeded_by_generator():
