@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with an sm_90 card (H100)
 and the CUDA toolkit. It builds the hand-written kernels from
 ``paddle_tpu_torch/csrc``, holds each against its plain PyTorch version
-at the shapes the serving and training paths give it (the paged decode
+at the shapes the serving and training paths give it (``row_gemm``, the
+cached forward's products, also bit for bit row-invariant at 1 to 4096
+rows; the paged decode
 kernel also bit for bit against the dense one, in the wide and the
 int8 mode; the flash forward and backward, on the tensor-core route in
 bf16, also to repeating bit for bit and to giving each batch row the
@@ -18,14 +20,16 @@ paged cache (token streams equal to the dense engine's), the 16 again
 with chunked prefill, all three again on an int8 KV cache, the same
 traffic on speculative slots (ngram, k 4: dense, paged, int8, chunked;
 the decode kernels at a verify window of 5 query rows) and speculative
-``generate`` in both modes, each speculative stream equal to or parting
-at a near tie from its sequential one, the same traffic with telemetry
+``generate`` in both modes, each speculative stream equal bit for bit
+to its batch-1 speculative one and to its non-speculative one (every
+product of the cached forward on the row-invariant ``row_gemm``, 49
+launches a forward), the same traffic with telemetry
 on and off, two replicas (dense and paged) behind the fleet router on
 pump threads through a rolling deploy that re-homes queued work (each
 stream equal to the dense serve run's), a preemption drain through
 ``serve_forever``, the Predictor in generation mode on the same 16
 prompts (no kernel built after ``create_predictor``, streams equal to
-the serve run's or parting at a near tie, ``run()`` bitwise to the
+the serve run's bit for bit, ``run()`` bitwise to the
 served module and timed by ``device_time_per_run``), int8 and int4
 weight-only engines and an int4 paged engine on the int8 cache (the
 first 8 streams equal batch-1 ``generate`` on the quantized module,
@@ -51,7 +55,12 @@ recompute), with the optimizer state offloaded to pinned host memory
 (fp16 with ``GradScaler``), each first held to the plain path, and
 under quantization-aware training, trains ResNet-50 with its first two
 stages recomputed (losses held to the run without, BN running
-statistics frozen), and checks
+statistics frozen), holds rows 1-4 non-causal at ERNIE's and BERT's
+training shapes, trains ernie-3.0-base (b32) and bert-large (b16) at
+sequence 512 with ``bench.py``'s MLM + SOP recipe (each first held at
+b4 to the plain kernels), encodes incrementally with ernie-3.0-base (a
+4-token append against four 1-token appends) and runs its sequence
+classifier against the plain kernels, and checks
 that each path went through its kernels and never through a plain
 version. Phases
 print one line each; the line before the last is the kernel table as
@@ -1911,6 +1920,164 @@ def phase_fused_ce_kernels(torch, timer):
     return rows
 
 
+#: gpt2-small's cached-forward products (name, K, N): 12 each of the
+#: first four a forward, and the tied head once
+_ROW_SHAPES = (("qkv", 768, 2304), ("out_proj", 768, 768),
+               ("fc1", 768, 3072), ("fc2", 3072, 768),
+               ("lm_head", 768, 50257))
+#: row counts held: one token, a batch-1 verify window, a decode step, an
+#: 8-slot verify window, a prefill bucket, a batch-8 bucket-512 prefill
+_ROW_COUNTS = (1, 5, 8, 40, 512, 4096)
+#: single rows held against the 4096-row run: first and later rows of a
+#: 64-row tile, the first of the next tile, the last
+_ROW_ALONE = (0, 5, 37, 63, 64, 4095)
+
+
+def _row_operands(torch, gen, name, k, n, dtype):
+    """(w, b) of one product: Paddle's [K, N] Linear weight and bias, or
+    for the head the transposed view of a [V, H] embedding, no bias."""
+    dev = torch.device("cuda", 0)
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+            dtype)
+    if name == "lm_head":
+        return randn(n, k).t(), None
+    return randn(k, n), randn(n)
+
+
+def _host_us(torch, fn, sets, n=400):
+    """Host microseconds to issue one call of ``fn`` (the card runs
+    behind: at a decode step's size every call here is host-bound)."""
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*sets[i % len(sets)])
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def phase_row_gemm_kernels(torch, timer):
+    """row_gemm (``kernels/row_linear.py``, ``csrc/row_gemm.cu``: the
+    cached forward's x @ W + b, ROADMAP C12) at gpt2-small's five product
+    shapes in bf16: at each row count of ``_ROW_COUNTS`` within the
+    serving rule of its plain version, and bit for bit row-invariant
+    (each count's rows equal the same rows of the 4096-row run, and the
+    rows of ``_ROW_ALONE`` alone do too); fp32 and fp16 against their
+    plain versions at one shape. Then timed at a decode step (M 8) and a
+    bucket-512 prefill (M 512) beside the plain version and one cuBLAS
+    call (``F.linear``; ``torch.matmul`` for the head), each call on a
+    weight not left in L2 by the one before. The kernel row is one
+    decode step's 49 products (12 x 4 Linears and the head)."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.kernels import row_linear as rl
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    bf16 = torch.bfloat16
+    worst = 0.0
+    for name, k, n in _ROW_SHAPES:
+        w, b = _row_operands(torch, gen, name, k, n, bf16)
+        x = torch.randn((4096, k), generator=gen, device=dev).to(bf16)
+        full = rl.row_linear(x, w, b)
+        same, errs = [], []
+        for m in _ROW_COUNTS:
+            y = full if m == 4096 else rl.row_linear(x[:m], w, b)
+            same.append(bool(torch.equal(y, full[:m])))
+            err, n_bad = _err(y, rl.row_linear_plain(x[:m], w, b))
+            errs.append(err)
+            if n_bad:
+                fail(f"row_gemm {name} at M={m}: {n_bad} elements beyond "
+                     "the serving rule")
+        alone = [bool(torch.equal(rl.row_linear(x[r:r + 1], w, b),
+                                  full[r:r + 1])) for r in _ROW_ALONE]
+        worst = max([worst] + errs)
+        say("kernel_check", kernel="row_gemm", product=name, k=k, n=n,
+            dtype="bfloat16", splits=rl.split_count(k, n),
+            rows=list(_ROW_COUNTS), max_abs_err=errs,
+            tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|",
+            rows_equal_the_4096_row_run=same, rows_alone=list(_ROW_ALONE),
+            row_alone_equal=alone)
+        if not (all(same) and all(alone)):
+            fail(f"row_gemm {name}: a row's bits depend on the row count: "
+                 f"{same}, {alone}")
+        del x, full
+    for dtype, tol in ((torch.float32, (F32_ATOL, F32_RTOL)),
+                       (torch.float16, (KERNEL_ATOL, KERNEL_RTOL))):
+        w, b = _row_operands(torch, gen, "fc2", 3072, 768, dtype)
+        x = torch.randn((40, 3072), generator=gen, device=dev).to(dtype)
+        y = rl.row_linear(x, w, b)
+        err, n_bad = _err(y, rl.row_linear_plain(x, w, b), *tol)
+        same = bool(torch.equal(rl.row_linear(x[:5], w, b), y[:5]))
+        say("kernel_check", kernel="row_gemm", product="fc2", k=3072,
+            n=768, rows=40, dtype=str(dtype).split(".")[-1],
+            max_abs_err=err, tol=f"{tol[0]}+{tol[1]}*|plain|",
+            out_of_tol=n_bad, rows_equal_the_40_row_run=same)
+        if n_bad or not same:
+            fail(f"row_gemm in {dtype}: {n_bad} beyond tolerance, "
+                 f"invariant {same}")
+    timings = {}
+    for m in (8, 512):
+        for name, k, n in _ROW_SHAPES:
+            wb = k * n * 2
+            sets = []
+            for _ in range(max(2, -(-(64 << 20) // wb))):
+                w, b = _row_operands(torch, gen, name, k, n, bf16)
+                sets.append((torch.randn((m, k), generator=gen,
+                                         device=dev).to(bf16), w, b))
+            ms = timer.ms(rl.row_linear, sets)
+            host_us = _host_us(torch, rl.row_linear, sets) if m == 8 \
+                else None
+            lib_host_us = _host_us(torch, lambda x, w, b: (
+                torch.matmul(x, w) if b is None
+                else TF.linear(x, w.t(), b)), sets) if m == 8 else None
+            plain_ms = timer.ms(rl.row_linear_plain, sets, n=10)
+            if name == "lm_head":
+                lib_ms = timer.ms(lambda x, w, b: torch.matmul(x, w), sets)
+            else:
+                lib_ms = timer.ms(lambda x, w, b: TF.linear(x, w.t(), b),
+                                  sets)
+            n_bytes = 2 * (m * k + k * n + m * n + (0 if name == "lm_head"
+                                                    else n))
+            bms, by = bound_ms(n_bytes, 2 * m * n * k)
+            timings[(m, name)] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bms,
+                                      bound_by=by, host_us=host_us,
+                                      library_host_us=lib_host_us)
+            say("kernel_time", kernel="row_gemm", product=name, m=m, k=k,
+                n=n, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, splits=rl.split_count(k, n),
+                host_us_per_call=host_us, library_host_us_per_call=lib_host_us)
+            del sets
+
+    def step(m, key):
+        t = timings
+        return 12 * sum(t[(m, nm)][key] for nm, _, _ in _ROW_SHAPES[:4]) \
+            + t[(m, "lm_head")][key]
+    row = dict(
+        name="row_gemm", route="cuda",
+        source="paddle_tpu_torch/csrc/row_gemm.cu",
+        replaces="none: XLA's GEMM in paddle_tpu/nn/functional/common.py:12"
+                 " (row-invariant products, ROADMAP C12)",
+        shape="one decode step's 49 products at M 8: 12 x (768x2304, "
+              "768x768, 768x3072, 3072x768) + head 768x50257, bf16",
+        max_abs_err=worst, ms=step(8, "ms"), plain_ms=step(8, "plain_ms"),
+        bound_ms=step(8, "bound_ms"), bound_by="bytes",
+        library_ms=step(8, "library_ms"),
+        prefill_m512=dict(ms=step(512, "ms"),
+                          plain_ms=step(512, "plain_ms"),
+                          library_ms=step(512, "library_ms"),
+                          bound_ms=step(512, "bound_ms")),
+        by_product={f"{name}_m{m}": v for (m, name), v in timings.items()})
+    say("kernel_time", kernel="row_gemm", kernel_ms=row["ms"],
+        plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+        bound_ms=row["bound_ms"], bound_by="bytes", shape=row["shape"],
+        prefill_m512=row["prefill_m512"])
+    return {"row_gemm": row}
+
+
 def phase_head_dims(torch):
     """Head dims the kernels are not built for (80, as a 2560-wide model
     over 32 heads has) take the JAX package's XLA routes on the card, as
@@ -1976,11 +2143,13 @@ def phase_head_dims(torch):
 
 def phase_model(torch):
     """gpt2-small in bf16: a bucket-512 prefill of two ragged prompts
-    plus 8 teacher-forced decode steps, through the kernels and through
-    the plain versions, logits compared."""
+    plus 8 teacher-forced decode steps, through the kernels (rows 1 and
+    5, row_gemm 49 times a forward) and through the plain versions,
+    logits compared."""
     import paddle_tpu_torch.generation.attention as cached_mod
     import paddle_tpu_torch.nn.functional.attention as sdpa_mod
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import row_linear
     from paddle_tpu_torch.models.gpt import gpt
     dev = torch.device("cuda", 0)
     model = gpt("gpt2-small", device=dev, dtype=torch.bfloat16,
@@ -2002,14 +2171,17 @@ def phase_model(torch):
                 out.append(logits.float())
         return torch.cat(out, dim=1)
 
-    fa.reset_counts()
+    _reset_counts(fa)
     kern = run()
     launched = (fa.flash_attention.launches,
-                fa.flash_attention_decode.launches)
+                fa.flash_attention_decode.launches,
+                row_linear.row_linear.launches)
     with mock.patch.object(sdpa_mod, "flash_attention",
                            fa.flash_attention_plain), \
             mock.patch.object(cached_mod, "flash_attention_decode",
-                              fa.flash_attention_decode_plain):
+                              fa.flash_attention_decode_plain), \
+            mock.patch.object(row_linear, "row_linear",
+                              row_linear.row_linear_plain):
         plain = run()
     torch.cuda.synchronize()
     if kern.shape != (2, 9, vocab) or not torch.isfinite(kern).all():
@@ -2020,8 +2192,8 @@ def phase_model(torch):
         decode_steps=8, kernel_launches=list(launched),
         max_abs_logit_diff=diff, tol=LOGIT_TOL,
         logit_spread=float(kern.std()))
-    if launched != (12, 12 * 8):
-        fail(f"model kernel launches {launched}, expected (12, 96)")
+    if launched != (12, 12 * 8, ROW_GEMM_PER_FORWARD * 9):
+        fail(f"model kernel launches {launched}, expected (12, 96, 441)")
     if diff > LOGIT_TOL:
         fail(f"kernel and plain logits differ by {diff} > {LOGIT_TOL}")
     return model
@@ -2058,9 +2230,23 @@ def _serve_config(model, speculative=None, precision="bfloat16",
             .enable_serving(max_queue=64, poll_every=4, **serving))
 
 
+#: row_gemm launches of one cached gpt2-small forward: 12 layers x 4
+#: Linears, and the tied LM head
+ROW_GEMM_PER_FORWARD = 49
+
+
+def _reset_counts(fa):
+    """Zero the flash kernels' and row_linear's counters."""
+    from paddle_tpu_torch.kernels import row_linear
+    fa.reset_counts()
+    row_linear.reset_counts()
+
+
 def _counts(fa):
-    """Launches by kernel (wide and int8 modes apart) and the plain
-    versions' calls, since the last ``reset_counts``."""
+    """Launches by kernel (wide and int8 modes apart, row_gemm beside
+    the attention kernels) and the plain versions' calls, since the last
+    ``_reset_counts``."""
+    from paddle_tpu_torch.kernels import row_linear
     decode_shaped = {"flash_decode": fa.flash_attention_decode,
                      "flash_decode_paged": fa.flash_attention_decode_paged,
                      "flash_chunk": fa.flash_attention_chunk}
@@ -2069,12 +2255,27 @@ def _counts(fa):
         launches[name] = fn.launches
     for name, fn in decode_shaped.items():
         launches[name + "_int8"] = fn.launches_int8
-    plain = fa.flash_attention_plain.calls
+    launches["row_gemm"] = row_linear.row_linear.launches
+    plain = fa.flash_attention_plain.calls + row_linear.row_linear_plain.calls
     for fn in (fa.flash_attention_decode_plain,
                fa.flash_attention_decode_paged_plain,
                fa.flash_attention_chunk_plain):
         plain += fn.calls + fn.calls_int8
     return launches, plain
+
+
+def _row_gate(what, launches, per_forward=ROW_GEMM_PER_FORWARD):
+    """Every cached gpt2-small forward launches 12 attention kernels (one
+    a layer: prefill, chunk, decode step or verify window) and
+    ``per_forward`` row_gemm products: fail unless the counts agree.
+    Returns the forwards counted."""
+    attn = sum(n for k, n in launches.items() if k != "row_gemm")
+    forwards = attn // 12
+    if attn % 12 or launches.get("row_gemm") != per_forward * forwards:
+        fail(f"{what}: {launches.get('row_gemm')} row_gemm launches for "
+             f"{attn} attention launches ({per_forward} a forward "
+             f"expected)")
+    return forwards
 
 
 def _serve(torch, engine, work):
@@ -2083,7 +2284,7 @@ def _serve(torch, engine, work):
     seconds, launches, plain calls)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     torch.cuda.synchronize()
-    fa.reset_counts()
+    _reset_counts(fa)
     t0 = time.perf_counter()
     handles = []
     for items in work:
@@ -2098,7 +2299,9 @@ def _check_served(engine, handles, wall, launches, plain_calls, ran, what,
     """Print the phase line (throughput, latencies, launches, plain calls,
     int8 clips, cache MB) and fail unless every request completed with
     its 64 tokens, exactly the kernels in ``ran`` decoded (flash_fwd may
-    run beside them), no plain version ran and no int8 value saturated."""
+    run beside them), every cached forward launched row_gemm 49 times
+    (``_row_gate``), no plain version ran and no int8 value
+    saturated."""
     from paddle_tpu_torch.serving import RequestStatus
     done = [h for h in handles if h.status is RequestStatus.COMPLETED
             and h.tokens is not None and h.tokens.size == 64]
@@ -2117,10 +2320,11 @@ def _check_served(engine, handles, wall, launches, plain_calls, ran, what,
         fail(f"{what}: {len(handles) - len(done)} of {len(handles)} "
              "requests did not complete with their full budget")
     bad = [k for k, n in launches.items()
-           if (k in ran and n == 0) or (k not in ran and k != "flash_fwd"
-                                        and n)]
+           if (k in ran and n == 0) or (k not in ran and n and k not in (
+               "flash_fwd", "row_gemm"))]
     if bad or launches["flash_fwd"] == 0:
         fail(f"{what} launches {launches}")
+    _row_gate(what, launches)
     if plain_calls:
         fail(f"plain versions ran {plain_calls} times on the {what} path")
     if clips:
@@ -2363,10 +2567,12 @@ def _near_ties(torch, model, prompts, got, ref, max_len, kv_cache_dtype):
     the sequential model's logits there, teacher-forced (a batch-1 bucket
     prefill of the prompt, then one decode step a token of ``ref[:j]``,
     on the same cache dtype): the gap between the logits of the two
-    tokens chosen, and its top-1/top-2 gap. A verify window of Sq = 5
-    rows may round other than Sq = 1 steps (the decode kernel's bits
-    depend on Sq, and the linear layers see 5x the rows), so the two
-    streams may part at a near tie; a fault parts them at a clear one."""
+    tokens chosen, and its top-1/top-2 gap. Every gate that calls it is
+    bitwise: with the cached forward's products on row_gemm, a row's
+    bits depend neither on the batch nor on the verify window
+    (``experiments/serve_batch_invariance.py --spec``: window rows equal
+    Sq = 1 rows in the decode kernel too), so a parting stream is a
+    fault, and this says where it parted and by how much."""
     dev = next(model.parameters()).device
     out = []
     with torch.no_grad():
@@ -2413,13 +2619,29 @@ def _spec_fields(engine, handles):
 
 
 def _gate_spec(what, engine, ties):
+    """Acceptances, and every stream equal to its non-speculative one
+    (``ties`` lists, with its logit gap, each that parts)."""
     if engine.stats["spec_accepted"] <= 0:
         fail(f"{what}: no draft token was accepted "
              f"({engine.stats['spec_proposed']} proposed)")
-    wide = [t for t in ties if not t["gap"] < LOGIT_TOL]
-    if wide:
-        fail(f"{what}: streams part at logit gaps >= {LOGIT_TOL} (not a "
-             f"near tie): {wide}")
+    if ties:
+        fail(f"{what}: streams part from the non-speculative ones: {ties}")
+
+
+def _batch1_spec_generate(model, prompts, engine, spec, kv_cache_dtype):
+    """Each prompt alone through ``generate(speculative=spec)`` at the
+    engine's bucket and cache length: the batch-1 streams."""
+    from paddle_tpu_torch.generation import generate
+    out = []
+    for p in prompts:
+        bucket = next(bk for bk in engine.buckets if bk >= p.size)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :p.size] = p
+        out.append(generate(model, ids, 64, prompt_len=[p.size],
+                            cache_max_len=engine.max_len,
+                            kv_cache_dtype=kv_cache_dtype,
+                            speculative=spec).cpu().numpy()[0])
+    return out
 
 
 def phase_serve_spec(torch, model, prompts, seq_handles, window_ms,
@@ -2427,15 +2649,13 @@ def phase_serve_spec(torch, model, prompts, seq_handles, window_ms,
     """The 16 requests through the speculative dense engine (ngram, k 4;
     full width or int8): every request completes with its budget, 12
     decode launches a verify window in the cache's mode and no other
-    decode-shaped kernel, 12 forward launches a prefill, no plain
-    version, acceptances; each of the first 8 streams equals batch-1
-    ``generate(speculative=...)``, or parts from it at a near tie
-    (ROADMAP C12: cuBLAS picks its GEMM by the row count, 40 rows in the
-    engine's window against 5 in batch-1's, so a row's bits depend on
-    the batch; every such stream is printed); each stream that parts
-    from the non-speculative serve's does so at a near tie; then the
-    speculative decode-step profile."""
-    from paddle_tpu_torch.generation import generate
+    decode-shaped kernel, 12 forward launches a prefill, row_gemm 49 a
+    forward, no plain version, acceptances; each of the first 8 streams
+    equals batch-1 ``generate(speculative=...)`` bit for bit (40 rows in
+    the engine's window against 5 in batch-1's: row_gemm gives a row the
+    same bits at either count, ROADMAP C12); each stream equals the
+    non-speculative serve's bit for bit (a window row gets a one-row
+    step's bits); then the speculative decode-step profile."""
     from paddle_tpu_torch.serving import RequestParams, ServingEngine
     sfx = "" if kv_cache_dtype is None else "_" + kv_cache_dtype
     what = "serve_spec" + sfx
@@ -2446,15 +2666,8 @@ def phase_serve_spec(torch, model, prompts, seq_handles, window_ms,
         torch, engine, [[(p, RequestParams(max_new_tokens=64))
                          for p in prompts]])
     steps = engine.stats["decode_steps"]
-    batch1 = []
-    for p in prompts[:8]:
-        bucket = next(bk for bk in engine.buckets if bk >= p.size)
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :p.size] = p
-        batch1.append(generate(model, ids, 64, prompt_len=[p.size],
-                               cache_max_len=engine.max_len,
-                               kv_cache_dtype=kv_cache_dtype,
-                               speculative=spec).cpu().numpy()[0])
+    batch1 = _batch1_spec_generate(model, prompts[:8], engine, spec,
+                                   kv_cache_dtype)
     batch1_ties = _near_ties(torch, model, prompts[:8],
                              [h.tokens for h in handles[:8]], batch1,
                              engine.max_len, kv_cache_dtype)
@@ -2472,7 +2685,10 @@ def phase_serve_spec(torch, model, prompts, seq_handles, window_ms,
     if launches[decode] != 12 * steps or \
             launches["flash_fwd"] != 12 * engine.stats["prefills"]:
         fail(f"{what}: launches {launches} for {steps} verify windows")
-    _gate_spec(what, engine, batch1_ties + ties)
+    if batch1_ties:
+        fail(f"{what}: streams differ from batch-1 speculative generate: "
+             f"{batch1_ties}")
+    _gate_spec(what, engine, ties)
     _decode_step_profile(torch, engine, prompts[8:], window_ms,
                          "dense_spec" + sfx)
     return launches, handles
@@ -2484,8 +2700,9 @@ def phase_serve_spec_paged(torch, model, prompts, spec_handles,
     the 16 prompts, then the 8 shared-prefix ones. Every stream equals
     the speculative dense engine's bit for bit; prefix pages are shared
     and conserved, none in use after the drain; 12 paged decode launches
-    a window; each stream that parts from ``serve_paged``'s does so at a
-    near tie."""
+    a window; each of the first 8 streams equals batch-1 speculative
+    ``generate`` (dense) bit for bit; each stream equals
+    ``serve_paged``'s bit for bit."""
     from paddle_tpu_torch.serving import RequestParams, ServingEngine
     spec = _spec_config()
     engine = ServingEngine(_serve_config(model, speculative=spec, paged=True,
@@ -2503,11 +2720,17 @@ def phase_serve_spec_paged(torch, model, prompts, spec_handles,
                    for h, r in zip(handles, reference))
     engine._alloc.assert_conserved()
     stats = dict(engine._alloc.stats)
+    batch1 = _batch1_spec_generate(model, prompts[:8], engine, spec, None)
+    batch1_ties = _near_ties(torch, model, prompts[:8],
+                             [h.tokens for h in handles[:8]], batch1,
+                             engine.max_len, None)
     ties = _near_ties(torch, model, list(prompts) + shared,
                       [h.tokens for h in handles],
                       [h.tokens for h in paged_handles], engine.max_len, None)
     _check_served(engine, handles, wall, launches, plain_calls,
                   ("flash_decode_paged",), "serve_spec_paged",
+                  streams_differing_from_batch1_spec_generate=len(
+                      batch1_ties), batch1_near_ties=batch1_ties,
                   page_size=engine.page_size,
                   pool_pages=engine._alloc.n_pages,
                   paged_launches_per_window=launches["flash_decode_paged"]
@@ -2527,6 +2750,9 @@ def phase_serve_spec_paged(torch, model, prompts, spec_handles,
             launches["flash_fwd"] != 12 * prefills:
         fail(f"serve_spec_paged launches {launches} for {steps} windows and "
              f"{prefills} prefills")
+    if batch1_ties:
+        fail(f"serve_spec_paged: streams differ from batch-1 speculative "
+             f"generate: {batch1_ties}")
     _gate_spec("serve_spec_paged", engine, ties)
     return launches
 
@@ -2536,16 +2762,30 @@ def phase_serve_spec_chunked(torch, model, prompts, chunked_handles):
     16 prompts: all complete; inline prefills through flash_fwd, chunks
     through the chunk kernel (12 launches a chunk), verify windows
     through the paged decode kernel (12 a window); no plain version;
-    pages conserved; each stream that parts from ``serve_chunked``'s
-    does so at a near tie."""
+    pages conserved; each of the first 8 streams equals, bit for bit,
+    the same prompt served alone by a one-slot engine of the same
+    configuration (the batch-1 stream: ``generate`` has no chunked
+    prefill, and a chunked prefill rounds other than a bucket one); each
+    stream equals ``serve_chunked``'s bit for bit."""
     from paddle_tpu_torch.serving import RequestParams, ServingEngine
     C = 128
-    engine = ServingEngine(_serve_config(model, speculative=_spec_config(),
-                                         paged=True, kv_page_size=128,
-                                         prefill_chunk_tokens=C))
+
+    def chunked_engine(max_batch):
+        cfg = _serve_config(model, speculative=_spec_config(), paged=True,
+                            kv_page_size=128, prefill_chunk_tokens=C)
+        return ServingEngine(cfg.enable_generation(
+            max_new_tokens=64, prefill_buckets=(128, 512),
+            max_batch=max_batch, speculative=_spec_config()))
+    engine = chunked_engine(8)
     params = RequestParams(max_new_tokens=64)
     handles, wall, launches, plain_calls = _serve(
         torch, engine, [[(p, params) for p in prompts]])
+    alone = chunked_engine(1)
+    batch1 = [alone.serve_forever([(p, params)])[0].tokens
+              for p in prompts[:8]]
+    batch1_ties = _near_ties(torch, model, prompts[:8],
+                             [h.tokens for h in handles[:8]], batch1,
+                             engine.max_len, None)
     steps, chunks = engine.stats["decode_steps"], \
         engine.stats["prefill_chunks"]
     n_short = sum(int(p.size <= C) for p in prompts)
@@ -2560,6 +2800,8 @@ def phase_serve_spec_chunked(torch, model, prompts, chunked_handles):
                   inline_prompts=n_short, prefill_chunks=chunks,
                   expected_chunks=expect_chunks,
                   pages_in_use_after_drain=engine._alloc.used_pages(),
+                  streams_differing_from_batch1_spec=len(batch1_ties),
+                  batch1_near_ties=batch1_ties,
                   streams_differing_from_serve_chunked=len(ties),
                   near_ties=ties, **_spec_fields(engine, handles))
     if chunks != expect_chunks or launches["flash_chunk"] != 12 * chunks or \
@@ -2569,6 +2811,9 @@ def phase_serve_spec_chunked(torch, model, prompts, chunked_handles):
              f"{expect_chunks}), launches {launches} for {steps} windows")
     if engine._alloc.used_pages():
         fail("serve_spec_chunked left pages in use after the drain")
+    if batch1_ties:
+        fail(f"serve_spec_chunked: streams differ from the one-slot "
+             f"engine's: {batch1_ties}")
     _gate_spec("serve_spec_chunked", engine, ties)
     return launches
 
@@ -2580,8 +2825,8 @@ def phase_generate_spec(torch, model, prompts):
     mode 12 a draft step too; 12 a prefill, the draft model's prefill
     included), no plain version; ngram accepts, self-drafting accepts at
     least 0.9 of its proposals (a draft cache out of line with the
-    target's drops that towards 0); streams that part from sequential
-    ``generate`` do so at a near tie."""
+    target's drops that towards 0); streams equal sequential
+    ``generate``'s bit for bit."""
     from paddle_tpu_torch.generation import (GenerationSession,
                                              SpeculativeConfig, generate)
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -2599,7 +2844,7 @@ def phase_generate_spec(torch, model, prompts):
         draft = model if mode == "draft" else None
         sess = GenerationSession(model)
         torch.cuda.synchronize()
-        fa.reset_counts()
+        _reset_counts(fa)
         t0 = time.perf_counter()
         out = generate(model, ids, 64, speculative=spec, draft_model=draft,
                        session=sess, **kw).cpu().numpy()
@@ -2626,15 +2871,15 @@ def phase_generate_spec(torch, model, prompts):
         if launches["flash_decode"] != 12 * (windows + draft_steps) or \
                 launches["flash_fwd"] != 12 * prefills or \
                 any(n for k, n in launches.items()
-                    if k not in ("flash_decode", "flash_fwd")):
+                    if k not in ("flash_decode", "flash_fwd", "row_gemm")):
             fail(f"generate_spec {mode}: launches {launches} for {windows} "
                  f"windows")
+        _row_gate(f"generate_spec {mode}", launches)
         if st["accepted"] <= 0 or (draft is not None and rate < 0.9):
             fail(f"generate_spec {mode}: acceptance {st}")
-        wide = [t for t in ties if not t["gap"] < LOGIT_TOL]
-        if wide:
+        if ties:
             fail(f"generate_spec {mode}: streams part from sequential "
-                 f"generate at gaps >= {LOGIT_TOL}: {wide}")
+                 f"generate: {ties}")
     return total
 
 
@@ -2873,6 +3118,7 @@ def phase_serve_telemetry(torch, model, prompts):
             bad.append("plain")
         if bad:
             fail(f"serve_telemetry {name}: {bad}: {fields}")
+        _row_gate(f"serve_telemetry {name}", launches)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         if name == "dense":
@@ -3028,7 +3274,7 @@ def phase_serve_fleet(torch, model, prompts, serve_handles, card):
         return engine.start()
 
     torch.cuda.synchronize()
-    fa.reset_counts()
+    _reset_counts(fa)
     fleet = InProcessFleet(factory, names=["r0", "r1"],
                            router_kw=dict(seed=SEED))
     server = TelemetryServer(port=0).start().attach_router(fleet.router)
@@ -3146,7 +3392,7 @@ def phase_serve_fleet(torch, model, prompts, serve_handles, card):
     _fleet_preemption(torch, model, prompts)
     launches, plain = _counts(fa)
     want = ("flash_fwd", "flash_decode", "flash_decode_paged",
-            "flash_chunk")
+            "flash_chunk", "row_gemm")
     if plain or any(launches[k] == 0 for k in want) or \
             any(n for k, n in launches.items() if k not in want):
         fail(f"serve_fleet launches {launches}, plain calls {plain}")
@@ -3175,10 +3421,10 @@ def phase_predictor(torch, model, prompts, serve_handles, card):
     (gpt2-small bf16, max_batch 8, buckets 128/512, 64 new tokens), then
     ``generate()`` over the 16 serve prompts (two chunks of 8, each
     right-padded to its bucket). Gates: no kernel built after
-    ``create_predictor``; every stream equal to the dense serve run's or
-    parting from it at a near tie (teacher-forced logit gap < 0.1: a
-    bucket-padded batch-8 prefill rounds its GEMMs other than the
-    engine's batch-1 prefill, ROADMAP C12); rows 1 and 5 launched, no
+    ``create_predictor``; every stream equal to the dense serve run's
+    bit for bit (a bucket-padded batch-8 prefill against the engine's
+    batch-1 one: row_gemm gives a row the same bits at any row count,
+    ROADMAP C12); rows 1 and 5 launched, row_gemm 49 times a forward, no
     plain version; ``run()`` on a [8, 128] id batch equal bit for bit to
     the served module's own logits. Printed: ``device_time_per_run`` of
     that ``run()`` beside the profiler's busy time and the wall per run
@@ -3196,7 +3442,7 @@ def phase_predictor(torch, model, prompts, serve_handles, card):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     builds = _build.build_count()
-    fa.reset_counts()
+    _reset_counts(fa)
     t0 = time.perf_counter()
     outs = pred.generate(prompts)
     torch.cuda.synchronize()
@@ -3204,6 +3450,8 @@ def phase_predictor(torch, model, prompts, serve_handles, card):
     launches, plain = _counts(fa)
     new_builds = _build.build_count() - builds
     ref = [h.tokens for h in serve_handles]
+    differ = [i for i, (o, r) in enumerate(zip(outs, ref))
+              if not np.array_equal(o, r)]
     ties = _near_ties(torch, model, prompts, outs, ref, 640, None)
     # run(): the served module's own logits, bit for bit
     dev = torch.device("cuda", 0)
@@ -3224,7 +3472,7 @@ def phase_predictor(torch, model, prompts, serve_handles, card):
         kernel_builds_after_create=new_builds, wall_s=wall,
         tokens_per_s=sum(int(o.size) for o in outs) / wall,
         launches=launches, plain_calls=plain,
-        streams_differing_from_serve=len(ties), near_ties=ties,
+        streams_differing_from_serve=len(differ), near_ties=ties,
         run_shape=list(got.shape), run_dtype=str(got.dtype),
         run_bitwise_to_served_module=run_bitwise,
         run_slope_ms=slope_ms, run_wall_ms=run_wall_ms,
@@ -3236,12 +3484,13 @@ def phase_predictor(torch, model, prompts, serve_handles, card):
         bad.append("builds")
     if any(o.size != 64 for o in outs) or len(outs) != len(prompts):
         bad.append("budgets")
-    if [t for t in ties if not t["gap"] < LOGIT_TOL]:
+    if differ:
         bad.append("streams")
     if plain or not launches["flash_fwd"] or not launches["flash_decode"] \
             or any(n for k, n in launches.items()
-                   if k not in ("flash_fwd", "flash_decode")):
+                   if k not in ("flash_fwd", "flash_decode", "row_gemm")):
         bad.append("launches")
+    _row_gate("predictor", launches)
     if not run_bitwise or got.dtype != np.float32:
         bad.append("run")
     if not (slope_ms >= 0 and math.isfinite(slope_ms)):
@@ -3299,8 +3548,9 @@ def phase_serve_weights(torch, model, prompts, card, attention_ms):
     completes with its 64 tokens through rows 1 and 5 (7 in its int8
     mode on the paged engine), no plain version; the first 8 streams
     equal batch-1 ``generate`` on the same quantized served module bit
-    for bit (dequantization is per element; Sq = 1 rows keep their
-    bits, C12); every dequantized weight within its step
+    for bit (dequantization is per element, and every product of the
+    cached forward runs row_gemm, 49 a forward); every dequantized
+    weight within its step
     (``_weight_bound_check``); ``Int8ComputeLinear``'s int32
     accumulators at gpt2-small's fc1 shape equal the CPU's on the same
     int8 operands. Printed: Linear weight bytes at bf16, int8 and int4,
@@ -3455,7 +3705,7 @@ def phase_int8_logits(torch, model):
 
 
 def _train_check(torch, phase, model, x, y, dtype, context=None,
-                 loss_scale=1.0, **fields):
+                 loss_scale=1.0, config="gpt2-small", layers=12, **fields):
     """One forward and backward of ``model`` on (x, y) through the flash
     kernels and through their plain versions, under ``context`` (a
     function giving a context manager, e.g. an AMP state), the backward
@@ -3464,7 +3714,8 @@ def _train_check(torch, phase, model, x, y, dtype, context=None,
     TRAIN_LOSS_TOL and every gradient within GRAD_NORM_TOL of its norm
     and GRAD_MAX_TOL of its largest magnitude (the training rule).
     Prints the ``phase`` line; returns the dtypes the forward kernel
-    received (the backward kernel takes the tensors it saved)."""
+    received (the backward kernel takes the tensors it saved). Each of
+    the model's ``layers`` launches rows 1 and 4 once."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     context = context or contextlib.nullcontext
     seen = set()
@@ -3509,7 +3760,7 @@ def _train_check(torch, phase, model, x, y, dtype, context=None,
                            / ref.abs().max().clamp_min(1e-30))
     worst_norm = max(norm_err, key=norm_err.get)
     worst_max = max(max_err, key=max_err.get)
-    say(phase, config="gpt2-small", dtype=dtype, batch=x.shape[0],
+    say(phase, config=config, dtype=dtype, batch=x.shape[0],
         seq=x.shape[1], **fields, kernel_loss=k_loss, plain_loss=p_loss,
         loss_diff=abs(k_loss - p_loss), loss_tol=TRAIN_LOSS_TOL,
         kernel_launches=list(k_counts), plain_run_counts=list(p_counts),
@@ -3518,7 +3769,7 @@ def _train_check(torch, phase, model, x, y, dtype, context=None,
         grad_tols=[GRAD_NORM_TOL, GRAD_MAX_TOL], params=len(k_grads),
         kernel_input_dtypes=sorted(seen), loss_scale=loss_scale)
     del k_grads, p_grads
-    if k_counts != (12, 12) or p_counts != (12, 12, 0, 0):
+    if k_counts != (layers, layers) or p_counts != (layers, layers, 0, 0):
         fail(f"{phase} counts: kernel path {k_counts}, plain path "
              f"{p_counts}")
     if not (math.isfinite(k_loss) and abs(k_loss - p_loss) <= TRAIN_LOSS_TOL):
@@ -4610,6 +4861,297 @@ def phase_train_resnet50_recompute(torch, ref):
     return launches
 
 
+# ------------------------------------------------------ ERNIE and BERT
+
+#: bench.py's two MLM + SOP rows (``_mlm_bench``): phase, configuration,
+#: batch; sequence 512, bf16, AdamW(1e-4, multi_precision=True), the
+#: fused MLM loss over max(int(512 * 0.19), 8) = 97 gathered positions
+ERNIE_SEQ = 512
+ERNIE_RUNS = (("train_ernie_base", "ernie-3.0-base", 32),
+              ("train_bert_large", "bert-large", 16))
+
+
+def phase_ernie_kernels(torch, timer):
+    """Rows 1-4 non-causal at ERNIE's and BERT's training shapes, q, k,
+    v [32, 512, 12, 64] and [16, 512, 16, 64] bf16 (views of one fused
+    qkv buffer, as the model gives them): the forward with its LSE and
+    the backward against their plain versions by the training rule,
+    then both timed beside SDPA's. Returns the timings by shape."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    bf16 = torch.bfloat16
+    out_rows = {}
+    for (_, name, b), h in zip(ERNIE_RUNS, (12, 16)):
+        s, d = ERNIE_SEQ, 64
+
+        def inputs():
+            q, k, v = torch.randn((b, s, 3, h, d), generator=gen,
+                                  device=dev).to(bf16).unbind(2)
+            out, lse = fa.flash_attention(q, k, v, causal=False,
+                                          return_lse=True)
+            do = torch.randn((b, s, h, d), generator=gen,
+                             device=dev).to(bf16)
+            return q, k, v, out, lse, do
+        q, k, v, out, lse, do = inputs()
+        ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal=False,
+                                                    return_lse=True)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, False)
+        ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, False)
+        torch.cuda.synchronize()
+        errs = {"out": _err_scaled(out, ref_out),
+                "lse": _err(lse, ref_lse, LSE_ATOL, LSE_RTOL)}
+        errs.update({n: _err_scaled(a, r) for n, a, r in
+                     zip(("dq", "dk", "dv"), grads, ref)})
+        shape = [b, s, h, d]
+        say("kernel_check", kernel="flash_fwd+flash_bwd", config=name,
+            shape=shape, causal=False, dtype="bfloat16",
+            route=fa.route(bf16, d),
+            max_abs_err={n: e[0] for n, e in errs.items()},
+            tol=f"{ULP_BF16}*|plain|+{SCALED_FRAC}*max|plain| per tensor; "
+                f"lse {LSE_ATOL}+{LSE_RTOL}*|plain|",
+            out_of_tol={n: e[1] for n, e in errs.items()})
+        if any(e[1] for e in errs.values()):
+            fail(f"non-causal flash kernels disagree with their plain "
+                 f"versions at {shape}")
+        del q, k, v, out, lse, do, grads, ref, ref_out, ref_lse
+        sets = [inputs() for _ in range(3)]
+        fwd_ms = timer.ms(lambda q, k, v: fa.flash_attention(
+            q, k, v, causal=False), [st[:3] for st in sets])
+        bwd_ms = timer.ms(lambda q, k, v, o, l, do: fa.flash_attention_bwd(
+            q, k, v, o, l, do, False), sets)
+        lib = []
+        for q, k, v, _, _, do in sets:
+            qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            lib.append((qh, kh, vh, do.transpose(1, 2).contiguous()))
+        fwd_lib = timer.ms(lambda q, k, v, do: TF.scaled_dot_product_attention(
+            q, k, v), lib)
+        outs = [(TF.scaled_dot_product_attention(q, k, v), (q, k, v), do)
+                for q, k, v, do in lib]
+        bwd_lib = timer.ms(lambda o, ins, do: torch.autograd.grad(
+            o, ins, do, retain_graph=True), outs)
+        elems = b * s * h * d
+        pairs = b * h * s * s
+        fb = bound_ms(4 * elems * 2, 4 * pairs * d)
+        bb = bound_ms(8 * elems * 2 + 2 * b * h * s * 4, 10 * pairs * d)
+        out_rows[name] = dict(
+            shape=f"q,k,v [{b},{s},{h},{d}] bf16 non-causal",
+            fwd=dict(ms=fwd_ms, library_ms=fwd_lib, bound_ms=fb[0],
+                     bound_by=fb[1]),
+            bwd=dict(ms=bwd_ms, library_ms=bwd_lib, bound_ms=bb[0],
+                     bound_by=bb[1]))
+        say("kernel_time", kernel="flash_fwd+flash_bwd", config=name,
+            **out_rows[name])
+        del sets, lib, outs
+        torch.cuda.empty_cache()
+    return out_rows
+
+
+def _ernie_batch(torch, model, batch, seq):
+    """bench.py ``_mlm_bench``'s batch: ids from RandomState(0), MLM
+    labels at 15% of positions (-100 elsewhere), SOP labels."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, model.cfg.vocab_size, (batch, seq)).astype(np.int32)
+    mlm = ids.astype(np.int64)
+    mlm[rng.rand(*mlm.shape) > 0.15] = -100
+    sop = rng.randint(0, 2, (batch,)).astype(np.int64)
+    return (torch.as_tensor(ids, device=dev),
+            (torch.as_tensor(mlm, device=dev),
+             torch.as_tensor(sop, device=dev)))
+
+
+def _device_profile(torch, fn):
+    """One call of ``fn`` under the profiler: device busy ms, launches,
+    and the ten kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    devev = [e for e in prof.key_averages()
+             if e.device_time_total > 0 and e.cpu_time_total == 0]
+    top = sorted(devev, key=lambda e: -e.device_time_total)[:10]
+    return (sum(e.device_time_total for e in devev) / 1e3,
+            sum(e.count for e in devev),
+            [dict(name=e.key[:60], ms=e.device_time_total / 1e3,
+                  calls=e.count) for e in top])
+
+
+def phase_train_ernie(torch, what, name, batch, card):
+    """``bench.py``'s ``_mlm_bench`` on the card: ``ernie(name,
+    fused_mlm_loss=True, max_predictions=97)``, ``.bfloat16()``,
+    ``AdamW(1e-4, multi_precision=True)``, ``TrainStep`` on one batch
+    of ``batch`` x 512. First one forward and backward at b4 through the
+    kernels and through the plain versions (GPT's loss and gradient
+    rule); then 10 steps: losses finite and falling, rows 1 and 4 once a
+    layer a step (non-causal), no plain version. Printed: the step wall,
+    tokens/s, MFU (``flops_per_token(512)`` against 989 TFLOP/s), peak
+    memory, the device's idle share and its top kernels."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.ernie import ernie
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    model = ernie(name, device=dev, fused_mlm_loss=True,
+                  max_predictions=max(int(ERNIE_SEQ * 0.19), 8),
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    model.bfloat16()
+    model.train()
+    layers = model.cfg.num_layers
+    x, y = _ernie_batch(torch, model, batch, ERNIE_SEQ)
+    _train_check(torch, what + "_check", model, x[:4],
+                 tuple(t[:4] for t in y), "bfloat16", config=name,
+                 layers=layers)
+    opt = optimizer.AdamW(1e-4, parameters=model.parameters(),
+                          multi_precision=True)
+    step = jit.TrainStep(model, opt, lambda out, lbl: model.loss(out, lbl))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    losses, walls = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "flash_bwd": fa.flash_attention_bwd.launches}
+    plain_calls = (fa.flash_attention_plain.calls
+                   + fa.flash_attention_bwd_plain.calls)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    wall_ms = float(np.median(walls[1:]))
+    tokens_per_s = batch * ERNIE_SEQ / (wall_ms / 1e3)
+    fpt = model.flops_per_token(ERNIE_SEQ)
+    busy_ms, n_launch, top = _device_profile(torch, lambda: step(x, y))
+    say(what, card=card, config=name, dtype="bfloat16", batch=batch,
+        seq=ERNIE_SEQ, params=model.num_params(),
+        optimizer="AdamW(1e-4, multi_precision=True)",
+        max_predictions=model.cfg.max_predictions, losses=losses,
+        step_wall_ms=walls, median_step_ms=wall_ms,
+        tokens_per_s=tokens_per_s, flops_per_token=fpt,
+        mfu=tokens_per_s * fpt / PEAK_FLOPS, peak_memory_gib=peak / 2 ** 30,
+        launches=launches, launches_per_step={k: v / 10 for k, v in
+                                              launches.items()},
+        plain_calls=plain_calls, device_busy_ms=busy_ms,
+        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        device_launches_per_step=n_launch, top_kernels=top)
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"{what} losses not finite or not falling: {losses}")
+    if launches != {"flash_fwd": 10 * layers, "flash_bwd": 10 * layers}:
+        fail(f"{what} launches {launches}, expected {layers} + {layers} a "
+             "step")
+    if plain_calls:
+        fail(f"plain versions ran {plain_calls} times on {what}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ernie_encode(torch, card):
+    """Incremental encoding with ernie-3.0-base in eval (fp32, as the
+    reference's test runs): two 128-token prompts prefilled into a
+    cache, then 4 tokens appended in one window, against the same
+    prefill followed by four 1-token appends (the reference's
+    ``test_ernie_incremental_encoding_consistency``: within 2e-4; the
+    pooled output None on every append); the prefill through row 1
+    (non-causal), the appends through row 5, row_gemm 49 times a prefill
+    (with the pooler) and 48 an append, no plain version."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.ernie import ernie
+    dev = torch.device("cuda", 0)
+    model = ernie("ernie-3.0-base", device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(SEED))
+    model.eval()
+    enc = model.ernie
+    ids = torch.as_tensor(np.random.RandomState(SEED + 5).randint(
+        0, model.cfg.vocab_size, (2, 132)), device=dev)
+    _reset_counts(fa)
+    with torch.no_grad():
+        _, pooled, c1 = enc(ids[:, :128], use_cache=True, cache_max_len=256)
+        block, none1, c1 = enc(ids[:, 128:132], cache=c1)
+        _, _, c2 = enc(ids[:, :128], use_cache=True, cache_max_len=256)
+        steps, nones = [], [none1]
+        for t in range(128, 132):
+            h, none, c2 = enc(ids[:, t:t + 1], cache=c2)
+            steps.append(h[:, 0])
+            nones.append(none)
+        torch.cuda.synchronize()
+    launches, plain = _counts(fa)
+    singles = torch.stack(steps, dim=1)
+    diff = float((block - singles).abs().max())
+    ok = bool(torch.allclose(block, singles, rtol=2e-4, atol=2e-4))
+    kv = (c1.kv_len.tolist(), c2.kv_len.tolist())
+    layers = model.cfg.num_layers
+    want_rows = 2 * (4 * layers + 1) + 5 * 4 * layers
+    say("ernie_encode", card=card, config="ernie-3.0-base",
+        dtype="float32", prefill=[2, 128], append_tokens=4,
+        window_vs_single_max_abs_diff=diff, tol="2e-4+2e-4*|single|",
+        pooled_shape=list(pooled.shape),
+        pooled_none_on_append=all(n is None for n in nones),
+        kv_len=kv, launches=launches, plain_calls=plain,
+        row_gemm_expected=want_rows)
+    if not ok or not torch.isfinite(block).all():
+        fail(f"ernie_encode: append window parts from single appends by "
+             f"{diff}")
+    if any(n is not None for n in nones) or pooled is None:
+        fail("ernie_encode: pooled output on an append, or none on prefill")
+    if kv != ([132, 132], [132, 132]):
+        fail(f"ernie_encode kv_len {kv}")
+    if plain or launches["flash_fwd"] != 2 * layers or \
+            launches["flash_decode"] != 5 * layers or \
+            launches["row_gemm"] != want_rows or \
+            any(n for k, n in launches.items()
+                if k not in ("flash_fwd", "flash_decode", "row_gemm")):
+        fail(f"ernie_encode launches {launches}, plain calls {plain}")
+    del model
+    return launches
+
+
+def phase_ernie_classify(torch, card):
+    """``ErnieForSequenceClassification`` on ernie-3.0-base (bf16, eval,
+    3 classes) at b8 s128 with a padding mask on half the rows and
+    without: the logits through the kernels (row 1 when unmasked;
+    ``sdpa_xla`` with the mask, as in the reference) against the plain
+    versions within 0.1, finite."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.ernie import (CONFIGS,
+                                               ErnieForSequenceClassification)
+    dev = torch.device("cuda", 0)
+    model = ErnieForSequenceClassification(
+        CONFIGS["ernie-3.0-base"], num_classes=3, device=dev,
+        dtype=torch.bfloat16,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    model.eval()
+    rng = np.random.RandomState(SEED + 6)
+    ids = torch.as_tensor(rng.randint(0, 40000, (8, 128)), device=dev)
+    mask = torch.ones((8, 128), dtype=torch.int64, device=dev)
+    mask[4:, 96:] = 0
+    out = {}
+    for label, m in (("unmasked", None), ("masked", mask)):
+        _reset_counts(fa)
+        with torch.no_grad():
+            got = model(ids, None, m)
+            launched = fa.flash_attention.launches
+            with mock.patch.object(fa, "_forward", fa.flash_attention_plain):
+                ref = model(ids, None, m)
+        torch.cuda.synchronize()
+        diff = float((got.float() - ref.float()).abs().max())
+        out[label] = dict(max_abs_logit_diff=diff, flash_fwd=launched,
+                          finite=bool(torch.isfinite(got).all()))
+        if not out[label]["finite"] or diff > LOGIT_TOL:
+            fail(f"ernie_classify {label}: logits differ by {diff}")
+    say("ernie_classify", card=card, config="ernie-3.0-base", classes=3,
+        batch=8, seq=128, tol=LOGIT_TOL, **out)
+    if out["unmasked"]["flash_fwd"] != 12 or out["masked"]["flash_fwd"]:
+        fail(f"ernie_classify launches {out}")
+    del model
+    return {"flash_fwd": 12}
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -4635,6 +5177,7 @@ def main():
     rows.update(phase_fused_conv3x3_kernels(torch, timer))
     rows.update(phase_norm_adamw_kernels(torch, timer))
     rows.update(phase_fused_ce_kernels(torch, timer))
+    rows.update(phase_row_gemm_kernels(torch, timer))
     phase_head_dims(torch)
     model = phase_model(torch)
     prompts = _serve_prompts(model)
@@ -4703,6 +5246,20 @@ def main():
     paths.append(("train_resnet50", launches))
     paths.append(("train_resnet50_recompute",
                   phase_train_resnet50_recompute(torch, resnet_run)))
+    del resnet_run
+    torch.cuda.empty_cache()
+    # ERNIE and BERT: rows 1-4 non-causal, bench.py's two MLM rows, the
+    # cached encoding, the classifier
+    noncausal = phase_ernie_kernels(torch, timer)
+    rows["flash_fwd"]["noncausal_train_shapes"] = {
+        k: dict(shape=v["shape"], **v["fwd"]) for k, v in noncausal.items()}
+    rows["flash_bwd"]["noncausal_train_shapes"] = {
+        k: dict(shape=v["shape"], **v["bwd"]) for k, v in noncausal.items()}
+    for what, name, batch in ERNIE_RUNS:
+        paths.append((what, phase_train_ernie(torch, what, name, batch,
+                                              card)))
+    paths.append(("ernie_encode", phase_ernie_encode(torch, card)))
+    paths.append(("ernie_classify", phase_ernie_classify(torch, card)))
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths
                    if name in counts}

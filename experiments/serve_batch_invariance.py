@@ -7,18 +7,22 @@ batch gets the bits a batch of one would give it:
 Builds ``chip_smoke.py``'s gpt2-small (bf16, random weights from its
 seed) and serves its 16 prompts through ``ServingEngine`` on the card
 (8 slots, cache 640, 64 new tokens). While the engine runs, every call
-of the port's ``layer_norm``, ``torch.nn.functional.gelu`` and
-``linear``, the LM head's ``torch.matmul`` and the decode kernel whose
-input is a decode step's batch ([8, 1, ...]) is repeated for each row
-alone, and the row's bits compared. Then the first 8 requests run
+of the port's ``layer_norm``, ``torch.nn.functional.gelu``,
+``row_linear`` (every product of the cached forward, the LM head's
+included) and the decode kernel whose input is a decode step's batch
+([8, 1, ...]) is repeated for each row alone, and the row's bits
+compared. Then the first 8 requests run
 through batch-1 ``generate``, and each decode call's query and output
 bits are matched against the engine's for the same row. With
 ``--two-pass-layer-norm`` the port's ``layer_norm`` is replaced by the
 two-``mean`` form it had on the card before (ROADMAP C10). With
 ``--spec`` the engine and ``generate`` decode speculatively
 (``chip_smoke.py``'s ngram k = 4): the checked calls are the verify
-windows' ([8, 5, ...] against each [1, 5, ...] row). Prints one JSON
-line of counts per check.
+windows' ([8, 5, ...] against each [1, 5, ...] row), and each query
+row i of a window is also held against a one-row (Sq = 1) call of the
+decode kernel over the same keys (``kv_len - 4 + i``), the call a
+non-speculative step makes for that position
+(``window_row_vs_sq1``). Prints one JSON line of counts per check.
 """
 import collections
 import hashlib
@@ -39,6 +43,7 @@ import paddle_tpu_torch.generation.attention as cached_mod  # noqa: E402
 import paddle_tpu_torch.nn.functional as PF  # noqa: E402
 from paddle_tpu_torch.generation import generate  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.kernels import row_linear as rl  # noqa: E402
 from paddle_tpu_torch.models.gpt import gpt  # noqa: E402
 from paddle_tpu_torch.serving import RequestParams, ServingEngine  # noqa: E402
 
@@ -95,6 +100,26 @@ def row_checked(fn, name, counts, batch_args=False):
     return call
 
 
+def sq1_checked(fn, counts):
+    """The decode kernel, also holding each query row i of a verify
+    window against a one-row call over the same keys: the row of a
+    non-speculative step at that position."""
+    def call(q, k, v, kv_len, scale=None, **scales):
+        out = fn(q, k, v, kv_len, scale, **scales)
+        sq = q.shape[1]
+        if sq > 1:
+            for i in range(sq):
+                lens = kv_len - (sq - 1 - i)
+                one = fn(q[:, i:i + 1], k, v, lens, scale, **scales)
+                live = lens > 0
+                counts["window_row_vs_sq1_rows"] += int(live.sum())
+                counts["window_row_vs_sq1_differ"] += int(
+                    (live & ~(one[:, 0] == out[:, i]).flatten(1).all(1))
+                    .sum())
+        return out
+    return call
+
+
 def digest(t):
     return hashlib.md5(t.contiguous().view(torch.uint8).cpu().numpy()
                        .tobytes()).hexdigest()
@@ -114,24 +139,23 @@ def main():
     if "--two-pass-layer-norm" in sys.argv:
         PF.layer_norm = two_pass_layer_norm
     layer_norm = PF.layer_norm
-    saved = (TF.gelu, TF.linear, torch.matmul,
-             cached_mod.flash_attention_decode)
+    saved = (TF.gelu, rl.row_linear, cached_mod.flash_attention_decode)
 
     counts = collections.Counter()
     PF.layer_norm = row_checked(layer_norm, "layer_norm", counts)
     TF.gelu = row_checked(saved[0], "gelu", counts)
-    TF.linear = row_checked(saved[1], "linear", counts)
-    torch.matmul = row_checked(saved[2], "lm_head", counts)
-    cached_mod.flash_attention_decode = row_checked(
-        saved[3], "decode_kernel", counts, batch_args=True)
+    rl.row_linear = row_checked(saved[1], "linear", counts)
+    rl.row_linear.launches = 0   # the kernel's wrapper counts on its name
+    cached_mod.flash_attention_decode = sq1_checked(row_checked(
+        saved[2], "decode_kernel", counts, batch_args=True), counts)
     try:
         ServingEngine(chip_smoke._serve_config(
             model, speculative=SPEC,
             kv_cache_dtype=KV_DTYPE)).serve_forever(work)
     finally:
         PF.layer_norm = layer_norm
-        TF.gelu, TF.linear, torch.matmul = saved[:3]
-        cached_mod.flash_attention_decode = saved[3]
+        TF.gelu, rl.row_linear = saved[:2]
+        cached_mod.flash_attention_decode = saved[2]
     print(json.dumps(dict(check="rows_against_batch_1", kv=KV,
                           window=WINDOW,
                           layer_norm=layer_norm.__name__, **counts)),
@@ -141,7 +165,7 @@ def main():
     calls = []
 
     def recorded(q, k, v, kv_len, scale=None, **scales):
-        out = saved[3](q, k, v, kv_len, scale, **scales)
+        out = saved[2](q, k, v, kv_len, scale, **scales)
         for b in range(q.shape[0]):
             if int(kv_len[b]) > 0:
                 calls.append(((int(kv_len[b]), digest(q[b])),
@@ -176,7 +200,7 @@ def main():
                 step=unmatched[0] // 12, layer=unmatched[0] % 12),
             tokens_equal=bool(np.array_equal(ref, handles[i].tokens)))),
             flush=True)
-    cached_mod.flash_attention_decode = saved[3]
+    cached_mod.flash_attention_decode = saved[2]
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import torch.nn.functional as TF
 from torch import nn
 
 from ..core import device as device_mod
+from ..kernels import row_linear as _row
 from ..nn import functional as F
 from ..nn.layers_common import Conv2D, Linear
 from ..quantization.fake_quant import quantize_int8
@@ -114,7 +115,10 @@ class WeightOnlyLinear(_WeightOnly):
         self.out_features = lin.out_features
 
     def forward(self, x):
-        return TF.linear(x, self.weight.t(), self.bias)
+        w = self.weight
+        if _row.routes(x, w, self.bias):
+            return _row.row_linear(x, w, self.bias)
+        return TF.linear(x, w.t(), self.bias)
 
 
 class WeightOnlyConv2D(_WeightOnly):

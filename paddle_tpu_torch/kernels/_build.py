@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: every kernel library, by source name
 SOURCES = ("flash_fwd", "flash_bwd", "flash_decode", "flash_decode_paged",
            "fused_resnet", "fused_conv3x3", "fused_norm", "fused_adamw",
-           "fused_ce")
+           "fused_ce", "row_gemm")
 
 # held across every stale check, build and load: engines stepping on
 # several threads (an in-process fleet, a relaunched replica warming up)

@@ -7,7 +7,9 @@ prefill attention go through ``nn.functional.scaled_dot_product_attention``
 (the flash forward and backward kernels on a card), decode attention
 through ``generation.attention.cached_attention`` (the flash decode,
 chunk or paged decode kernel). The tied LM head is a plain ``torch.matmul`` against ``wte``,
-as the JAX package leaves it to XLA. ``use_recompute`` runs each block
+as the JAX package leaves it to XLA. The cached forward runs every
+product (the Linears and the head) through ``kernels.row_linear``, so a
+row's bits do not depend on the batch. ``use_recompute`` runs each block
 in training as a recompute region (``distributed.parallel.recompute``)
 under ``recompute_granularity``'s policy. Options of the JAX config that
 are not ported yet (sequence parallelism, experts) raise.
@@ -29,6 +31,7 @@ from ..core import device as device_mod
 from ..distributed.parallel.recompute import recompute
 from ..generation.attention import cached_attention
 from ..generation.kv_cache import KVCache
+from ..kernels import row_linear
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
 
@@ -215,6 +218,7 @@ class GPTModel(nn.Module):
                 x = block(x, attn_mask)
         return self.ln_f(x)
 
+    @row_linear.in_cached_forward
     def _forward_cached(self, input_ids, attn_mask, cache, prompt_len,
                         cache_max_len, cache_dtype=None):
         """Generation forward: prefill creates and fills the KV cache
@@ -277,6 +281,8 @@ class GPTForCausalLM(nn.Module):
             return self.lm_head(h)
         # the JAX package's F.linear against the transposed wte
         h, w = amp.maybe_cast("linear", h, self.gpt.embed.wte.weight)
+        if row_linear.routes(h, w):
+            return row_linear.row_linear(h, w.t())
         return torch.matmul(h, w.t())
 
     def forward(self, input_ids, attn_mask=None, cache=None,
@@ -297,6 +303,7 @@ class GPTForCausalLM(nn.Module):
             return h, w
         return self._logits(h)
 
+    @row_linear.in_cached_forward
     def _forward_cached(self, input_ids, attn_mask, cache, prompt_len,
                         cache_max_len, cache_dtype=None):
         """Generation forward: returns (logits, cache). Prefill returns

@@ -1,5 +1,6 @@
 from . import functional  # noqa: F401
-from .container import Sequential  # noqa: F401
+from . import initializer  # noqa: F401
+from .container import LayerList, Sequential  # noqa: F401
 from .layers_common import (AdaptiveAvgPool2D, BatchNorm2D,  # noqa: F401
                             BCELoss, BCEWithLogitsLoss, Conv2D,
                             CrossEntropyLoss, Dropout, Embedding, KLDivLoss,

@@ -1,5 +1,6 @@
 """Functionals the ported modules use (``torch.nn.functional`` covers
 the rest)."""
+from .activation import gelu, tanh  # noqa: F401
 from .attention import scaled_dot_product_attention  # noqa: F401
 from .common import flatten, linear, pad, relu  # noqa: F401
 from .conv import conv2d  # noqa: F401

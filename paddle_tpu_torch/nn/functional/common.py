@@ -7,11 +7,15 @@ import torch
 import torch.nn.functional as TF
 
 from ... import amp
+from ...kernels import row_linear as _row
 
 
 def linear(x, weight, bias=None):
-    """y = x @ weight + bias with Paddle's [in, out] ``weight``."""
+    """y = x @ weight + bias with Paddle's [in, out] ``weight``; inside a
+    cached forward through the row-invariant ``row_linear``."""
     x, weight, bias = amp.maybe_cast("linear", x, weight, bias)
+    if _row.routes(x, weight, bias):
+        return _row.row_linear(x, weight, bias)
     return TF.linear(x, weight.t(), bias)
 
 

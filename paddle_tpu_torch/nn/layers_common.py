@@ -23,6 +23,7 @@ from ..core import device as device_mod
 from ..core import dtype as dtype_mod
 from ..core import random as random_mod
 from . import functional as F
+from . import initializer as I
 
 
 def _param(shape, device, dtype, init, generator=None) -> nn.Parameter:
@@ -48,6 +49,11 @@ def _param(shape, device, dtype, init, generator=None) -> nn.Parameter:
     return nn.Parameter(data)
 
 
+def _generator(device, generator):
+    return generator if generator is not None \
+        else random_mod.generator(device_mod.resolve(device))
+
+
 class Linear(nn.Module):
     """y = xW + b with W of shape [in_features, out_features]. ``std``
     is the normal init's deviation (default: Xavier-normal, Paddle's
@@ -55,16 +61,21 @@ class Linear(nn.Module):
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, *, std: Optional[float] = None,
-                 device=None, dtype=None, generator=None):
+                 device=None, dtype=None, generator=None,
+                 weight_attr=None, bias_attr=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         if std is None:
             std = math.sqrt(2.0 / (in_features + out_features))
-        self.weight = _param((in_features, out_features), device, dtype,
-                             std, generator)
-        self.bias = _param((out_features,), device, dtype, "zeros") \
-            if bias else None
+        gen = _generator(device, generator)
+        self.weight = I.apply_attr(
+            _param((in_features, out_features), device, dtype,
+                   I.default_unless(weight_attr, std), gen),
+            weight_attr, gen)
+        self.bias = I.apply_attr(
+            _param((out_features,), device, dtype, "zeros"), bias_attr, gen) \
+            if bias and bias_attr is not False else None
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -77,12 +88,15 @@ class Linear(nn.Module):
 class Embedding(nn.Module):
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
                  std: float = 1.0, device=None, dtype=None,
-                 generator=None):
+                 generator=None, weight_attr=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = _param((num_embeddings, embedding_dim), device,
-                             dtype, std, generator)
+        gen = _generator(device, generator)
+        self.weight = I.apply_attr(
+            _param((num_embeddings, embedding_dim), device, dtype,
+                   I.default_unless(weight_attr, std), gen),
+            weight_attr, gen)
 
     def forward(self, x):
         return TF.embedding(x, self.weight)

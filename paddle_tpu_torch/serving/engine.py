@@ -474,9 +474,11 @@ class ServingEngine:
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             # the flash forward (inline prefill), the slots' decode
-            # kernel, and the chunk kernel (in the dense decode library)
+            # kernel, the chunk kernel (in the dense decode library) and
+            # the cached forward's row-invariant products
             from ..kernels import flash_attention as fa
-            libs = {"flash_fwd": fa._FWD_SIG}
+            from ..kernels import row_linear
+            libs = {"flash_fwd": fa._FWD_SIG, "row_gemm": row_linear._SIG}
             if self._alloc is None or self._chunk_enabled:
                 libs["flash_decode"] = fa._DECODE_SIG
             if self._alloc is not None:

@@ -2319,3 +2319,93 @@ def test_recomputed_bn_blocks_leave_running_stats(dev):
     (l0, k0, p0), (l1, k1, p1) = runs
     assert l1 == l0 and p0 == p1 == 0
     assert [b - a for a, b in zip(k0, k1)] == [10, 6, 0, 0, 4, 0]
+
+
+# ------------------------------------------- row_gemm (ROADMAP C12)
+
+_ROW_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+               (768, 50257), (64, 37), (60, 20)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("k,n", _ROW_SHAPES)
+@pytest.mark.parametrize("layout", ["kn", "head"])
+def test_row_linear_matches_plain(dev, dtype, k, n, layout):
+    from paddle_tpu_torch.kernels import row_linear as rl
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    x = _randn(gen, (40, k), dtype, dev)
+    if layout == "head":      # the tied head: wte [N, K] seen as [K, N]
+        w, b = (_randn(gen, (n, k), dtype, dev) * 0.02).t(), None
+    else:
+        w = _randn(gen, (k, n), dtype, dev) * 0.02
+        b = _randn(gen, (n,), dtype, dev)
+    rl.reset_counts()
+    out = rl.row_linear(x, w, b)
+    assert rl.row_linear.launches == 1 and rl.row_linear_plain.calls == 0
+    _close(out, rl.row_linear_plain(x, w, b))
+
+
+@pytest.mark.parametrize("k,n", _ROW_SHAPES[:5])
+def test_row_linear_rows_do_not_depend_on_the_row_count(dev, k, n):
+    """ROADMAP C12: each row of an M-row call has the bits of the same
+    row in a 4096-row call, for M in {1, 5, 8, 40, 512, 4096}."""
+    from paddle_tpu_torch.kernels import row_linear as rl
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(gen, (4096, k), torch.bfloat16, dev)
+    w = _randn(gen, (k, n), torch.bfloat16, dev) * 0.02
+    b = _randn(gen, (n,), torch.bfloat16, dev)
+    full = rl.row_linear(x, w, b)
+    for m in (1, 5, 8, 40, 512):
+        assert torch.equal(rl.row_linear(x[:m], w, b), full[:m]), m
+    for r in (3, 63, 64, 2049):
+        assert torch.equal(rl.row_linear(x[r:r + 1], w, b), full[r:r + 1])
+
+
+def test_cached_gpt_forward_launches_row_gemm(dev):
+    from paddle_tpu_torch.kernels import row_linear as rl
+    from paddle_tpu_torch.models.gpt import gpt
+    m = gpt("test-tiny", device=dev, dtype=torch.bfloat16,
+            generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    ids = torch.randint(0, 512, (3, 16), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    rl.reset_counts()
+    with torch.no_grad():
+        logits, cache = m(ids, use_cache=True, cache_max_len=64)
+        m(ids[:, :1], cache=cache)
+        m(ids)                        # uncached: cuBLAS
+    assert rl.row_linear.launches == 2 * (2 * 4 + 1)
+    assert rl.row_linear_plain.calls == 0
+
+
+def test_ernie_training_step_matches_plain_kernels(dev):
+    """Rows 1-4 non-causal inside ERNIE's training step at test-tiny:
+    loss and gradients against the same step on the plain kernels."""
+    from unittest import mock
+    from paddle_tpu_torch.models.ernie import ernie
+    m = ernie("test-tiny", device=dev, fused_mlm_loss=True,
+              generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ids = torch.randint(0, 512, (2, 64), device=dev, generator=gen)
+    mlm = torch.where(torch.rand((2, 64), device=dev, generator=gen) < 0.2,
+                      ids, torch.full_like(ids, -100))
+    y = (mlm, torch.tensor([0, 1], device=dev))
+
+    def run():
+        m.zero_grad(set_to_none=True)
+        loss = m.loss(m(ids), y)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in m.named_parameters()}
+    fa.reset_counts()
+    loss, grads = run()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_bwd.launches) == (2, 2)
+    with mock.patch.object(fa, "_forward", fa.flash_attention_plain), \
+            mock.patch.object(fa, "flash_attention_bwd",
+                              fa.flash_attention_bwd_plain):
+        ref_loss, ref = run()
+    assert abs(loss - ref_loss) < 1e-4
+    for n, g in grads.items():
+        torch.testing.assert_close(g, ref[n], atol=1e-4, rtol=1e-3,
+                                   msg=n)
