@@ -1926,11 +1926,20 @@ _ROW_SHAPES = (("qkv", 768, 2304), ("out_proj", 768, 768),
                ("fc1", 768, 3072), ("fc2", 3072, 768),
                ("lm_head", 768, 50257))
 #: row counts held: one token, a batch-1 verify window, a decode step, an
-#: 8-slot verify window, a prefill bucket, a batch-8 bucket-512 prefill
-_ROW_COUNTS = (1, 5, 8, 40, 512, 4096)
-#: single rows held against the 4096-row run: first and later rows of a
-#: 64-row tile, the first of the next tile, the last
-_ROW_ALONE = (0, 5, 37, 63, 64, 4095)
+#: 8-slot verify window, both sides of the 64-row tile's edges, a prefill
+#: bucket, a batch-8 bucket-512 prefill
+_ROW_COUNTS = (1, 5, 8, 40, 63, 64, 65, 127, 128, 129, 512, 4096)
+#: single rows held against the 4096-row run: inside, at and past the
+#: edges of 64-row tiles, the last
+_ROW_ALONE = (0, 5, 37, 63, 64, 65, 127, 128, 129, 4095)
+#: the other products held (name, K, N), on a 520-row run, in both W
+#: layouts with and without a bias in each dtype: gpt2-small's fc2 and
+#: qkv, K and N ragged to the tile and the TMA box (multiples of 8: the
+#: warpgroup route) and ragged to 8 (the CUDA-core route)
+_ROW_EXTRA = (("fc2", 3072, 768), ("qkv_head_layout", 768, 2304),
+              ("ragged_box", 200, 328), ("ragged_8", 60, 37))
+_ROW_EXTRA_COUNTS = (1, 5, 8, 63, 64, 65, 129, 512)
+_ROW_EXTRA_ALONE = (0, 63, 64, 65, 519)
 
 
 def _row_operands(torch, gen, name, k, n, dtype):
@@ -1960,64 +1969,110 @@ def _host_us(torch, fn, sets, n=400):
     return dt / n * 1e6
 
 
+def _row_invariance(torch, rl, x, w, b, counts, alone, tol):
+    """Hold ``row_linear`` on x's rows: within ``tol`` of the plain
+    version at each row count, each count's rows equal to the same rows
+    of the whole run, the rows of ``alone`` alone too, and the whole run
+    repeating bit for bit. Returns (worst error, out-of-tolerance count,
+    per-count equal, per-row equal, repeat)."""
+    full = rl.row_linear(x, w, b)
+    repeat = bool(torch.equal(rl.row_linear(x, w, b), full))
+    same, errs, bad = [], [], 0
+    for m in counts:
+        y = full if m == x.shape[0] else rl.row_linear(x[:m], w, b)
+        same.append(bool(torch.equal(y, full[:m])))
+        err, n_bad = _err(y, rl.row_linear_plain(x[:m], w, b), *tol)
+        errs.append(err)
+        bad += n_bad
+    one = [bool(torch.equal(rl.row_linear(x[r:r + 1], w, b), full[r:r + 1]))
+           for r in alone]
+    return max(errs), bad, same, one, repeat
+
+
 def phase_row_gemm_kernels(torch, timer):
     """row_gemm (``kernels/row_linear.py``, ``csrc/row_gemm.cu``: the
     cached forward's x @ W + b, ROADMAP C12) at gpt2-small's five product
     shapes in bf16: at each row count of ``_ROW_COUNTS`` within the
     serving rule of its plain version, and bit for bit row-invariant
     (each count's rows equal the same rows of the 4096-row run, and the
-    rows of ``_ROW_ALONE`` alone do too); fp32 and fp16 against their
-    plain versions at one shape. Then timed at a decode step (M 8) and a
-    bucket-512 prefill (M 512) beside the plain version and one cuBLAS
-    call (``F.linear``; ``torch.matmul`` for the head), each call on a
-    weight not left in L2 by the one before. The kernel row is one
-    decode step's 49 products (12 x 4 Linears and the head)."""
+    rows of ``_ROW_ALONE`` alone do too, and the run repeats bit for
+    bit); then ``_ROW_EXTRA``: both W layouts with and without a bias in
+    bf16, fp16 and fp32 (each within its rule: the serving rule, or
+    ``F32_ATOL``/``F32_RTOL``), ragged K and N, and a row view at an
+    address TMA cannot take, the same way on 520 rows. Then timed at a
+    decode step (M 8) and a bucket-512 prefill (M 512) beside the plain
+    version and one cuBLAS call (``F.linear``; ``torch.matmul`` for the
+    head), each call on a weight not left in L2 by the one before, with
+    host microseconds a call at M 8. The kernel row is one decode step's
+    49 products (12 x 4 Linears and the head)."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.kernels import row_linear as rl
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     bf16 = torch.bfloat16
+    serving = (KERNEL_ATOL, KERNEL_RTOL)
     worst = 0.0
+
+    def plan_of(w):
+        p = rl.plan_for(w)
+        return dict(route=p.route, tile=list(p.tile), splits=p.splits)
+
     for name, k, n in _ROW_SHAPES:
         w, b = _row_operands(torch, gen, name, k, n, bf16)
         x = torch.randn((4096, k), generator=gen, device=dev).to(bf16)
-        full = rl.row_linear(x, w, b)
-        same, errs = [], []
-        for m in _ROW_COUNTS:
-            y = full if m == 4096 else rl.row_linear(x[:m], w, b)
-            same.append(bool(torch.equal(y, full[:m])))
-            err, n_bad = _err(y, rl.row_linear_plain(x[:m], w, b))
-            errs.append(err)
-            if n_bad:
-                fail(f"row_gemm {name} at M={m}: {n_bad} elements beyond "
-                     "the serving rule")
-        alone = [bool(torch.equal(rl.row_linear(x[r:r + 1], w, b),
-                                  full[r:r + 1])) for r in _ROW_ALONE]
-        worst = max([worst] + errs)
+        err, n_bad, same, alone, repeat = _row_invariance(
+            torch, rl, x, w, b, _ROW_COUNTS, _ROW_ALONE, serving)
+        worst = max(worst, err)
         say("kernel_check", kernel="row_gemm", product=name, k=k, n=n,
-            dtype="bfloat16", splits=rl.split_count(k, n),
-            rows=list(_ROW_COUNTS), max_abs_err=errs,
+            dtype="bfloat16", **plan_of(w),
+            rows=list(_ROW_COUNTS), max_abs_err=err, out_of_tol=n_bad,
             tol=f"{KERNEL_ATOL}+{KERNEL_RTOL}*|plain|",
             rows_equal_the_4096_row_run=same, rows_alone=list(_ROW_ALONE),
-            row_alone_equal=alone)
-        if not (all(same) and all(alone)):
+            row_alone_equal=alone, repeats_bitwise=repeat)
+        if n_bad:
+            fail(f"row_gemm {name}: {n_bad} elements beyond the serving rule")
+        if not (all(same) and all(alone) and repeat):
             fail(f"row_gemm {name}: a row's bits depend on the row count: "
-                 f"{same}, {alone}")
-        del x, full
-    for dtype, tol in ((torch.float32, (F32_ATOL, F32_RTOL)),
-                       (torch.float16, (KERNEL_ATOL, KERNEL_RTOL))):
-        w, b = _row_operands(torch, gen, "fc2", 3072, 768, dtype)
-        x = torch.randn((40, 3072), generator=gen, device=dev).to(dtype)
-        y = rl.row_linear(x, w, b)
-        err, n_bad = _err(y, rl.row_linear_plain(x, w, b), *tol)
-        same = bool(torch.equal(rl.row_linear(x[:5], w, b), y[:5]))
-        say("kernel_check", kernel="row_gemm", product="fc2", k=3072,
-            n=768, rows=40, dtype=str(dtype).split(".")[-1],
-            max_abs_err=err, tol=f"{tol[0]}+{tol[1]}*|plain|",
-            out_of_tol=n_bad, rows_equal_the_40_row_run=same)
-        if n_bad or not same:
-            fail(f"row_gemm in {dtype}: {n_bad} beyond tolerance, "
-                 f"invariant {same}")
+                 f"{same}, {alone}, repeat {repeat}")
+        del x
+    extra = []
+    for dtype, tol in ((bf16, serving), (torch.float16, serving),
+                       (torch.float32, (F32_ATOL, F32_RTOL))):
+        for name, k, n in _ROW_EXTRA:
+            for layout, bias in (("kn", True), ("kn", False),
+                                 ("head", False), ("head", True)):
+                w, _ = _row_operands(torch, gen, "lm_head" if layout ==
+                                     "head" else name, k, n, dtype)
+                b = torch.randn((n,), generator=gen, device=dev).to(
+                    dtype) if bias else None
+                x = torch.randn((520, k), generator=gen, device=dev).to(dtype)
+                err, n_bad, same, alone, repeat = _row_invariance(
+                    torch, rl, x, w, b, _ROW_EXTRA_COUNTS, _ROW_EXTRA_ALONE,
+                    tol)
+                ok = not n_bad and all(same) and all(alone) and repeat
+                extra.append(dict(product=name, k=k, n=n, layout=layout,
+                                  bias=bias, dtype=str(dtype).split(".")[-1],
+                                  **plan_of(w),
+                                  max_abs_err=err, ok=ok))
+                if not ok:
+                    fail(f"row_gemm {name} {layout} bias={bias} {dtype}: "
+                         f"{n_bad} beyond {tol}, counts {same}, alone "
+                         f"{alone}, repeat {repeat}")
+    # a row view at a 2-byte offset: copied, then the layer's one route
+    flat = torch.randn((9 * 768 + 1,), generator=gen, device=dev).to(bf16)
+    view = flat[1:].view(9, 768)
+    w, b = _row_operands(torch, gen, "qkv", 768, 2304, bf16)
+    y = rl.row_linear(view, w, b)
+    unaligned_equal = bool(torch.equal(y, rl.row_linear(view.clone(), w, b)))
+    err, n_bad = _err(y, rl.row_linear_plain(view, w, b))
+    say("kernel_check", kernel="row_gemm", cases=extra,
+        counts=list(_ROW_EXTRA_COUNTS), alone=list(_ROW_EXTRA_ALONE),
+        unaligned_view_offset_bytes=view.data_ptr() % 16,
+        unaligned_view_equal_aligned=unaligned_equal,
+        unaligned_view_max_abs_err=err)
+    if n_bad or not unaligned_equal:
+        fail(f"row_gemm on an unaligned view: {n_bad} beyond the rule, "
+             f"equal to the aligned copy {unaligned_equal}")
     timings = {}
     for m in (8, 512):
         for name, k, n in _ROW_SHAPES:
@@ -2048,7 +2103,7 @@ def phase_row_gemm_kernels(torch, timer):
                                       library_host_us=lib_host_us)
             say("kernel_time", kernel="row_gemm", product=name, m=m, k=k,
                 n=n, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bms, bound_by=by, splits=rl.split_count(k, n),
+                bound_ms=bms, bound_by=by, **plan_of(w),
                 host_us_per_call=host_us, library_host_us_per_call=lib_host_us)
             del sets
 
@@ -2070,11 +2125,18 @@ def phase_row_gemm_kernels(torch, timer):
                           plain_ms=step(512, "plain_ms"),
                           library_ms=step(512, "library_ms"),
                           bound_ms=step(512, "bound_ms")),
+        host_us_per_call=[f(t["host_us"] for (m, _), t in timings.items()
+                            if m == 8) for f in (min, max)],
+        library_host_us_per_call=[
+            f(t["library_host_us"] for (m, _), t in timings.items()
+              if m == 8) for f in (min, max)],
         by_product={f"{name}_m{m}": v for (m, name), v in timings.items()})
     say("kernel_time", kernel="row_gemm", kernel_ms=row["ms"],
         plain_ms=row["plain_ms"], library_ms=row["library_ms"],
         bound_ms=row["bound_ms"], bound_by="bytes", shape=row["shape"],
-        prefill_m512=row["prefill_m512"])
+        prefill_m512=row["prefill_m512"],
+        host_us_per_call=row["host_us_per_call"],
+        library_host_us_per_call=row["library_host_us_per_call"])
     return {"row_gemm": row}
 
 
@@ -2403,9 +2465,9 @@ def phase_serve(torch, model, prompts, decode_ms, kv_cache_dtype=None):
 def _decode_step_profile(torch, engine, prompts, attention_ms, cache):
     """Where a decode step's time goes, all 8 slots live: the wall time
     of a step (the host issues 500-1000 launches, so the spin-kernel
-    timer does not apply) against the device time its kernels take, and
-    the tokens a slot emits a step over the timed steps (1 without
-    speculation, up to k + 1 with it)."""
+    timer does not apply) against the device time its kernels take,
+    ``row_gemm``'s part of it, and the tokens a slot emits a step over
+    the timed steps (1 without speculation, up to k + 1 with it)."""
     from paddle_tpu_torch.serving import RequestParams
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
@@ -2430,11 +2492,14 @@ def _decode_step_profile(torch, engine, prompts, attention_ms, cache):
     dev = [e for e in prof.key_averages()
            if e.device_time_total > 0 and e.cpu_time_total == 0]
     busy_ms = sum(e.device_time_total for e in dev) / (1e3 * n)
+    row_ms = sum(e.device_time_total for e in dev
+                 if "row_gemm" in e.key) / (1e3 * n)
     top = sorted(dev, key=lambda e: -e.device_time_total)[:8]
     say("decode_step", cache=cache, live_slots=live,
         tokens_per_slot_step=emitted / (n * live), wall_ms=wall_ms,
         device_busy_ms=busy_ms,
         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        row_gemm_ms=row_ms, row_gemm_share_of_busy=row_ms / busy_ms,
         launches_per_step=sum(e.count for e in dev) / n,
         attention_kernel_ms=engine.network.cfg.num_layers * attention_ms,
         top_kernels=[dict(name=e.key[:48], ms_per_step=e.device_time_total

@@ -1,7 +1,9 @@
 // The port's warpgroup matrix-product body for bf16 on Hopper (sm_90a):
-// wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate) on operands that
-// TMA copies into shared memory in the 128-byte swizzled layout wgmma
-// reads, through a ring of kStages slices guarded by mbarriers.
+// wgmma.mma_async m64n128k16 (bf16 in, fp32 accumulate; the fp16 form
+// too, for row_gemm.cu) on operands that TMA copies into shared memory in
+// the 128-byte swizzled layout wgmma reads, through a ring of kStages
+// slices guarded by mbarriers. row_gemm.cu builds its own 64-row ring
+// from the maps, barriers, descriptors and products below.
 //
 // A block owns one kBM x kBN (128 x 128) output tile and is 160 threads:
 // one consumer warpgroup (warps 0-3), which issues the products of both
@@ -81,21 +83,23 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// The bf16 matrix [rows][cols] at base (row stride ld elements, cols
-// contiguous) as a TMA map whose box is 64 columns x box_rows rows,
-// 128-byte swizzled, zeros outside the matrix. False when libcuda
-// refuses it (base or ld*2 not a multiple of 16 bytes, an empty side).
+// The matrix [rows][cols] of 2-byte elements (bf16 unless type says
+// otherwise) at base (row stride ld elements, cols contiguous) as a TMA
+// map whose box is 64 columns x box_rows rows, 128-byte swizzled, zeros
+// outside the matrix. False when libcuda refuses it (base or ld*2 not a
+// multiple of 16 bytes, an empty side).
 inline bool make_map(CUtensorMap* map, const void* base, int64_t rows,
-                     int64_t cols, int64_t ld, int box_rows) {
+                     int64_t cols, int64_t ld, int box_rows,
+                     CUtensorMapDataType type =
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr || rows < 1 || cols < 1) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -188,39 +192,45 @@ __device__ __forceinline__ void fence_operands(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A (64 x 16) @ B (16 x 128); kTA / kTB: the operand is MN-major
-template <int kTA, int kTB>
+// d += A (64 x 16) @ B (16 x 128) in fp32; TY the operands' type ("bf16"
+// or "f16"); kTA / kTB: the operand is MN-major
+#define PADDLE_WGMMA_M64N128(TY)                                              \
+  asm volatile(                                                               \
+      "{\n"                                                                   \
+      ".reg .pred p;\n"                                                       \
+      "setp.ne.b32 p, %66, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, %67, %68;\n"                                     \
+      "}\n"                                                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB))
+template <int kTA, int kTB, bool kF16 = false>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
                                               uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+  if constexpr (kF16) PADDLE_WGMMA_M64N128("f16");
+  else PADDLE_WGMMA_M64N128("bf16");
 }
+
+#undef PADDLE_WGMMA_M64N128
 
 // tile row and column of accumulator i of half h, consumer thread t
 __device__ __forceinline__ int frag_row(int h, int i, int t) {

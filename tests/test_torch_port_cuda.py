@@ -2323,8 +2323,24 @@ def test_recomputed_bn_blocks_leave_running_stats(dev):
 
 # ------------------------------------------- row_gemm (ROADMAP C12)
 
+# gpt2-small's five products; ragged to the tile and box (multiples of 8:
+# the warpgroup route, TMA's zero fill); ragged to 8 (the CUDA-core route)
 _ROW_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
-               (768, 50257), (64, 37), (60, 20)]
+               (768, 50257), (200, 328), (64, 37), (60, 20)]
+#: row counts held against the 4096-row run: a token, a verify window, a
+#: decode step, an 8-slot window, both sides of the 64-row tile's edges,
+#: a prefill bucket
+_ROW_COUNTS = (1, 5, 8, 40, 63, 64, 65, 127, 128, 129, 512)
+#: single rows held against it: inside, at and past the tile edges
+_ROW_ALONE = (0, 3, 63, 64, 65, 127, 128, 129, 2049, 4095)
+
+
+def _row_operands(gen, k, n, dtype, dev, layout, bias):
+    if layout == "head":      # the tied head: wte [N, K] seen as [K, N]
+        w = (_randn(gen, (n, k), dtype, dev) * 0.02).t()
+    else:
+        w = _randn(gen, (k, n), dtype, dev) * 0.02
+    return w, (_randn(gen, (n,), dtype, dev) if bias else None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -2335,31 +2351,85 @@ def test_row_linear_matches_plain(dev, dtype, k, n, layout):
     from paddle_tpu_torch.kernels import row_linear as rl
     gen = torch.Generator(device=dev).manual_seed(k + n)
     x = _randn(gen, (40, k), dtype, dev)
-    if layout == "head":      # the tied head: wte [N, K] seen as [K, N]
-        w, b = (_randn(gen, (n, k), dtype, dev) * 0.02).t(), None
-    else:
-        w = _randn(gen, (k, n), dtype, dev) * 0.02
-        b = _randn(gen, (n,), dtype, dev)
+    w, b = _row_operands(gen, k, n, dtype, dev, layout, layout == "kn")
     rl.reset_counts()
     out = rl.row_linear(x, w, b)
     assert rl.row_linear.launches == 1 and rl.row_linear_plain.calls == 0
     _close(out, rl.row_linear_plain(x, w, b))
 
 
-@pytest.mark.parametrize("k,n", _ROW_SHAPES[:5])
-def test_row_linear_rows_do_not_depend_on_the_row_count(dev, k, n):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("k,n", _ROW_SHAPES)
+@pytest.mark.parametrize("layout,bias", [("kn", True), ("kn", False),
+                                         ("head", False), ("head", True)])
+def test_row_linear_rows_do_not_depend_on_the_row_count(dev, dtype, k, n,
+                                                         layout, bias):
     """ROADMAP C12: each row of an M-row call has the bits of the same
-    row in a 4096-row call, for M in {1, 5, 8, 40, 512, 4096}."""
+    row in a 4096-row call, for every M of ``_ROW_COUNTS``, alone at the
+    tile edges, and whatever the other rows hold; a call repeats bit for
+    bit."""
     from paddle_tpu_torch.kernels import row_linear as rl
     gen = torch.Generator(device=dev).manual_seed(7)
-    x = _randn(gen, (4096, k), torch.bfloat16, dev)
-    w = _randn(gen, (k, n), torch.bfloat16, dev) * 0.02
-    b = _randn(gen, (n,), torch.bfloat16, dev)
+    x = _randn(gen, (4096, k), dtype, dev)
+    w, b = _row_operands(gen, k, n, dtype, dev, layout, bias)
     full = rl.row_linear(x, w, b)
-    for m in (1, 5, 8, 40, 512):
+    assert torch.equal(rl.row_linear(x, w, b), full)
+    for m in _ROW_COUNTS:
         assert torch.equal(rl.row_linear(x[:m], w, b), full[:m]), m
-    for r in (3, 63, 64, 2049):
+    for r in _ROW_ALONE:
         assert torch.equal(rl.row_linear(x[r:r + 1], w, b), full[r:r + 1])
+    other = x.clone()
+    other[1::2] = _randn(gen, (2048, k), dtype, dev) * 100
+    assert torch.equal(rl.row_linear(other, w, b)[::2], full[::2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_row_linear_unaligned_row_view_is_copied(dev, dtype):
+    """A view of x at an address TMA cannot take is copied into fresh
+    memory and takes the layer's one route: its rows get the bits of the
+    same rows at an aligned address."""
+    from paddle_tpu_torch.kernels import row_linear as rl
+    gen = torch.Generator(device=dev).manual_seed(9)
+    k, n = 768, 2304
+    flat = _randn(gen, (9 * k + 1,), dtype, dev)
+    view = flat[1:].view(9, k)
+    assert view.data_ptr() % 16
+    w, b = _row_operands(gen, k, n, dtype, dev, "kn", True)
+    rl.reset_counts()
+    got = rl.row_linear(view, w, b)
+    assert rl.row_linear.launches == 1
+    assert torch.equal(got, rl.row_linear(view.clone(), w, b))
+    _close(got, rl.row_linear_plain(view, w, b))
+
+
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("k,n,layout", [(768, 2304, "kn"), (768, 768, "kn"),
+                                        (768, 3072, "kn"), (3072, 768, "kn"),
+                                        (768, 50257, "head")])
+def test_row_linear_is_one_kernel_a_product(dev, m, k, n, layout):
+    """One launch a product: the splits fold inside a cluster, so no
+    second kernel (and no device-memory partial) runs."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels import row_linear as rl
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _randn(gen, (m, k), torch.bfloat16, dev)
+    w, b = _row_operands(gen, k, n, torch.bfloat16, dev, layout,
+                         layout == "kn")
+    p = rl.plan(k, n, torch.bfloat16, layout == "head", True)
+    assert p.route == "wgmma" and 1 <= p.splits <= rl.MAX_SPLITS
+    rl.row_linear(x, w, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):   # CUPTI's start-up
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            rl.row_linear(x, w, b)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert len(kernels) == 3 and all("row_gemm_wgmma" in k
+                                     for k in kernels), kernels
 
 
 def test_cached_gpt_forward_launches_row_gemm(dev):
