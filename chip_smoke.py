@@ -5217,6 +5217,327 @@ def phase_ernie_classify(torch, card):
     return {"flash_fwd": 12}
 
 
+
+# ------------------------------------------------- the eager op surface
+
+#: card against the port's own CPU run, per element (fp32): the two run
+#: other kernels (cuBLAS, cuSOLVER, CUDA transcendentals against MKL and
+#: LAPACK), so each value and gradient within 1e-5 + 1e-5 * |cpu|
+SURFACE_TOL = 1e-5
+#: eager_dygraph's double grad and PyLayer gradient, card against CPU,
+#: as max |diff| / max |cpu|: a chain of six fp32 products (K <= 32)
+#: through tanh's first and second derivatives, summed in other orders,
+#: where small values cancel. fp32 against float64 reads 4.2e-7 of the
+#: largest value (1.6e-5 per element), operands rounded to TF32 3.3e-3
+#: and a flipped sign of tanh'' 2.0
+#: (``experiments/double_grad_tolerance.py``)
+COMPOSITE_TOL = 1e-4
+#: seconds ``import paddle_tpu_torch`` took in a fresh process on the
+#: parent commit (de5d443), four runs in turns with this tree's
+#: (``experiments/import_time_probe.py build/parent . --rounds=4`` on an
+#: NVIDIA H100 80GB HBM3 machine, 700.00 W; this tree's were 6.05,
+#: 6.64, 7.08 and 7.44 in the same call)
+PARENT_IMPORT_S = [6.548, 6.476, 8.021, 7.574]
+#: the eager_dygraph MLP at gpt2-small's width
+DYGRAPH_SHAPE = (8, 128, 768)
+DYGRAPH_HIDDEN = 3072
+DYGRAPH_STEPS = 10
+DISPATCH_CALLS = 1000
+
+
+def _surface_cases():
+    """The parity cases' table (numpy only, no JAX package code)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _port_op_cases
+    return _port_op_cases
+
+
+def _surface_run(P, H, name, device):
+    """Op ``name`` of the port on ``device`` ('gpu', or 'cpu' for the
+    reference side) from the parity cases' numpy inputs: (outputs,
+    dtypes, gradient or None), every tensor checked to live there."""
+    from paddle_tpu_torch.core import device as port_device
+    port_device.set_device(device)
+    reg = P.ops.OPS[name]
+    args, kwargs = H.CASES[name][0], H.CASES[name][1]
+    gi = H._grad_index(name, reg.differentiable)
+    targs, target = [], None
+    for i, a in enumerate(args):
+        t = H._to(P, a, stop_gradient=(i != gi))
+        if i == gi:
+            target = t[0] if isinstance(t, list) else t
+        targs.append(t)
+    out = reg.public(*targs, **kwargs)
+    leaves = [o for o in H._leaves(out)]
+    want = {"gpu": "cuda", "cpu": "cpu"}[device]
+    for o in leaves:
+        if hasattr(o, "place") and o.place.type != want:
+            fail(f"op_surface: {name}'s output lives on {o.place}, not "
+                 f"{want}")
+    grad = None
+    if target is not None:
+        loss = None
+        w_rng = np.random.RandomState(len(name))
+        for o in leaves:
+            if H._dtype_name(o) not in ("float32", "float16"):
+                continue
+            w = np.asarray(w_rng.randn(*o.shape), np.float32)
+            term = (o.astype("float32") * P.to_tensor(w)).sum()
+            loss = term if loss is None else loss + term
+        if loss is not None and not loss.stop_gradient:
+            loss.backward()
+        if target.grad is not None:
+            if target.grad.place.type != want:
+                fail(f"op_surface: {name}'s gradient lives on "
+                     f"{target.grad.place}")
+            grad = target.grad.numpy()
+    return [H._np(o) for o in leaves], [H._dtype_name(o) for o in leaves], \
+        grad
+
+
+def _surface_err(name, a, b, sort=False):
+    """max |card - cpu| / (1 + |cpu|), failing past SURFACE_TOL."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        fail(f"op_surface: {name} shape {a.shape} on the card, {b.shape} "
+             f"on the CPU")
+    if sort:
+        a, b = np.sort_complex(a.ravel()), np.sort_complex(b.ravel())
+    if a.dtype.kind in "biu":
+        if not np.array_equal(a, b):
+            fail(f"op_surface: {name}'s integer output differs")
+        return 0.0
+    if a.size == 0:
+        return 0.0
+    fin = np.isfinite(b)
+    if not np.array_equal(np.isfinite(a), fin) or not np.array_equal(
+            a[~fin], b[~fin]):
+        fail(f"op_surface: {name}'s non-finite values differ")
+    err = float(np.max(np.abs(a[fin] - b[fin]) / (1.0 + np.abs(b[fin])))
+                ) if fin.any() else 0.0
+    if not err <= SURFACE_TOL:
+        fail(f"op_surface: {name} differs from the CPU by {err:.3g} "
+             f"(limit {SURFACE_TOL})")
+    return err
+
+
+def phase_op_surface(torch, card):
+    """Every registered op of the port on the card from the parity
+    cases' inputs, held to the port's own CPU result (values,
+    dtypes, gradients), every output on the card; then the functions
+    whose output shape depends on the data."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as port_device
+    H = _surface_cases()
+    t0 = time.perf_counter()
+    worst, compared, grads = {}, 0, 0
+    try:
+        for name in sorted(P.ops.OPS):
+            if name in H.EXCEPTIONS:
+                continue
+            if name not in H.CASES:
+                fail(f"op_surface: no case for registered op {name}")
+            cv, cd, cg = _surface_run(P, H, name, "gpu")
+            hv, hd, hg = _surface_run(P, H, name, "cpu")
+            if cd != hd:
+                fail(f"op_surface: {name} dtypes {cd} on the card, {hd} on "
+                     f"the CPU")
+            sort = H.options(name).get("sorted", False)
+            err = max([_surface_err(name, a, b, sort)
+                       for a, b in zip(cv, hv)] or [0.0])
+            if (cg is None) != (hg is None):
+                fail(f"op_surface: {name}'s gradient on one side only")
+            if cg is not None:
+                err = max(err, _surface_err(name + " gradient", cg, hg))
+                grads += 1
+            worst[name] = err
+            compared += 1
+        rng = np.random.RandomState(5)
+        x = rng.randn(64, 33).astype(np.float32)
+        ids = rng.randint(0, 7, 200)
+        for what, fn in (
+                ("unique", lambda: P.unique(P.to_tensor(ids),
+                                            return_index=True,
+                                            return_inverse=True,
+                                            return_counts=True)),
+                ("nonzero", lambda: P.nonzero(P.to_tensor(x > 0))),
+                ("masked_select", lambda: P.masked_select(
+                    P.to_tensor(x), P.to_tensor(x > 0.5))),
+                ("getitem_bool", lambda: P.to_tensor(x)[P.to_tensor(
+                    x < 0)]),
+                ("unique_consecutive", lambda: P.ops.OPS[
+                    "unique_consecutive"].public(P.to_tensor(np.sort(ids)),
+                                                 return_counts=True))):
+            port_device.set_device("gpu")
+            card_out = fn()
+            card_out = card_out if isinstance(card_out, tuple) \
+                else (card_out,)
+            if any(o.place.type != "cuda" for o in card_out):
+                fail(f"op_surface: {what} left the card")
+            port_device.set_device("cpu")
+            cpu_out = fn()
+            cpu_out = cpu_out if isinstance(cpu_out, tuple) else (cpu_out,)
+            worst[what] = max(_surface_err(what, a.numpy(), b.numpy())
+                              for a, b in zip(card_out, cpu_out))
+    finally:
+        port_device.set_device("gpu")
+    for mod in ("jax", "paddle_tpu"):
+        if mod in sys.modules:
+            fail(f"op_surface: {mod} was imported")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:8]
+    say("op_surface", card=card, registered=len(P.ops.OPS),
+        ops_run=len(P.ops.OPS) - len(H.EXCEPTIONS), compared=compared,
+        gradients_compared=grads, data_dependent_compared=5,
+        exceptions=H.EXCEPTIONS, tolerance=SURFACE_TOL,
+        worst=dict(top), worst_by_op=worst,
+        seconds=time.perf_counter() - t0)
+
+
+def _dygraph_loss(ops, x, w1, b1, w2, b2):
+    """The MLP block's loss: mean(square(tanh(x w1 + b1) w2 + b2))."""
+    h = ops["tanh"](ops["add"](ops["matmul"](x, w1), b1))
+    return ops["mean"](ops["square"](ops["add"](ops["matmul"](h, w2), b2)))
+
+
+def _call_host_us(torch, fn, n):
+    """Host µs a call over ``n`` calls of ``fn()``, the card drained
+    before and after (each call enqueues less work than the host spends
+    on it)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def _import_seconds():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import time; t = time.perf_counter(); import paddle_tpu_torch; "
+         "print(time.perf_counter() - t)"], cwd=HERE, capture_output=True,
+        text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"import paddle_tpu_torch: {out.stderr.strip()[-400:]}")
+    return float(out.stdout.strip().splitlines()[-1])
+
+
+def phase_eager_dygraph(torch, card):
+    """gpt2-small-wide MLP written with the top-level ops only, 10 eager
+    AdamW steps on ``create_parameter`` weights, bitwise against the
+    same loop in plain torch; a double grad and a PyLayer against the
+    CPU; the dispatch's host cost a call against the torch call."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as port_device
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    port_device.set_device("gpu")
+    P.seed(SEED)
+    d, hdim = DYGRAPH_SHAPE[-1], DYGRAPH_HIDDEN
+    w1 = P.create_parameter([d, hdim], "float32")
+    b1 = P.create_parameter([hdim], "float32", is_bias=True)
+    w2 = P.create_parameter([hdim, d], "float32")
+    b2 = P.create_parameter([d], "float32", is_bias=True)
+    x = P.randn(list(DYGRAPH_SHAPE))
+    plain = [torch.nn.Parameter(p.detach().as_subclass(torch.Tensor)
+                                .clone()) for p in (w1, b1, w2, b2)]
+    xp = x.detach().as_subclass(torch.Tensor).clone()
+    runs = {}
+    for what, params, xin, ops in (
+            ("surface", [w1, b1, w2, b2], x,
+             dict(matmul=P.matmul, add=P.add, tanh=P.tanh,
+                  square=P.square, mean=P.mean)),
+            ("plain", plain, xp,
+             dict(matmul=torch.matmul, add=torch.add, tanh=torch.tanh,
+                  square=torch.square, mean=torch.mean))):
+        opt = AdamW(learning_rate=1e-3, parameters=params)
+        losses, step_ms = [], []
+        for _ in range(DYGRAPH_STEPS):
+            s0 = time.perf_counter()
+            loss = _dygraph_loss(ops, xin, *params)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())       # waits for the step
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        # the first step of the first loop also starts cuBLAS: the median
+        # of the others
+        runs[what] = (losses, float(np.median(step_ms[1:])))
+    sl, pl = runs["surface"][0], runs["plain"][0]
+    if not all(np.isfinite(sl)) or not sl[-1] < sl[0]:
+        fail(f"eager_dygraph: the loss did not fall: {sl}")
+    if sl != pl:
+        fail(f"eager_dygraph: losses differ from plain torch: {sl} / {pl}")
+    if any(p.grad is not None for p in (w1, b1, w2, b2)):
+        fail("eager_dygraph: clear_grad left a gradient")
+    # a double grad and a PyLayer on the card against the CPU
+    rng = np.random.RandomState(1)
+    a = rng.randn(16, 32).astype(np.float32)
+    m = rng.randn(32, 8).astype(np.float32)
+
+    class Cube(P.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, t):
+            ctx.save_for_backward(t)
+            return t * t * t
+
+        @staticmethod
+        def backward(ctx, g):
+            (t,) = ctx.saved_tensor
+            return g * 3.0 * t * t
+
+    checks = {}
+    for dev in ("gpu", "cpu"):
+        port_device.set_device(dev)
+        xa = P.to_tensor(a, stop_gradient=False)
+        out = P.tanh(P.matmul(xa, P.to_tensor(m))).sum()
+        (gx,) = P.grad(out, [xa], create_graph=True)
+        ((gx * gx).sum()).backward()
+        c = P.to_tensor(a, stop_gradient=False)
+        Cube.apply(c).sum().backward()
+        checks[dev] = (gx.numpy(), xa.grad.numpy(), c.grad.numpy(),
+                       gx.place.type)
+    port_device.set_device("gpu")
+    if checks["gpu"][3] != "cuda":
+        fail("eager_dygraph: paddle.grad's result left the card")
+    errs = {}
+    for i, k in enumerate(("grad_create_graph", "double_grad",
+                           "pylayer_grad")):
+        a, b = checks["gpu"][i], checks["cpu"][i]
+        errs[k] = float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+        if not errs[k] <= COMPOSITE_TOL:
+            fail(f"eager_dygraph: {k} differs from the CPU by "
+                 f"{errs[k]:.3g} of its largest value (limit "
+                 f"{COMPOSITE_TOL})")
+    # the registry's host cost a call against the torch call alone
+    xs = P.randn([8, d])
+    wm = P.randn([d, d])
+    xs_t, wm_t = (t.detach().as_subclass(torch.Tensor) for t in (xs, wm))
+    us = {}
+    for rep in range(2):
+        for key, fn in (("add_dispatch", lambda: P.add(xs, xs)),
+                        ("add_torch", lambda: torch.add(xs_t, xs_t)),
+                        ("matmul_dispatch", lambda: P.matmul(xs, wm)),
+                        ("matmul_torch", lambda: torch.matmul(xs_t, wm_t))):
+            us.setdefault(key, []).append(_call_host_us(torch, fn,
+                                                        DISPATCH_CALLS))
+    imp = [_import_seconds() for _ in range(3)]
+    say("eager_dygraph", card=card, shape=list(DYGRAPH_SHAPE),
+        hidden=hdim, steps=DYGRAPH_STEPS, losses=sl,
+        losses_bitwise_plain_torch=True,
+        median_step_ms=runs["surface"][1],
+        plain_median_step_ms=runs["plain"][1],
+        errors_against_cpu=errs, host_us_a_call=us,
+        dispatch_overhead_us={
+            op: min(us[op + "_dispatch"]) - min(us[op + "_torch"])
+            for op in ("add", "matmul")},
+        calls=DISPATCH_CALLS, import_s=imp,
+        parent_import_s=PARENT_IMPORT_S,
+        seconds=time.perf_counter() - t0)
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -5325,6 +5646,10 @@ def main():
                                               card)))
     paths.append(("ernie_encode", phase_ernie_encode(torch, card)))
     paths.append(("ernie_classify", phase_ernie_classify(torch, card)))
+    # the eager Tensor and the op surface: no hand-written kernel runs
+    # in them, so they add no launches to any row
+    phase_op_surface(torch, card)
+    phase_eager_dygraph(torch, card)
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths
                    if name in counts}

@@ -8,9 +8,11 @@ inputs are cast up); any other op takes its inputs as they come. O2:
 an optimizer built with ``multi_precision=True`` keeps float32 masters.
 
 The JAX package casts in its op dispatch, by the op's registered name.
-This package has no op dispatch yet (ROADMAP A2), so every function
-whose JAX counterpart dispatches under a listed name calls
-``maybe_cast(name, *tensors)`` at its head: ``nn.functional.linear``
+This package's op registry (``ops/op_registry.py``) does the same for
+the ops of ``ops/``; the ``nn`` functions, which are not registered ops
+yet (ROADMAP A2b), call ``maybe_cast(name, *tensors)`` at their head
+wherever their JAX counterpart dispatches under a listed name:
+``nn.functional.linear``
 (and ``Linear``, the GPT LM head), ``conv2d``, ``layer_norm``,
 ``rms_norm``, ``batch_norm_train``, ``batch_norm_infer``,
 ``scaled_dot_product_attention`` and the losses on the black list.

@@ -25,6 +25,14 @@ makes it from the parameter at that update, as the JAX package does.
 Batch norm's running statistics are buffers of the model's state and
 cross with ``load_reference_state``.
 
+``load_reference_tensor(array, stop_gradient=True, name=None,
+trainable=True, parameter=False, device=None)`` takes one JAX
+``Tensor`` (``parameter=False``) or ``Parameter`` (``parameter=True``)
+as its numpy value and its ``stop_gradient``, ``name`` and
+``trainable``, and makes the port's ``Tensor`` or ``Parameter`` with
+the same value, dtype and attributes on ``device`` (default: the
+``set_device`` device).
+
 ``load_reference_hsigmoid_loss(layer, weight, bias=None)`` takes a JAX
 ``HSigmoidLoss``'s ``weight`` [num_classes - 1, feature_size] and
 ``bias`` [num_classes - 1] (numpy; ``bias`` None when the layer was
@@ -41,7 +49,7 @@ import torch
 from .core.dtype import convert_dtype
 
 __all__ = ["load_reference_state", "load_reference_optimizer_state",
-           "load_reference_hsigmoid_loss"]
+           "load_reference_hsigmoid_loss", "load_reference_tensor"]
 
 
 def _as_tensor(a: np.ndarray) -> torch.Tensor:
@@ -125,3 +133,23 @@ def load_reference_hsigmoid_loss(layer: torch.nn.Module, weight: np.ndarray,
     if bias is not None:
         arrays["bias"] = bias
     load_reference_state(layer, arrays)
+
+
+def load_reference_tensor(array: np.ndarray, stop_gradient: bool = True,
+                          name=None, trainable: bool = True,
+                          parameter: bool = False, device=None):
+    """A JAX ``Tensor`` or ``Parameter`` (its numpy value and attributes)
+    as the port's, in the array's own dtype."""
+    from .core.device import resolve
+    from .core.tensor import Parameter, Tensor
+    t = _as_tensor(array).to(resolve(device))
+    if parameter:
+        out = Parameter(t, name=name, trainable=trainable)
+        out.stop_gradient = stop_gradient
+        return out
+    out = t.as_subclass(Tensor)
+    out.stop_gradient = stop_gradient
+    if name is not None:
+        out.name = name
+    out.trainable = bool(trainable)
+    return out

@@ -16,8 +16,10 @@ ways:
 2. the dispatcher wraps impl failures, appending the op name and every
    input's shape/dtype signature to whatever the op raised.
 
-The op registry that calls them comes with ROADMAP A2; until then
-wrappers call ``enforce``/``run_check`` themselves.
+The op registry's dispatch (``ops/op_registry.py``) runs both; the
+validators are registered by ``ops/validators.py``. Functions that
+close their attributes into the dispatched impl call ``run_check``
+themselves.
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ fluid/framework/new_executor/interpretercore.cc op-run instrumentation).
 The profiler installs begin/end callables (the pure-Python recorder;
 the port has no native tracer); they need no shared mutable state, so
 concurrent op dispatch from multiple threads records correct names.
-The port's op registry (ROADMAP A2) is what will call ``begin``/``end``;
-until then only the profiler toggles the hook.
+The op registry's dispatch (``ops/op_registry.py``) opens an
+``op::<name>`` span around every op while ``enabled`` is set.
 """
 from __future__ import annotations
 

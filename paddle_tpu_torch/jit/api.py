@@ -154,3 +154,95 @@ class TrainStep:
 
     def cost_analysis(self, *batch):
         self._unported("cost_analysis", "A12")
+
+
+# -------------------------------------------- functional autodiff (eager)
+# The JAX package's ``functional_call``, ``grad`` and ``value_and_grad``
+# (``jit/api.py:133``, ``:223``, ``:257``) on torch's autograd. As
+# there, ``functional_call`` records no gradient of an eager call, but a
+# gradient transform still differentiates through it (``no_grad`` stops
+# the JAX package's tape, never ``jax.grad``).
+
+import threading  # noqa: E402
+
+_TRANSFORM = threading.local()
+
+
+def _in_transform() -> bool:
+    return getattr(_TRANSFORM, "depth", 0) > 0
+
+
+def functional_call(layer: torch.nn.Module, params_and_buffers, *args,
+                    **kwargs):
+    """Run ``layer`` with the parameter and buffer values of the dict
+    (name -> tensor or array), without changing the layer."""
+    from torch.func import functional_call as _call
+    from ..core.tensor import as_torch
+    dev = next((p.device for p in layer.parameters()), None)
+    values = {k: as_torch(v, None, dev) for k, v in
+              params_and_buffers.items()}
+    if _in_transform():
+        return _call(layer, values, args, kwargs, strict=False)
+    with torch.no_grad():
+        return _call(layer, values, args, kwargs, strict=False)
+
+
+def grad(*fargs, **fkwargs):
+    """``paddle.grad`` in both of the JAX package's forms:
+
+    - ``grad(fn, argnums=0, has_aux=False)``: the functional transform,
+      a function returning the gradient of ``fn``'s scalar output with
+      respect to the arguments at ``argnums``;
+    - ``grad(outputs, inputs, grad_outputs=None, retain_graph=None,
+      create_graph=False, only_inputs=True, allow_unused=False,
+      no_grad_vars=None)``: the dygraph API
+      (``autograd.backward_engine.tensor_grad``).
+    """
+    if fargs and callable(fargs[0]) and not isinstance(fargs[0],
+                                                       torch.Tensor):
+        return _functional(fargs[0], *fargs[1:], value=False, **fkwargs)
+    from ..autograd.backward_engine import tensor_grad
+    return tensor_grad(*fargs, **fkwargs)
+
+
+def value_and_grad(fn: Callable, argnums=0, has_aux: bool = False):
+    return _functional(fn, argnums, has_aux, value=True)
+
+
+def _functional(fn, argnums=0, has_aux=False, value=False):
+    from ..core.tensor import Tensor, as_torch
+
+    def wrapped(*args, **kwargs):
+        nums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
+        args = list(args)
+        leaves = []
+        for i in nums:
+            with torch._C.DisableTorchFunctionSubclass():
+                t = as_torch(args[i]).detach().requires_grad_(True)
+            args[i] = t.as_subclass(Tensor)
+            leaves.append(t)
+        _TRANSFORM.depth = getattr(_TRANSFORM, "depth", 0) + 1
+        try:
+            with torch.enable_grad():
+                out = fn(*args, **kwargs)
+        finally:
+            _TRANSFORM.depth -= 1
+        val, aux = out if has_aux else (out, None)
+        with torch._C.DisableTorchFunctionSubclass():
+            v = val.as_subclass(torch.Tensor)
+            if v.numel() != 1:
+                raise TypeError(
+                    "Gradient only defined for scalar-output functions. "
+                    f"Output had shape: {list(v.shape)}.")
+            gs = (torch.autograd.grad(v, leaves, allow_unused=True,
+                                      materialize_grads=True)
+                  if v.requires_grad else
+                  [torch.zeros_like(t) for t in leaves])
+        gs = [g.as_subclass(Tensor) for g in gs]
+        g = gs[0] if isinstance(argnums, int) else tuple(gs)
+        if value:
+            v = val.detach()
+            return ((v, aux), g) if has_aux else (v, g)
+        return (g, aux) if has_aux else g
+
+    return wrapped

@@ -11,8 +11,8 @@ instrumentation) over the C++ HostTracer/CudaTracer pair
   (``ProfilerTarget.GPU``, the reference's ``TPU`` target), started and
   stopped by the same scheduler states; the card's kernels join the
   exported chrome trace, and torch's own trace lands in ``trace_dir``;
-- op-level spans will be emitted through prof_hook by the op registry
-  (ROADMAP A2) when a Profiler is recording.
+- op-level spans (``op::<name>``) are emitted through prof_hook by the
+  op registry's dispatch while a Profiler is recording.
 
 Usage (reference API shape):
 

@@ -2479,3 +2479,94 @@ def test_ernie_training_step_matches_plain_kernels(dev):
     for n, g in grads.items():
         torch.testing.assert_close(g, ref[n], atol=1e-4, rtol=1e-3,
                                    msg=n)
+
+
+# ---------------------------------------- the eager Tensor on the card
+
+def test_eager_ops_default_to_the_card_and_stay_there(dev):
+    """Creation without a place lands on cuda:0, and the ops whose
+    output shape depends on the data compute there, equal to the CPU."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as port_device
+    rng = np.random.RandomState(0)
+    x = rng.randn(40, 7).astype(np.float32)
+    ids = rng.randint(0, 5, 60)
+    prev = port_device._CURRENT
+    try:
+        port_device._CURRENT = None              # the default: the card
+        assert P.to_tensor(x).place == torch.device("cuda", 0)
+        assert P.zeros([2]).place.type == "cuda"
+        assert P.randn([2]).place.type == "cuda"
+        outs = {}
+        for where in ("gpu", "cpu"):
+            P.set_device(where)
+            t = P.to_tensor(x)
+            outs[where] = [
+                *P.unique(P.to_tensor(ids), return_index=True,
+                          return_inverse=True, return_counts=True),
+                P.nonzero(t > 0), P.masked_select(t, t > 0.5),
+                t[t < 0], P.argsort(t, axis=0), P.topk(t, 2)[1]]
+        for c, h in zip(outs["gpu"], outs["cpu"]):
+            assert c.place.type == "cuda" and h.place.type == "cpu"
+            np.testing.assert_array_equal(c.numpy(), h.numpy())
+    finally:
+        port_device._CURRENT = prev
+
+
+def test_eager_training_step_on_the_card_matches_plain_torch(dev):
+    """Three AdamW steps of an MLP written with the top-level ops give
+    the losses of the same loop in plain torch, bit for bit."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.core import device as port_device
+    from paddle_tpu_torch.optimizer import AdamW
+    prev = port_device._CURRENT
+    try:
+        P.set_device("gpu")
+        P.seed(0)
+        w = P.create_parameter([64, 128], "float32")
+        b = P.create_parameter([128], "float32", is_bias=True)
+        x = P.randn([4, 64])
+        plain = [torch.nn.Parameter(p.detach().as_subclass(
+            torch.Tensor).clone()) for p in (w, b)]
+        xp = x.detach().as_subclass(torch.Tensor).clone()
+        losses = []
+        for params, xin, mm, add, act, mean in (
+                ((w, b), x, P.matmul, P.add, P.tanh, P.mean),
+                (plain, xp, torch.matmul, torch.add, torch.tanh,
+                 torch.mean)):
+            opt = AdamW(learning_rate=1e-2, parameters=list(params))
+            run = []
+            for _ in range(3):
+                loss = mean(act(add(mm(xin, params[0]), params[1])) ** 2)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                run.append(loss.item())
+            losses.append(run)
+        assert losses[0] == losses[1] and losses[0][-1] < losses[0][0]
+    finally:
+        port_device._CURRENT = prev
+
+
+def test_device_memory_queries_follow_the_caching_allocator(dev):
+    """``paddle.device``'s byte counts are torch's caching allocator's,
+    for the default card, an index and a 'gpu:N' string."""
+    from paddle_tpu_torch import device
+    from paddle_tpu_torch.core import device as port_device
+    prev = port_device._CURRENT
+    try:
+        port_device._CURRENT = None
+        torch.cuda.synchronize()
+        base = device.memory_allocated()
+        assert base == torch.cuda.memory_allocated(0)
+        t = torch.empty(1 << 20, dtype=torch.float32, device="cuda:0")
+        assert device.memory_allocated(0) - base >= t.numel() * 4
+        assert device.memory_reserved("gpu:0") == \
+            torch.cuda.memory_reserved(0) >= device.memory_allocated()
+        assert device.max_memory_allocated() >= device.memory_allocated()
+        assert device.reset_peak_memory_stats() == device.memory_allocated()
+        assert device.memory_stats()["allocated_bytes.all.current"] == \
+            device.memory_allocated()
+        del t
+    finally:
+        port_device._CURRENT = prev
