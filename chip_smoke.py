@@ -60,7 +60,10 @@ training shapes, trains ernie-3.0-base (b32) and bert-large (b16) at
 sequence 512 with ``bench.py``'s MLM + SOP recipe (each first held at
 b4 to the plain kernels), encodes incrementally with ernie-3.0-base (a
 4-token append against four 1-token appends) and runs its sequence
-classifier against the plain kernels, and checks
+classifier against the plain kernels, trains ``nn.Transformer()`` at
+its defaults (the Transformer-base) on ``Tensor`` inputs through rows
+1-4 and ``sdpa_xla`` (first held at b4 to the same weights in fp32 on
+the CPU), and checks
 that each path went through its kernels and never through a plain
 version. Phases
 print one line each; the line before the last is the kernel table as
@@ -3572,8 +3575,9 @@ def _weight_bound_check(engine, model):
     per-channel step (absmax / 7; the JAX package's bound), int8's
     quantization (q * absmax / 127 in fp32) within half a step + 1e-6.
     Returns (worst error over step, Linear weight bytes stored)."""
+    from paddle_tpu_torch.core.tensor import plain
     sp = engine._sp
-    orig = model.state_dict()
+    orig = {k: plain(v) for k, v in model.state_dict().items()}
     mat = dict(zip(sp.names, sp.materialize(sp.vals)))
     worst, stored, bad = 0.0, 0, []
     for n, step in sp.scales.items():
@@ -3627,7 +3631,7 @@ def phase_serve_weights(torch, model, prompts, card, attention_ms):
     from paddle_tpu_torch.quantization.int8_compute import int8_matmul
     from paddle_tpu_torch.serving import RequestParams, ServingEngine
     dev = torch.device("cuda", 0)
-    lin_bytes = sum(m.weight.numel() * 2 for m in model.modules()
+    lin_bytes = sum(torch.numel(m.weight) * 2 for m in model.modules()
                     if type(m).__name__ == "Linear")
     ids = torch.as_tensor(np.random.RandomState(SEED + 11).randint(
         0, model.cfg.vocab_size, (4, 128)), device=dev)
@@ -3947,6 +3951,7 @@ def phase_train_fused_ops(torch, model, opt, x, y):
     the same copies are printed, not gated (both round or decay
     otherwise). Last, the AdamW sweep's device span against the port's
     own AdamW step on the same tensors and the bytes bound."""
+    from paddle_tpu_torch.core.tensor import plain, plain_grad
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.kernels import fused_adamw as fad
     from paddle_tpu_torch.kernels import fused_norm as fn
@@ -3968,7 +3973,7 @@ def phase_train_fused_ops(torch, model, opt, x, y):
     for h in hooks:
         h.remove()
     params = list(opt._parameter_list)
-    grads = [p.grad.detach() for p in params]
+    grads = [plain_grad(p) for p in params]
     model.zero_grad(set_to_none=True)
     states = [opt.state_for(p) for p in params]
     if len(lns) != 25 or any("dy" not in captured[n] for n, _ in lns) or \
@@ -3994,8 +3999,8 @@ def phase_train_fused_ops(torch, model, opt, x, y):
     for name, m in lns:
         c = captured[name]
         xs = c["x"].detach().requires_grad_()
-        ws = m.weight.detach().requires_grad_()
-        bs = m.bias.detach().requires_grad_()
+        ws = plain(m.weight).detach().requires_grad_()
+        bs = plain(m.bias).detach().requires_grad_()
         yk = fn.fused_layer_norm(xs, ws, bs, m.epsilon)
         outs.append((yk.detach(), *torch.autograd.grad(yk, (xs, ws, bs),
                                                        c["dy"])))
@@ -4018,7 +4023,7 @@ def phase_train_fused_ops(torch, model, opt, x, y):
         c = captured[name]
         d = c["x"].shape[-1]
         x2, dy2 = c["x"].reshape(-1, d), c["dy"].reshape(-1, d)
-        w, b = m.weight.detach(), m.bias.detach()
+        w, b = plain(m.weight).detach(), plain(m.bias).detach()
         refs = (fn.norm_fwd_plain(x2, w, b, m.epsilon, False),
                 fn.norm_dx_plain(x2, w, dy2, m.epsilon, False),
                 *fn.param_grads(x2, dy2, m.epsilon, False, w.dtype))
@@ -4064,8 +4069,8 @@ def phase_train_fused_ops(torch, model, opt, x, y):
     sweep_ms, sweep_wall = span_ms(torch, sweep)
     step_ms, step_wall = span_ms(torch, lambda: ref_opt.apply_gradients(
         ref_params, grads, lr=hyper["lr"], step=hyper["step"]))
-    values = sum(p.numel() for p in params)
-    n_bytes = sum(p.numel() * 26 for p in params)   # p, m, v r+w; bf16 g
+    values = sum(torch.numel(p) for p in params)
+    n_bytes = values * 26   # p, m, v r+w; bf16 g
     bms, by = _adamw_bound(values, 4, 2)
     say("train_fused_ops", config="gpt2-small", dtype="bfloat16",
         batch=x.shape[0], seq=x.shape[1], layer_norms=len(lns),
@@ -4109,6 +4114,7 @@ def phase_train_fused_ce(torch, model, opt, x, y):
     = max(8192 // b, 128), and the kernel, at b16-s1024 (the trained
     hidden states), b32-s1024 and b16-s2048 (seeded random ones, as the
     probe uses)."""
+    from paddle_tpu_torch.core.tensor import plain
     from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.kernels import fused_linear_ce
     dev = torch.device("cuda", 0)
@@ -4117,7 +4123,7 @@ def phase_train_fused_ce(torch, model, opt, x, y):
     with torch.no_grad():
         hidden, wte = model(x)
     model.train()
-    hidden, wte = hidden.detach(), wte.detach()
+    hidden, wte = hidden.detach(), plain(wte).detach()
     vocab, hd = wte.shape
 
     def kernel_loss(hs, ys, w):
@@ -5538,6 +5544,228 @@ def phase_eager_dygraph(torch, card):
         parent_import_s=PARENT_IMPORT_S,
         seconds=time.perf_counter() - t0)
 
+# paddle_tpu_torch.nn.Transformer() at its defaults, the Transformer-base
+# of Vaswani et al. (2017): d_model 512, 8 heads (head_dim 64), 6 + 6
+# layers, feed-forward 2048, relu; built with dropout 0.0 so that every
+# unmasked attention reaches rows 1-4 in training too
+NN_T_BATCH, NN_T_SEQ, NN_T_DMODEL = 32, 512, 512
+NN_T_LAYERS = 6
+NN_T_CHECK_BATCH = 4
+NN_T_STEPS = 10
+NN_T_LR = 1e-3
+#: a gradient may differ from the CPU's fp32 one by this many times what
+#: bf16 on the CPU gives (see _nn_transformer_check)
+NN_T_FLOOR = 3.0
+
+
+def _nn_transformer_counts(fa, attn):
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd": fa.flash_attention_bwd.launches,
+            "sdpa_xla": attn.sdpa_xla.calls,
+            "plain": fa.flash_attention_plain.calls
+            + fa.flash_attention_bwd_plain.calls}
+
+
+def _nn_transformer_reset(fa, attn):
+    fa.reset_counts()
+    attn.sdpa_xla.calls = 0
+
+
+def _nn_transformer_check(torch, model, src, tgt, mask, target):
+    """The card model in bf16 against the same weights and inputs in
+    fp32 on the CPU, at batch NN_T_CHECK_BATCH: the fp32 loss within
+    TRAIN_LOSS_TOL and the whole gradient (every parameter's, as one
+    vector) within GRAD_NORM_TOL of its norm (GPT's rule), each
+    parameter's within max(GRAD_NORM_TOL, NN_T_FLOOR x its bf16 floor)
+    of its norm. The
+    bf16 floor is the same comparison made on the CPU, bf16 against
+    fp32: at random initialization the cross-attentions' key and value
+    gradients are small beside what bf16 rounding of the activations
+    moves (0.37 of the norm on the CPU at this shape), as ResNet-50's
+    bf16 gradients are held against a chaos floor. A key projection's
+    bias, whose gradient is zero in exact arithmetic (the softmax
+    cancels one constant a row), is held against its weight's gradient
+    norm. Returns the line's fields."""
+    import copy
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn
+
+    def loss_and_grads(m, s, t, mk, y):
+        m.clear_gradients()
+        loss = nn.MSELoss()(m(s, t, tgt_mask=mk).astype("float32"), y)
+        loss.backward()
+        grads = {n: p.grad.numpy().astype(np.float64)
+                 for n, p in m.named_parameters()}
+        m.clear_gradients()
+        return float(loss.numpy()), grads
+
+    b = NN_T_CHECK_BATCH
+    card = [t[:b] for t in (src, tgt, target)]
+    k_loss, k_grads = loss_and_grads(model, card[0], card[1], mask,
+                                     card[2])
+    cpu = nn.Transformer(dropout=0.0, device="cpu")
+    cpu.set_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
+    cmask = nn.Transformer.generate_square_subsequent_mask(NN_T_SEQ,
+                                                           device="cpu")
+    runs = {}
+    for dtype, m in (("float32", cpu),
+                     ("bfloat16", copy.deepcopy(cpu).to(dtype="bfloat16"))):
+        host = [P.to_tensor(t.numpy(), dtype=dtype, place="cpu")
+                for t in card[:2]]
+        runs[dtype] = loss_and_grads(
+            m, host[0], host[1], cmask,
+            P.to_tensor(card[2].numpy(), place="cpu"))
+    p_loss, p_grads = runs["float32"]
+
+    def scale(n):
+        if n.endswith("k_proj.bias"):
+            n = n[:-len("bias")] + "weight"
+        return max(np.linalg.norm(p_grads[n]), 1e-30)
+
+    def errs(grads):
+        return {n: float(np.linalg.norm(g - p_grads[n]) / scale(n))
+                for n, g in grads.items()}
+
+    norm_err, floor = errs(k_grads), errs(runs["bfloat16"][1])
+    limit = {n: max(GRAD_NORM_TOL, NN_T_FLOOR * floor[n]) for n in floor}
+    over = {n: norm_err[n] / limit[n] for n in norm_err}
+    worst = max(norm_err, key=norm_err.get)
+    closest = max(over, key=over.get)
+    flat = [np.concatenate([g[n].ravel() for n in sorted(g)])
+            for g in (k_grads, p_grads)]
+    whole = float(np.linalg.norm(flat[0] - flat[1])
+                  / np.linalg.norm(flat[1]))
+    if not (math.isfinite(k_loss) and abs(k_loss - p_loss) <= TRAIN_LOSS_TOL):
+        fail(f"nn_transformer: card bf16 loss {k_loss} against CPU fp32 "
+             f"{p_loss}")
+    if not whole <= GRAD_NORM_TOL:
+        fail(f"nn_transformer: the whole gradient differs from the CPU's "
+             f"by {whole:.3g} of its norm")
+    if over[closest] > 1.0:
+        fail(f"nn_transformer: gradient {closest} differs from the CPU's "
+             f"by {norm_err[closest]:.3g} of its norm (limit "
+             f"{limit[closest]:.3g})")
+    del cpu
+    return dict(check_batch=b, card_loss=k_loss, cpu_fp32_loss=p_loss,
+                cpu_bf16_loss=runs["bfloat16"][0],
+                loss_diff=abs(k_loss - p_loss), loss_tol=TRAIN_LOSS_TOL,
+                worst_grad_norm_err=[worst, norm_err[worst]],
+                its_bf16_floor=floor[worst],
+                closest_to_limit=[closest, norm_err[closest],
+                                  limit[closest]],
+                grads_over_grad_norm_tol=sum(
+                    e > GRAD_NORM_TOL for e in norm_err.values()),
+                whole_gradient_err=whole, grad_norm_tol=GRAD_NORM_TOL,
+                floor_factor=NN_T_FLOOR, checked_grads=len(k_grads))
+
+
+def phase_nn_transformer(torch, card):
+    """``paddle_tpu_torch.nn.Transformer()`` at its defaults, dropout
+    0.0, cast with ``Layer.to(dtype="bfloat16")``, on src and tgt [32,
+    512, 512] bf16 from ``paddle_tpu_torch.randn`` (so the ``Tensor``
+    boundary is on the path) with ``generate_square_subsequent_mask(512)``
+    as ``tgt_mask``: one eval forward, the b4 check against the CPU,
+    then 10 eager steps of ``nn.MSELoss`` of the output in fp32 (as
+    GPT's loss takes fp32 logits) against a fixed fp32 target,
+    ``loss.backward()``, ``AdamW(multi_precision=True).step()``,
+    ``clear_grad()``. Each forward launches row 1 twelve times (6
+    encoder self-attentions, 6 cross-attentions) and runs ``sdpa_xla``
+    six times (the masked decoder self-attentions), each backward rows
+    2-4 twelve times; no plain version runs. The loss falls; every
+    output is a ``Tensor`` on the card. Printed: the median step ms, the
+    device idle share, the peak memory."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.core import device as port_device
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn.functional import attention as attn
+    t0 = time.perf_counter()
+    port_device.set_device("gpu")
+    P.seed(SEED)
+    torch.cuda.empty_cache()
+    model = nn.Transformer(dropout=0.0)
+    model.to(dtype="bfloat16")
+    shape = [NN_T_BATCH, NN_T_SEQ, NN_T_DMODEL]
+    src = P.randn(shape, dtype="bfloat16")
+    tgt = P.randn(shape, dtype="bfloat16")
+    target = P.randn(shape)
+    mask = nn.Transformer.generate_square_subsequent_mask(NN_T_SEQ)
+    layers = 2 * NN_T_LAYERS           # unmasked attentions a forward
+    # one eval forward
+    model.eval()
+    _nn_transformer_reset(fa, attn)
+    with P.no_grad():
+        out = model(src, tgt, tgt_mask=mask)
+    torch.cuda.synchronize()
+    eval_counts = _nn_transformer_counts(fa, attn)
+    if not isinstance(out, P.Tensor) or out.place.type != "cuda" or \
+            out.shape != shape or not bool(torch.isfinite(out).all()):
+        fail(f"nn_transformer: eval output {type(out).__name__} "
+             f"{out.shape} on {out.place}, or not finite")
+    if eval_counts != {"flash_fwd": layers, "flash_bwd": 0,
+                       "sdpa_xla": NN_T_LAYERS, "plain": 0}:
+        fail(f"nn_transformer: eval forward counts {eval_counts}")
+    # the same weights on the CPU in fp32, at batch 4
+    model.train()
+    check = _nn_transformer_check(torch, model, src, tgt, mask, target)
+    # 10 eager steps
+    opt = optimizer.AdamW(learning_rate=NN_T_LR,
+                          parameters=model.parameters(),
+                          multi_precision=True)
+    loss_fn = nn.MSELoss()
+
+    def step():
+        loss = loss_fn(model(src, tgt, tgt_mask=mask).astype("float32"),
+                       target)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _nn_transformer_reset(fa, attn)
+    losses, walls, on_card = [], [], True
+    for _ in range(NN_T_STEPS):
+        s0 = time.perf_counter()
+        loss = step()
+        on_card &= isinstance(loss, P.Tensor) and loss.place.type == "cuda"
+        losses.append(float(loss.numpy()))    # waits for the step
+        walls.append((time.perf_counter() - s0) * 1e3)
+    train_counts = _nn_transformer_counts(fa, attn)
+    peak = torch.cuda.max_memory_allocated()
+    wall_ms = float(np.median(walls[1:]))
+    busy_ms, n_launch, top = _device_profile(torch, step)
+    say("nn_transformer", card=card, config="Transformer() defaults",
+        d_model=NN_T_DMODEL, nhead=8, layers=[NN_T_LAYERS, NN_T_LAYERS],
+        dim_feedforward=2048, dropout=0.0, dtype="bfloat16",
+        batch=NN_T_BATCH, seq=NN_T_SEQ, params=sum(
+            torch.numel(p) for p in model.parameters()),
+        optimizer=f"AdamW({NN_T_LR}, multi_precision=True)",
+        eval_counts=eval_counts, train_counts=train_counts, losses=losses,
+        step_wall_ms=walls, median_step_ms=wall_ms,
+        peak_memory_gib=peak / 2 ** 30, device_busy_ms=busy_ms,
+        device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        device_launches_per_step=n_launch, top_kernels=top,
+        seconds=time.perf_counter() - t0, **check)
+    if not on_card:
+        fail("nn_transformer: a loss left the card or is not a Tensor")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"nn_transformer: losses not finite or not falling: {losses}")
+    want = {"flash_fwd": NN_T_STEPS * layers,
+            "flash_bwd": NN_T_STEPS * layers,
+            "sdpa_xla": NN_T_STEPS * NN_T_LAYERS, "plain": 0}
+    if train_counts != want:
+        fail(f"nn_transformer: training counts {train_counts}, expected "
+             f"{want}")
+    del model, opt, out
+    torch.cuda.empty_cache()
+    return {"flash_fwd": eval_counts["flash_fwd"]
+            + train_counts["flash_fwd"],
+            "flash_bwd": train_counts["flash_bwd"]}
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -5650,6 +5878,8 @@ def main():
     # in them, so they add no launches to any row
     phase_op_surface(torch, card)
     phase_eager_dygraph(torch, card)
+    # nn.Transformer at its defaults on the Layer surface: rows 1-4
+    paths.append(("nn_transformer", phase_nn_transformer(torch, card)))
     for name, row in rows.items():
         by_path = {path: counts[name] for path, counts in paths
                    if name in counts}

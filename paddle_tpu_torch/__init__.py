@@ -90,7 +90,8 @@ from .framework import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401,E402
                         set_cuda_rng_state, set_printoptions, tolist)
 from .core.dtype import bool_ as bool  # noqa: F401,E402,A001
 
-from . import autograd, device, jit  # noqa: F401,E402
+from . import autograd, device, jit, nn  # noqa: F401,E402
+from .nn import ParamAttr  # noqa: F401,E402
 from .device import (device_count, is_compiled_with_tpu,  # noqa: F401,E402
                      synchronize)
 from .jit.api import grad, value_and_grad  # noqa: F401,E402

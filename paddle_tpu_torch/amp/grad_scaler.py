@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core import monitor
+from ..core.tensor import plain_grad
 
 
 class GradScaler:
@@ -50,8 +51,9 @@ class GradScaler:
         place; remembers whether any of them is not finite."""
         if not self._enable:
             return
-        grads = [p.grad for p in optimizer._parameter_list or ()
-                 if p.grad is not None]
+        grads = [g for g in (plain_grad(p) for p in
+                             optimizer._parameter_list or ())
+                 if g is not None]
         inv = 1.0 / self._scale
         for g in grads:
             g.mul_(inv)

@@ -34,7 +34,8 @@ from .device import resolve
 
 __all__ = [
     "Tensor", "Parameter", "to_tensor", "is_grad_enabled", "no_grad",
-    "enable_grad", "set_grad_enabled",
+    "enable_grad", "set_grad_enabled", "plain", "plain_grad",
+    "plain_data",
 ]
 
 _PLAIN = torch.Tensor
@@ -452,7 +453,9 @@ class Parameter(Tensor, torch.nn.Parameter):
     """Trainable tensor: a ``torch.nn.Parameter`` with Paddle's
     attributes; ``stop_gradient`` defaults to False, ``persistable`` to
     True. torch ops on it return plain tensors, as on any
-    ``nn.Parameter``; the Paddle ops return ``Tensor``s."""
+    ``nn.Parameter``, and so do its arithmetic operators with a plain
+    torch tensor on the other side; the Paddle ops, and its operators
+    with a ``Tensor`` or a Python number, return ``Tensor``s."""
 
     persistable = True
 
@@ -478,6 +481,48 @@ class Parameter(Tensor, torch.nn.Parameter):
         out.stop_gradient = self.stop_gradient
         memo[id(self)] = out
         return out
+
+
+def plain(t):
+    """``t`` as a plain torch tensor: a ``Tensor`` or ``Parameter`` gives
+    its plain view, attached to autograd (gradients reach ``t``); any
+    other value comes back as it is."""
+    return t.as_subclass(_PLAIN) if isinstance(t, Tensor) else t
+
+
+def plain_grad(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """``t``'s gradient as the plain tensor torch keeps (a ``Tensor``'s
+    ``grad`` property wraps it)."""
+    return _PLAIN.grad.__get__(t)
+
+
+def plain_data(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s data as a plain tensor outside autograd, sharing its
+    storage: an in-place write to it writes ``t``."""
+    return _PLAIN.data.__get__(t)
+
+
+def _torch_with_plain(name):
+    """Parameter's binary operator ``name``: torch's when the other
+    operand is a plain torch tensor (the result plain, as torch code
+    expects: Python tries a subclass's reflected operator first, so
+    ``x * p`` would otherwise dispatch), Paddle's otherwise."""
+    paddle_op = getattr(Tensor, name)
+    torch_op = getattr(_PLAIN, name)
+
+    def binop(self, other):
+        if isinstance(other, _PLAIN) and not isinstance(other, Tensor):
+            return torch_op(self, other)
+        return paddle_op(self, other)
+
+    binop.__name__ = name
+    return binop
+
+
+for _name in ("__add__", "__radd__", "__sub__", "__rsub__", "__mul__",
+              "__rmul__", "__truediv__", "__rtruediv__", "__matmul__",
+              "__rmatmul__", "__pow__", "__rpow__"):
+    setattr(Parameter, _name, _torch_with_plain(_name))
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True

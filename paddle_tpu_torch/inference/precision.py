@@ -34,6 +34,7 @@ import torch.nn.functional as TF
 from torch import nn
 
 from ..core import device as device_mod
+from ..core.tensor import plain
 from ..kernels import row_linear as _row
 from ..nn import functional as F
 from ..nn.layers_common import Conv2D, Linear
@@ -50,6 +51,7 @@ def quantize_int4(w, axis: int = 1):
     per-channel absmax in ``w``'s dtype (reduced dims kept as size 1;
     dequantized, ``w ~ q * scale / 7``). Rounded in fp32, as
     ``quantize_int8``."""
+    w = plain(w)
     red = tuple(i for i in range(w.dim()) if i != axis)
     scale = torch.clamp_min(w.detach().abs().amax(dim=red, keepdim=True),
                             1e-8)
@@ -200,7 +202,7 @@ def _weight_only(layer: nn.Module, dev: torch.device, bits: int):
         parent = served.get_submodule(parent_name) if parent_name \
             else served
         sub = parent._modules[attr]
-        bias = None if sub.bias is None else sub.bias.detach()
+        bias = None if sub.bias is None else plain(sub.bias).detach()
         if isinstance(sub, Linear):
             new = WeightOnlyLinear(sub, q.to(dev), s.to(dev), rows, bias)
         else:
@@ -229,7 +231,7 @@ def serving_params(layer, config: Config) -> ServingParams:
         served = served.to(device=dev, dtype=torch.bfloat16)
         state = served.state_dict(keep_vars=True)
         names = list(state.keys())
-        vals = [t.detach() for t in state.values()]
+        vals = [plain(t).detach() for t in state.values()]
         compute_dtype = torch.bfloat16
     elif prec == PrecisionType.Int8:
         wb = int((getattr(config, "_serving", None) or {})
@@ -246,7 +248,7 @@ def serving_params(layer, config: Config) -> ServingParams:
                 if mod.int4_rows is not None:
                     int4[n] = mod.int4_rows
             else:
-                vals.append(state[n].detach())
+                vals.append(plain(state[n]).detach())
         compute_dtype = torch.bfloat16
     else:
         compute_dtype = {PrecisionType.Bfloat16: torch.bfloat16,
@@ -263,7 +265,7 @@ def serving_params(layer, config: Config) -> ServingParams:
             if compute_dtype is not None:
                 served = served.to(dtype=compute_dtype)
         state = served.state_dict(keep_vars=True)
-        vals = [state[n].detach() for n in names]
+        vals = [plain(state[n]).detach() for n in names]
     served.eval()
     return ServingParams(layer=served, device=dev, names=names, vals=vals,
                          scales=scales, compute_dtype=compute_dtype,

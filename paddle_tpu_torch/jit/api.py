@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core import flags
+from ..core.tensor import plain_grad
 from ..distributed.fleet.utils.recompute import _as_config
 from ..nn.layers_common import frozen_running_stats, train_step_trace
 from ..optimizer.lr import LRScheduler
@@ -129,8 +130,9 @@ class TrainStep:
         loss.backward()
         # a parameter the loss does not reach gets a zero gradient, as
         # jax.grad gives it (AdamW still decays it and moves its moments)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._params]
+        grads = [plain_grad(p) for p in self._params]
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self._params, grads)]
         for p in self._params:
             p.grad = None
         if flags.get_flag("check_nan_inf_in_program"):

@@ -25,7 +25,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..core import device as device_mod
 from ..distributed.parallel.mp_layers import sharded_constraint
@@ -36,6 +35,7 @@ from ..kernels import row_linear
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.container import LayerList
+from ..nn.layer import Layer
 from ..nn.layers_common import Dropout, Embedding, LayerNorm
 from ._common import spec_linear as _linear
 from .gpt import _remat_policy
@@ -72,7 +72,7 @@ class ErnieConfig:
         return self.intermediate_size or 4 * self.hidden_size
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     """word + position + token_type embeddings -> LayerNorm -> dropout."""
 
     def __init__(self, cfg: ErnieConfig, **kw):
@@ -103,7 +103,7 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class ErnieSelfAttention(nn.Module):
+class ErnieSelfAttention(Layer):
     def __init__(self, cfg: ErnieConfig, **kw):
         super().__init__()
         h, nh = cfg.hidden_size, cfg.num_heads
@@ -135,7 +135,7 @@ class ErnieSelfAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, h))
 
 
-class ErnieLayer(nn.Module):
+class ErnieLayer(Layer):
     """Post-LN encoder block (BERT/ERNIE layout: residual -> LayerNorm)."""
 
     def __init__(self, cfg: ErnieConfig, **kw):
@@ -169,7 +169,7 @@ class ErnieLayer(nn.Module):
         return self.ln2(x + self.dropout(self.fc2(self._ffn(x))))
 
 
-class ErniePooler(nn.Module):
+class ErniePooler(Layer):
     """[CLS] pooler: first-token hidden -> dense -> tanh."""
 
     def __init__(self, cfg: ErnieConfig, **kw):
@@ -181,7 +181,7 @@ class ErniePooler(nn.Module):
         return F.tanh(self.dense(x[:, 0]))
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     """The encoder trunk. Built on ``device`` (default: the first CUDA
     card; ``device="cpu"`` only when asked) in ``dtype``, every weight
     drawn from ``generator`` (default: the device's seeded one)."""
@@ -258,7 +258,7 @@ class ErnieModel(nn.Module):
         return x, pooled, cache
 
 
-class ErnieMLMHead(nn.Module):
+class ErnieMLMHead(Layer):
     """transform (dense + gelu + LayerNorm), then decode against the tied
     word embedding plus an fp32 ``decoder_bias``."""
 
@@ -270,17 +270,18 @@ class ErnieMLMHead(nn.Module):
         self.layer_norm = LayerNorm(cfg.hidden_size,
                                     epsilon=cfg.layer_norm_epsilon, **dev)
         self._embed_ref = [embed]     # a list: not a second registration
-        self.decoder_bias = nn.Parameter(torch.zeros(
-            cfg.vocab_size, dtype=torch.float32, device=kw.get("device")))
+        self.decoder_bias = self.create_parameter(
+            (cfg.vocab_size,), dtype="float32", is_bias=True,
+            device=kw.get("device"))
 
     def forward(self, x):
         x = self.layer_norm(F.gelu(self.transform(x), approximate=True))
         wte = self._embed_ref[0].word_embeddings.weight
-        logits = F.linear(x, wte.t()) + self.decoder_bias
+        logits = torch.add(F.linear(x, torch.t(wte)), self.decoder_bias)
         return sharded_constraint(logits)
 
 
-class ErnieForPretraining(nn.Module):
+class ErnieForPretraining(Layer):
     """MLM + sentence-order (2-way) pretraining heads, joint loss."""
 
     def __init__(self, cfg: ErnieConfig, *, device=None, dtype=None,
@@ -330,7 +331,7 @@ class ErnieForPretraining(nn.Module):
         var = t.var(dim=-1, keepdim=True, correction=0)
         t = (t - mu) / torch.sqrt(var + self.cfg.layer_norm_epsilon)
         t = t * lw.to(t.dtype) + lb.to(t.dtype)
-        logits = (t @ wte.t().to(t.dtype)).float() + db.float()
+        logits = (t @ torch.t(wte).to(t.dtype)).float() + db.float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, gy.clamp_min(0)[..., None],
                                     dim=-1)[..., 0]
@@ -354,7 +355,7 @@ class ErnieForPretraining(nn.Module):
         return mlm + sop
 
     def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        return sum(torch.numel(p) for p in self.parameters())
 
     def flops_per_token(self, seq_len: int) -> float:
         """Training FLOPs per token (6N + attention term), the JAX
@@ -363,7 +364,7 @@ class ErnieForPretraining(nn.Module):
         return 6 * self.num_params() + att
 
 
-class ErnieForSequenceClassification(nn.Module):
+class ErnieForSequenceClassification(Layer):
     def __init__(self, cfg: ErnieConfig, num_classes: int = 2, *,
                  device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):

@@ -23,7 +23,6 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as TF
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import amp
@@ -33,6 +32,8 @@ from ..generation.attention import cached_attention
 from ..generation.kv_cache import KVCache
 from ..kernels import row_linear
 from ..nn import functional as F
+from ..nn.container import LayerList
+from ..nn.layer import Layer
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
 
 
@@ -103,7 +104,7 @@ def _remat_policy(granularity: str) -> str:
             f"{sorted(_REMAT_POLICY)}") from None
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, cfg: GPTConfig, **kw):
         super().__init__()
         h, nh = cfg.hidden_size, cfg.num_heads
@@ -132,7 +133,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, h))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, cfg: GPTConfig, generator=None, **kw):
         super().__init__()
         std = cfg.initializer_range
@@ -148,7 +149,7 @@ class GPTMLP(nn.Module):
                                              approximate="tanh")))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, cfg: GPTConfig, generator=None, **kw):
         super().__init__()
         dev = dict(device=kw.get("device"), dtype=kw.get("dtype"))
@@ -171,7 +172,7 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     """Token + position embedding (+ dropout)."""
 
     def __init__(self, cfg: GPTConfig, generator=None, **kw):
@@ -189,12 +190,12 @@ class GPTEmbeddings(nn.Module):
         return self.drop(self.wte(input_ids) + self.wpe(pos))
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, cfg: GPTConfig, generator=None, **kw):
         super().__init__()
         self.cfg = cfg
         self.embed = GPTEmbeddings(cfg, generator=generator, **kw)
-        self.blocks = nn.ModuleList(
+        self.blocks = LayerList(
             [GPTBlock(cfg, generator=generator, **kw)
              for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size,
@@ -256,7 +257,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x), cache
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT with the (tied) LM head. Built on ``device`` (default: the
     first CUDA card; ``device="cpu"`` only when asked) in ``dtype``,
     with every weight drawn from ``generator`` (default: the device's
@@ -282,8 +283,8 @@ class GPTForCausalLM(nn.Module):
         # the JAX package's F.linear against the transposed wte
         h, w = amp.maybe_cast("linear", h, self.gpt.embed.wte.weight)
         if row_linear.routes(h, w):
-            return row_linear.row_linear(h, w.t())
-        return torch.matmul(h, w.t())
+            return row_linear.row_linear(h, torch.t(w))
+        return torch.matmul(h, torch.t(w))
 
     def forward(self, input_ids, attn_mask=None, cache=None,
                 use_cache=False, prompt_len=None, cache_max_len=None,
@@ -358,7 +359,7 @@ class GPTForCausalLM(nn.Module):
         n_chunks = -(-s1 // chunk)
 
         def chunk_ce(hc, yc, wv):
-            wmat = wv.t() if tied else wv
+            wmat = torch.t(wv) if tied else wv
             logits = (hc @ wmat.to(hc.dtype)).float()
             lse = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(-1, yc.clamp_min(0).long()[..., None])
@@ -391,7 +392,7 @@ class GPTForCausalLM(nn.Module):
                                labels[:, 1:].reshape(-1))
 
     def num_params(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        return sum(torch.numel(p) for p in self.parameters())
 
     def flops_per_token(self, seq_len: int) -> float:
         """Approximate training FLOPs per token (6N + attention term),

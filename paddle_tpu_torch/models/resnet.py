@@ -32,12 +32,11 @@ Every constructor takes ``device`` (the first card unless
 """
 from __future__ import annotations
 
-from torch import nn
-
 from ..core import device as device_mod
 from ..distributed.parallel.recompute import recompute
 from ..nn import functional as F
 from ..nn.container import Sequential
+from ..nn.layer import Layer
 from ..kernels.fused_resnet import conv3x3_vmem_ok
 from ..nn.functional import fused_conv as FC
 from ..nn.layers_common import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D,
@@ -53,7 +52,7 @@ def _stride0(conv):
     return s[0] if isinstance(s, (tuple, list)) else s
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -80,7 +79,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -158,7 +157,7 @@ class BottleneckBlock(nn.Module):
                                            identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth_cfg, num_classes=1000, with_pool=True,
                  groups=1, width_per_group=64, data_format="NCHW",
                  stem_space_to_depth=False, fused_bn=False,

@@ -1,8 +1,17 @@
-"""Functionals the ported modules use (``torch.nn.functional`` covers
-the rest)."""
-from .activation import gelu, tanh  # noqa: F401
+"""The ``nn`` functionals on plain torch tensors (a ``Tensor`` in gives a
+``Tensor`` out through torch's own dispatch). The activations,
+``linear``, ``embedding`` and ``scaled_dot_product_attention`` are also
+registered in the op registry under the JAX package's names; the
+registry's wrappers dispatch, the functions here do not."""
+from .activation import (celu, elu, gelu, glu, gumbel_softmax,  # noqa: F401
+                         hardshrink, hardsigmoid, hardswish, hardtanh,
+                         leaky_relu, log_sigmoid, log_softmax, maxout,
+                         mish, prelu, relu, relu6, selu, sigmoid, silu,
+                         softmax, softplus, softshrink, softsign, swish,
+                         tanh, tanh_act, tanhshrink, thresholded_relu)
 from .attention import scaled_dot_product_attention  # noqa: F401
-from .common import flatten, linear, pad, relu  # noqa: F401
+from .common import (dropout, dropout2d, embedding, flatten,  # noqa: F401
+                     linear, pad)
 from .conv import conv2d  # noqa: F401
 from .loss import (binary_cross_entropy,  # noqa: F401
                    binary_cross_entropy_with_logits, cosine_embedding_loss,
@@ -17,3 +26,17 @@ from .loss import (binary_cross_entropy,  # noqa: F401
 from .norm import (batch_norm_infer, batch_norm_train,  # noqa: F401
                    layer_norm, rms_norm)
 from .pooling import adaptive_avg_pool2d, max_pool2d  # noqa: F401
+
+from ...ops.op_registry import op as _op  # noqa: E402
+
+#: the JAX package's OPS names of the functions registered here
+REGISTERED = (
+    "relu", "relu6", "sigmoid", "log_sigmoid", "silu", "softsign",
+    "tanh_act", "mish", "gelu", "elu", "selu", "celu", "leaky_relu",
+    "prelu", "hardtanh", "hardshrink", "softshrink", "hardsigmoid",
+    "hardswish", "softplus", "tanhshrink", "thresholded_relu", "softmax",
+    "log_softmax", "gumbel_softmax", "glu", "maxout",
+    "scaled_dot_product_attention", "linear", "embedding",
+)
+for _name in REGISTERED:
+    _op(_name)(globals()[_name])

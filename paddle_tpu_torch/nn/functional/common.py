@@ -1,13 +1,19 @@
-"""``linear``, ``relu``, ``pad`` and ``flatten`` (the JAX package's
-``nn/functional/common.py:13``, ``activation.py:12`` and
-``ops/manipulation.py:30, 269``)."""
+"""``linear``, ``embedding``, ``pad`` and ``flatten`` (the JAX package's
+``nn/functional/common.py:13, 22`` and ``ops/manipulation.py:30,
+269``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as TF
 
 from ... import amp
+from ...core import random as random_mod
+from ...core.tensor import Tensor, plain_data
 from ...kernels import row_linear as _row
+
+
+def _data(t):
+    return plain_data(t) if isinstance(t, Tensor) else t
 
 
 def linear(x, weight, bias=None):
@@ -15,12 +21,49 @@ def linear(x, weight, bias=None):
     cached forward through the row-invariant ``row_linear``."""
     x, weight, bias = amp.maybe_cast("linear", x, weight, bias)
     if _row.routes(x, weight, bias):
-        return _row.row_linear(x, weight, bias)
-    return TF.linear(x, weight.t(), bias)
+        # no gradient is recorded on this route: the wrapper reads the
+        # weights' plain data, whose attributes are torch's own
+        return _row.row_linear(x, _data(weight), _data(bias))
+    return TF.linear(x, torch.t(weight), bias)
 
 
-def relu(x):
-    return torch.relu(x)
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of ``weight`` at ``x``; positions where ``x == padding_idx``
+    give zeros (and no gradient), as in the JAX package. ``sparse`` is
+    accepted and changes nothing."""
+    out = TF.embedding(x, weight)
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx)[..., None], 0.0)
+    return out
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            generator=None):
+    """Dropout with its keep mask drawn from ``generator`` (default: the
+    device's seeded one): over the whole shape, or over ``axis`` alone
+    (the mask broadcast along the other axes). "upscale_in_train" scales
+    the kept values by 1 / (1 - p); "downscale_in_infer" keeps them as
+    they are. The identity outside training or at p = 0, as in the JAX
+    package."""
+    if not training or p == 0.0:
+        return x
+    gen = generator if generator is not None \
+        else random_mod.generator(x.device)
+    shape = x.shape
+    if axis is not None:
+        axes = {a % x.dim() for a in
+                ([axis] if isinstance(axis, int) else axis)}
+        shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
+    keep = torch.rand(shape, generator=gen, device=x.device) >= p
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros_like(x))
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", generator=None):
+    """Whole channels dropped: the mask over (N, C)."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=axis, training=training,
+                   generator=generator)
 
 
 def flatten(x, start_axis=0, stop_axis=-1):

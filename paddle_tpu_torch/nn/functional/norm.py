@@ -35,9 +35,9 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
         var = (xf - mean).square().mean(dim=dims, keepdim=True)
         out = ((xf - mean) / torch.sqrt(var + epsilon)).to(x.dtype)
     if weight is not None:
-        out = out * weight
+        out = torch.mul(out, weight)
     if bias is not None:
-        out = out + bias
+        out = torch.add(out, bias)
     return out
 
 
@@ -62,7 +62,7 @@ def rms_norm(x, weight=None, epsilon: float = 1e-6):
         ms = xf.square().mean(dim=-1, keepdim=True)
         out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
     if weight is not None:
-        out = out * weight
+        out = torch.mul(out, weight)
     return out
 
 def _channel_shape(x, data_format):
@@ -81,12 +81,12 @@ def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
     x, running_mean, running_var, weight, bias = amp.maybe_cast(
         "batch_norm_infer", x, running_mean, running_var, weight, bias)
     _, shape = _channel_shape(x, data_format)
-    out = (x - running_mean.reshape(shape)) / torch.sqrt(
-        running_var.reshape(shape) + epsilon)
+    out = (x - torch.reshape(running_mean, shape)) / torch.sqrt(
+        torch.reshape(running_var, shape) + epsilon)
     if weight is not None:
-        out = out * weight.reshape(shape)
+        out = torch.mul(out, torch.reshape(weight, shape))
     if bias is not None:
-        out = out + bias.reshape(shape)
+        out = torch.add(out, torch.reshape(bias, shape))
     return out
 
 
@@ -106,7 +106,7 @@ def batch_norm_train(x, weight=None, bias=None, epsilon: float = 1e-5,
     out = ((xf - mean.reshape(shape))
            / torch.sqrt(var.reshape(shape) + epsilon)).to(x.dtype)
     if weight is not None:
-        out = out * weight.reshape(shape)
+        out = torch.mul(out, torch.reshape(weight, shape))
     if bias is not None:
-        out = out + bias.reshape(shape)
+        out = torch.add(out, torch.reshape(bias, shape))
     return out, mean, var

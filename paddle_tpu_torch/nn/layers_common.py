@@ -1,80 +1,54 @@
-"""Core layers with Paddle's parameter layout and names.
+"""Core layers on ``Layer`` (the JAX package's ``nn/layers_common.py``)
+with Paddle's parameter layout and names.
 
 ``Linear`` keeps Paddle's ``[in_features, out_features]`` weight (the
 transpose of ``torch.nn.Linear``'s), ``Conv2D`` Paddle's ``[out, in /
 groups, kh, kw]``, and every layer keeps the JAX package's parameter
 and buffer names (``BatchNorm2D``'s running statistics are ``_mean`` and
 ``_variance``), so the two packages' state dicts match key for key and
-shape for shape. Parameters are created on an explicit
-device and initialized from an explicit ``torch.Generator``.
+shape for shape. Weights come from ``Layer.create_parameter`` with the
+JAX package's default initializers, on an explicit ``device`` and from
+an explicit ``torch.Generator``; ``weight_attr`` / ``bias_attr`` (a
+``ParamAttr``, a bare initializer, or False for no bias) override them.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
-from typing import Optional
 
 import torch
-import torch.nn.functional as TF
-from torch import nn
 
 from ..core import device as device_mod
 from ..core import dtype as dtype_mod
-from ..core import random as random_mod
 from . import functional as F
 from . import initializer as I
+from .layer import Layer
 
 
-def _param(shape, device, dtype, init, generator=None) -> nn.Parameter:
-    """A parameter of ``shape`` on ``device``: ``init`` is a float (the
-    std of a zero-mean normal draw from ``generator``), ``("uniform",
-    bound)`` (a draw from U(-bound, bound)) or the string 'zeros' /
-    'ones'."""
-    dev = device_mod.resolve(device)
-    dt = dtype_mod.convert_dtype(dtype) or torch.float32
-    data = torch.empty(shape, device=dev, dtype=dt)
-    with torch.no_grad():
-        if init == "zeros":
-            data.zero_()
-        elif init == "ones":
-            data.fill_(1.0)
-        else:
-            gen = generator if generator is not None \
-                else random_mod.generator(dev)
-            if isinstance(init, tuple):
-                data.uniform_(-init[1], init[1], generator=gen)
-            else:
-                data.normal_(0.0, float(init), generator=gen)
-    return nn.Parameter(data)
+def _mk(device, dtype, generator=None):
+    return dict(device=device, dtype=dtype, generator=generator)
 
 
-def _generator(device, generator):
-    return generator if generator is not None \
-        else random_mod.generator(device_mod.resolve(device))
-
-
-class Linear(nn.Module):
-    """y = xW + b with W of shape [in_features, out_features]. ``std``
-    is the normal init's deviation (default: Xavier-normal, Paddle's
-    default initializer)."""
+class Linear(Layer):
+    """y = xW + b with W of shape [in_features, out_features], default
+    XavierNormal (``std`` gives Normal(0, std) instead) and a zero bias;
+    ``bias=False`` or ``bias_attr=False`` leaves the bias out."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, *, std: Optional[float] = None,
-                 device=None, dtype=None, generator=None,
-                 weight_attr=None, bias_attr=None):
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 bias: bool = True, std=None, device=None, dtype=None,
+                 generator=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        if std is None:
-            std = math.sqrt(2.0 / (in_features + out_features))
-        gen = _generator(device, generator)
-        self.weight = I.apply_attr(
-            _param((in_features, out_features), device, dtype,
-                   I.default_unless(weight_attr, std), gen),
-            weight_attr, gen)
-        self.bias = I.apply_attr(
-            _param((out_features,), device, dtype, "zeros"), bias_attr, gen) \
+        mk = _mk(device, dtype, generator)
+        default = I.XavierNormal() if std is None else I.Normal(0.0, std)
+        self.weight = self.create_parameter(
+            (in_features, out_features), attr=weight_attr,
+            default_initializer=default, **mk)
+        self.bias = self.create_parameter(
+            (out_features,), attr=bias_attr, is_bias=True, **mk) \
             if bias and bias_attr is not False else None
 
     def forward(self, x):
@@ -85,36 +59,46 @@ class Linear(nn.Module):
                f"out_features={self.out_features}"
 
 
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings: int, embedding_dim: int, *,
-                 std: float = 1.0, device=None, dtype=None,
-                 generator=None, weight_attr=None):
+class Embedding(Layer):
+    """Rows of a [num_embeddings, embedding_dim] table, default
+    Normal(0, ``std``); ``padding_idx`` positions give zeros."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx=None, sparse: bool = False, weight_attr=None,
+                 name=None, *, std: float = 1.0, device=None, dtype=None,
+                 generator=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        gen = _generator(device, generator)
-        self.weight = I.apply_attr(
-            _param((num_embeddings, embedding_dim), device, dtype,
-                   I.default_unless(weight_attr, std), gen),
-            weight_attr, gen)
+        self.padding_idx = padding_idx
+        self.weight = self.create_parameter(
+            (num_embeddings, embedding_dim), attr=weight_attr,
+            default_initializer=I.Normal(0.0, std),
+            **_mk(device, dtype, generator))
 
     def forward(self, x):
-        return TF.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
 
     def extra_repr(self):
         return f"{self.num_embeddings}, {self.embedding_dim}"
 
 
-class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon: float = 1e-5, *,
-                 device=None, dtype=None):
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None, dtype=None, generator=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.weight = _param(self.normalized_shape, device, dtype, "ones")
-        self.bias = _param(self.normalized_shape, device, dtype, "zeros")
+        mk = _mk(device, dtype, generator)
+        self.weight = None if weight_attr is False else \
+            self.create_parameter(self.normalized_shape, attr=weight_attr,
+                                  default_initializer=I.Constant(1.0), **mk)
+        self.bias = None if bias_attr is False else \
+            self.create_parameter(self.normalized_shape, attr=bias_attr,
+                                  is_bias=True, **mk)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,
@@ -124,8 +108,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self.normalized_shape}"
 
 
-
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """RMSNorm over the last dim with a ``[hidden_size]`` weight of
     ones."""
 
@@ -133,45 +116,66 @@ class RMSNorm(nn.Module):
                  device=None, dtype=None):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = _param((hidden_size,), device, dtype, "ones")
+        self.weight = self.create_parameter(
+            (hidden_size,), default_initializer=I.Constant(1.0),
+            device=device, dtype=dtype)
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)
 
-class Dropout(nn.Module):
-    """Upscale-in-train dropout drawing its mask from the device's
-    seeded generator; the identity in eval mode."""
 
-    def __init__(self, p: float = 0.5):
+class Dropout(Layer):
+    """``F.dropout`` in training, the identity in eval mode; the mask
+    from the device's seeded generator."""
+
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train", name=None):
         super().__init__()
-        self.p = p
+        self.p, self.axis, self.mode = p, axis, mode
 
     def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=random_mod.generator(x.device),
-                          device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        return F.dropout(x, p=self.p, axis=self.axis,
+                         training=self.training, mode=self.mode)
+
+
+class Dropout2D(Layer):
+    def __init__(self, p: float = 0.5, data_format: str = "NCHW",
+                 name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return F.flatten(x, self.start_axis, self.stop_axis)
 
 
 # ---------------------------------------------------------------- conv
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     """2-D convolution with Paddle's ``[out, in / groups, kh, kw]``
-    weight, initialized KaimingUniform (fan_in, negative slope sqrt(5),
-    leaky ReLU: U(-1/sqrt(fan_in), 1/sqrt(fan_in))); the bias, unless
-    ``bias_attr=False``, from the same bound."""
+    weight, default KaimingUniform (fan_in, negative slope sqrt(5),
+    leaky ReLU: U(-1/sqrt(fan_in), 1/sqrt(fan_in))) and a bias from the
+    same bound unless ``bias_attr=False``. ``padding_mode`` other than
+    "zeros" is not ported yet (ROADMAP A2b-2)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
                  device=None, dtype=None, generator=None):
         super().__init__()
-        if padding_mode != "zeros" or weight_attr is not None or \
-                bias_attr not in (None, False):
+        if padding_mode != "zeros":
             raise NotImplementedError(
-                "Conv2D padding_mode / weight_attr / bias_attr other than "
-                "the defaults are not ported yet (ROADMAP A2)")
+                "Conv2D padding_mode other than 'zeros' is not ported yet "
+                "(ROADMAP A2b-2)")
         ks = tuple(kernel_size) if isinstance(kernel_size, (list, tuple)) \
             else (kernel_size,) * 2
         self.in_channels, self.out_channels = in_channels, out_channels
@@ -180,12 +184,16 @@ class Conv2D(nn.Module):
         self.dilation, self.groups = dilation, groups
         self.data_format = data_format
         fan_in = (in_channels // groups) * ks[0] * ks[1]
+        mk = _mk(device, dtype, generator)
+        self.weight = self.create_parameter(
+            (out_channels, in_channels // groups) + ks, attr=weight_attr,
+            default_initializer=I.KaimingUniform(
+                fan_in=fan_in, negative_slope=math.sqrt(5.0),
+                nonlinearity="leaky_relu"), **mk)
         bound = 1.0 / math.sqrt(fan_in)
-        self.weight = _param((out_channels, in_channels // groups) + ks,
-                             device, dtype, ("uniform", bound), generator)
-        self.bias = _param((out_channels,), device, dtype,
-                           ("uniform", bound), generator) \
-            if bias_attr is not False else None
+        self.bias = None if bias_attr is False else self.create_parameter(
+            (out_channels,), attr=bias_attr, is_bias=True,
+            default_initializer=I.Uniform(-bound, bound), **mk)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self.stride,
@@ -237,26 +245,29 @@ def in_train_step() -> bool:
     return getattr(_FROZEN, "traced", False)
 
 
-class BatchNorm2D(nn.Module):
+class BatchNorm2D(Layer):
     """Batch norm over the channel axis (1 for NCHW, last for NHWC).
     Training (unless ``use_global_stats``) normalizes with the batch
     statistics and moves the running ones by ``momentum``; eval uses
     the running ones. Buffers ``_mean`` (zeros) and ``_variance``
-    (ones) take ``dtype`` as the parameters do."""
+    (ones) are plain tensors in ``dtype``, as the parameters are."""
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None,
-                 dtype=None):
+                 dtype=None, generator=None):
         super().__init__()
         self.num_features = num_features
         self.momentum, self.epsilon = momentum, epsilon
         self.data_format = data_format
         self.use_global_stats = use_global_stats
-        self.weight = _param((num_features,), device, dtype, "ones") \
-            if weight_attr is not False else None
-        self.bias = _param((num_features,), device, dtype, "zeros") \
-            if bias_attr is not False else None
+        mk = _mk(device, dtype, generator)
+        self.weight = None if weight_attr is False else \
+            self.create_parameter((num_features,), attr=weight_attr,
+                                  default_initializer=I.Constant(1.0), **mk)
+        self.bias = None if bias_attr is False else \
+            self.create_parameter((num_features,), attr=bias_attr,
+                                  is_bias=True, **mk)
         buf = dict(device=device_mod.resolve(device),
                    dtype=dtype_mod.convert_dtype(dtype) or torch.float32)
         self.register_buffer("_mean", torch.zeros(num_features, **buf))
@@ -291,13 +302,15 @@ class BatchNorm2D(nn.Module):
 
 # ---------------------------------------------------------------- pooling
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
+    """``return_mask=True`` is not ported yet (ROADMAP A2b-2)."""
+
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  return_mask=False, data_format="NCHW"):
         super().__init__()
         if return_mask:
             raise NotImplementedError("MaxPool2D(return_mask=True) is not "
-                                      "ported yet (ROADMAP A2)")
+                                      "ported yet (ROADMAP A2b-2)")
         self.kernel_size, self.stride = kernel_size, stride
         self.padding, self.ceil_mode = padding, ceil_mode
         self.data_format = data_format
@@ -307,7 +320,7 @@ class MaxPool2D(nn.Module):
                             self.ceil_mode, self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW"):
         super().__init__()
         self.output_size = output_size
@@ -317,14 +330,72 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
 
 
-class ReLU(nn.Module):
+# ---------------------------------------------------------------- activations
+
+def _act(name, fn_name, params=()):
+    """A layer whose forward is ``F.<fn_name>(x, **options)``; the
+    options are ``params`` given by position or by keyword (the JAX
+    package's ``nn/layers_wrap.py`` ``_act`` factory)."""
+
+    class _Act(Layer):
+        def __init__(self, *args, **kwargs):
+            super().__init__()
+            self._kw = {}
+            for i, pname in enumerate(params):
+                if i < len(args):
+                    self._kw[pname] = args[i]
+                elif pname in kwargs:
+                    self._kw[pname] = kwargs[pname]
+
+        def forward(self, x):
+            return getattr(F, fn_name)(x, **self._kw)
+
+        def extra_repr(self):
+            return ", ".join(f"{k}={v}" for k, v in self._kw.items())
+
+    _Act.__name__ = name
+    _Act.__qualname__ = name
+    return _Act
+
+
+ReLU = _act("ReLU", "relu")
+GELU = _act("GELU", "gelu", ("approximate",))
+Sigmoid = _act("Sigmoid", "sigmoid")
+Tanh = _act("Tanh", "tanh")
+Softmax = _act("Softmax", "softmax", ("axis",))
+LogSoftmax = _act("LogSoftmax", "log_softmax", ("axis",))
+LeakyReLU = _act("LeakyReLU", "leaky_relu", ("negative_slope",))
+Silu = _act("Silu", "silu")
+Hardswish = _act("Hardswish", "hardswish")
+Hardsigmoid = _act("Hardsigmoid", "hardsigmoid")
+ReLU6 = _act("ReLU6", "relu6")
+ELU = _act("ELU", "elu", ("alpha",))
+Mish = _act("Mish", "mish")
+
+
+class Swish(Silu):
+    pass
+
+
+class PReLU(Layer):
+    """``weight`` [num_parameters], Constant(``init``)."""
+
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", *, device=None, dtype=None):
+        super().__init__()
+        self.data_format = data_format
+        self.weight = self.create_parameter(
+            (num_parameters,), attr=weight_attr,
+            default_initializer=I.Constant(init), device=device,
+            dtype=dtype)
+
     def forward(self, x):
-        return F.relu(x)
+        return F.prelu(x, self.weight, self.data_format)
 
 
 # ---------------------------------------------------------------- losses
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     """``F.cross_entropy`` with its options fixed at construction
     (``weight`` and ``label_smoothing`` included)."""
 
@@ -349,7 +420,7 @@ def _loss(name, fn_name, params=()):
     options are ``params`` given by position or by keyword (the JAX
     package's ``nn/layers_wrap.py`` ``_loss`` factory)."""
 
-    class _Loss(nn.Module):
+    class _Loss(Layer):
         def __init__(self, *args, **kwargs):
             super().__init__()
             self._kw = {}

@@ -1,22 +1,57 @@
-"""Loss layers that delegate to a functional with options fixed at
-construction (built by ``layers_common._loss``, as the JAX package's
-``nn/layers_wrap.py`` builds them, with the same positional-parameter
-names), and ``HSigmoidLoss``, the one loss layer with parameters."""
+"""The activation and loss layers of the JAX package's
+``nn/layers_wrap.py`` that delegate to a functional with options fixed
+at construction (built by ``layers_common._act`` and ``_loss``, with
+the same positional-parameter names), ``Maxout``, ``Softmax2D``, and
+``HSigmoidLoss``, the one loss layer with parameters. The rest of that
+file (pools, unpools, norms, pixel shuffles, transposed convs) is
+ROADMAP A2b-2."""
 from __future__ import annotations
 
-import math
-
-from torch import nn
-
 from . import functional as F
-from .layers_common import _loss, _param
+from . import initializer as I
+from .layer import Layer
+from .layers_common import _act, _loss
 
 __all__ = [
-    "CTCLoss", "CosineEmbeddingLoss", "HingeEmbeddingLoss",
+    "CELU", "Hardshrink", "Hardtanh", "LogSigmoid", "SELU", "Softplus",
+    "Softshrink", "Softsign", "Tanhshrink", "ThresholdedReLU", "Maxout",
+    "Softmax2D", "CTCLoss", "CosineEmbeddingLoss", "HingeEmbeddingLoss",
     "MarginRankingLoss", "MultiLabelSoftMarginLoss", "MultiMarginLoss",
     "SoftMarginLoss", "TripletMarginLoss", "TripletMarginWithDistanceLoss",
     "HSigmoidLoss",
 ]
+
+
+CELU = _act("CELU", "celu", ("alpha",))
+Hardshrink = _act("Hardshrink", "hardshrink", ("threshold",))
+Hardtanh = _act("Hardtanh", "hardtanh", ("min", "max"))
+LogSigmoid = _act("LogSigmoid", "log_sigmoid")
+SELU = _act("SELU", "selu", ("scale", "alpha"))
+Softplus = _act("Softplus", "softplus", ("beta", "threshold"))
+Softshrink = _act("Softshrink", "softshrink", ("threshold",))
+Softsign = _act("Softsign", "softsign")
+Tanhshrink = _act("Tanhshrink", "tanhshrink")
+ThresholdedReLU = _act("ThresholdedReLU", "thresholded_relu",
+                       ("threshold",))
+
+
+class Maxout(Layer):
+    def __init__(self, groups: int, axis: int = 1):
+        super().__init__()
+        self._groups, self._axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self._groups, self._axis)
+
+
+class Softmax2D(Layer):
+    """Softmax over the channel axis of a 3-D or 4-D (NCHW) input."""
+
+    def forward(self, x):
+        if x.dim() not in (3, 4):
+            raise ValueError(
+                f"Softmax2D expects 3-d/4-d input, got {x.dim()}-d")
+        return F.softmax(x, axis=-3)
 
 
 CTCLoss = _loss("CTCLoss", "ctc_loss", ("blank", "reduction"))
@@ -39,9 +74,9 @@ TripletMarginWithDistanceLoss = _loss(
     ("distance_function", "margin", "swap", "reduction"))
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """Hierarchical sigmoid loss over the default complete binary tree:
-    ``weight`` [num_classes - 1, feature_size] Xavier-normal from
+    ``weight`` [num_classes - 1, feature_size] XavierNormal from
     ``generator``, ``bias`` [num_classes - 1] zeros unless
     ``bias_attr=False``. Custom trees and sparse updates raise, as in
     the JAX package."""
@@ -55,11 +90,12 @@ class HSigmoidLoss(nn.Module):
                 "custom-tree / sparse hsigmoid is unsupported; use the "
                 "default complete-binary-tree form")
         self._num_classes = num_classes
-        shape = (num_classes - 1, feature_size)
-        std = math.sqrt(2.0 / (shape[0] + shape[1]))
-        self.weight = _param(shape, device, dtype, std, generator)
-        self.bias = None if bias_attr is False else \
-            _param((num_classes - 1,), device, dtype, "zeros")
+        mk = dict(device=device, dtype=dtype, generator=generator)
+        self.weight = self.create_parameter(
+            (num_classes - 1, feature_size), attr=weight_attr,
+            default_initializer=I.XavierNormal(), **mk)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            (num_classes - 1,), attr=bias_attr, is_bias=True, **mk)
 
     def forward(self, input, label):
         return F.hsigmoid_loss(input, label, self._num_classes,

@@ -7,8 +7,6 @@ draw other numbers from one seed, and they agree in shape, dtype, range
 and moments, and each repeats itself after ``seed()``."""
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
@@ -247,36 +245,17 @@ def poisson(x):
     return _new(torch.poisson(arr.detach(), generator=g).to(arr.dtype))
 
 
-def _xavier_normal(shape, dtype, dev, g):
-    """The JAX package's default ``XavierNormal``: std sqrt(2 / (fan_in +
-    fan_out)), with Paddle's [in, out] Linear and [out, in, *k] conv
-    fans."""
-    if len(shape) == 0:
-        fi = fo = 1
-    elif len(shape) == 1:
-        fi = fo = shape[0]
-    elif len(shape) == 2:
-        fi, fo = shape
-    else:
-        rec = int(np.prod(shape[2:]))
-        fi, fo = shape[1] * rec, shape[0] * rec
-    std = math.sqrt(2.0 / (fi + fo))
-    return torch.randn(shape, dtype=dtype, device=dev, generator=g) * std
-
-
 def create_parameter(shape, dtype, name=None, attr=None,
                      is_bias=False, default_initializer=None):
     """paddle.create_parameter: a free-standing Parameter on the default
     device, from ``default_initializer`` (an ``nn.initializer``
     instance) or the reference's default: zeros for a bias, else
-    XavierNormal from the device's generator."""
+    ``nn.initializer.XavierNormal`` from the device's generator."""
+    from ..nn import initializer as I
     d = _dt(dtype)
     shp = _shape(shape)
     dev, g = _gen()
-    if default_initializer is None:
-        data = (torch.zeros(shp, dtype=d, device=dev) if is_bias
-                else _xavier_normal(shp, d, dev, g))
-    else:
-        data = torch.empty(shp, dtype=d, device=dev)
-        default_initializer.fill_(data, g)
-    return Parameter(data, name=name)
+    init = default_initializer
+    if init is None:
+        init = I.Constant(0.0) if is_bias else I.XavierNormal()
+    return Parameter(init(shp, d, device=dev, generator=g), name=name)

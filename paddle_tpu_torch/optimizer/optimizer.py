@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
+from ..core.tensor import plain_data, plain_grad
 from .lr import LRScheduler
 
 
@@ -61,7 +62,7 @@ class Optimizer:
         """The state of ``param``, created on first use."""
         st = self._state.get(param)
         if st is None:
-            st = self._state[param] = self._init_state(param)
+            st = self._state[param] = self._init_state(plain_data(param))
         return st
 
     def _update(self, p, g, state, lr, step):
@@ -91,29 +92,35 @@ class Optimizer:
                         grads: Sequence[torch.Tensor], lr=None, step=None):
         """Clip ``grads`` as a whole, then update each parameter and its
         state in place with learning rate ``lr`` (default: the current
-        one) at step number ``step`` (default: the next)."""
+        one) at step number ``step`` (default: the next). The update
+        reads and writes plain views of the parameters and gradients, so
+        a ``Parameter`` dispatches no op here."""
         lr = self.get_lr() if lr is None else float(lr)
         step = (self._step_count + 1) if step is None else int(step)
-        params, grads = list(params), list(grads)
+        params = list(params)
+        grads = [g if type(g) is torch.Tensor else plain_data(g)
+                 for g in grads]
         regs = self._param_regularizers(params) or [None] * len(params)
         if self._grad_clip is not None:
             grads = self._grad_clip(grads)
         offload = self.offload_state and any(p.is_cuda for p in params)
-        for p, g, reg in zip(params, grads, regs):
+        for key, g, reg in zip(params, grads, regs):
+            p = plain_data(key)
             if g.dtype != p.dtype:
                 g = g.to(p.dtype)
             g = self._apply_decay(g, p, reg)
             if offload:
-                self._update_offloaded(p, g, lr, step)
+                self._update_offloaded(key, p, g, lr, step)
             else:
-                self._update(p, g, self.state_for(p), lr, step)
+                self._update(p, g, self.state_for(key), lr, step)
         if offload:
             torch.cuda.current_stream(params[0].device).synchronize()
 
-    def _update_offloaded(self, p, g, lr, step):
-        """``_update`` on a card copy of ``p``'s state, which then goes
-        back into pinned host tensors (made at the first update)."""
-        host = self.state_for(p)
+    def _update_offloaded(self, key, p, g, lr, step):
+        """``_update`` on a card copy of ``key``'s state (``p`` its
+        plain data), which then goes back into pinned host tensors (made
+        at the first update)."""
+        host = self.state_for(key)
         dev = {k: v.to(p.device, non_blocking=True)
                for k, v in host.items()}
         self._update(p, g, dev, lr, step)
@@ -123,7 +130,7 @@ class Optimizer:
             if h is None or h.is_cuda:
                 h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
             parked[k] = h.copy_(v, non_blocking=True)
-        self._state[p] = parked
+        self._state[key] = parked
 
     def _param_regularizers(self, params):
         """The ``regularizer`` of each of ``params``, or None when no
@@ -154,12 +161,12 @@ class Optimizer:
             raise RuntimeError("Optimizer was constructed without "
                                "parameters; use apply_gradients instead")
         live = [p for p in self._parameter_list
-                if p.requires_grad and p.grad is not None]
+                if p.requires_grad and plain_grad(p) is not None]
         if not live:
             return
         lr = self.get_lr()
         self._step_count += 1
-        self.apply_gradients(live, [p.grad for p in live], lr,
+        self.apply_gradients(live, [plain_grad(p) for p in live], lr,
                              self._step_count)
         if isinstance(self._lr, LRScheduler) and self._lr._step_each_iter:
             self._lr.step()

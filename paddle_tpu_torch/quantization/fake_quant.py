@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import plain
+
 __all__ = ["fake_quant", "fake_quant_channelwise", "quantize_int8",
            "dequantize_int8"]
 
@@ -46,11 +48,13 @@ def fake_quant(x, scale=None, bits: int = 8):
     """Per-tensor quantize-dequantize. ``scale=None`` takes the dynamic
     absmax of ``x`` (no gradient flows through it)."""
     qmax = float(2 ** (bits - 1) - 1)
+    x = plain(x)
     s = x.detach().abs().max() if scale is None else _scale_tensor(scale, x)
     return _FakeQuant.apply(x, s, qmax)
 
 
 def fake_quant_channelwise(x, axis: int = 0, scale=None, bits: int = 8):
+    x = plain(x)
     """Per-channel quantize-dequantize along ``axis`` (the channel dim).
     ``scale`` is one value per channel, or None for the dynamic per-
     channel absmax."""
@@ -77,7 +81,7 @@ def quantize_int8(x, axis=None):
     is the nearest step (the JAX function computes it in ``x``'s dtype:
     the same bits for fp32, but for bf16 a value can land one step off,
     ROADMAP C17)."""
-    raw = x.detach()
+    raw = plain(x).detach()
     if axis is None:
         scale = torch.clamp_min(raw.abs().max(), 1e-8)
     else:

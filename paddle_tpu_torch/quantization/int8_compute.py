@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from ..core.tensor import plain
 from ..nn.functional.conv import _pads, _tuple
 from ..nn.layers_common import Conv2D, Linear
 from .fake_quant import quantize_int8
@@ -110,7 +111,8 @@ class Int8ComputeLinear(nn.Module):
     @classmethod
     def from_linear(cls, lin: Linear, act_scale=None):
         q, s = quantize_int8(lin.weight, axis=1)
-        return cls(q, s, None if lin.bias is None else lin.bias.detach(),
+        return cls(q, s, None if lin.bias is None else
+                   plain(lin.bias).detach(),
                    act_scale)
 
     def accumulate(self, x):
@@ -160,7 +162,7 @@ class Int8ComputeConv2D(nn.Module):
     def from_conv(cls, conv: Conv2D, act_scale=None):
         q, s = quantize_int8(conv.weight, axis=0)      # per out channel
         return cls(q, s.reshape(-1),
-                   None if conv.bias is None else conv.bias.detach(),
+                   None if conv.bias is None else plain(conv.bias).detach(),
                    conv.stride, conv.padding, conv.dilation,
                    conv.groups, conv.data_format, act_scale)
 

@@ -9,12 +9,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.tensor import plain
+
 __all__ = ["AbsmaxObserver", "AVGObserver", "ChannelWiseAbsmaxObserver"]
 
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        x = x.detach()
+        x = plain(x).detach()
         if x.dtype in (torch.bfloat16, torch.float16):
             x = x.float()
         return x.cpu().numpy()

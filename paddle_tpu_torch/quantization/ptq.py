@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from ..core.tensor import plain
 from ..nn import functional as F
 from ..nn.layers_common import Conv2D, Linear
 from .config import QuantConfig
@@ -26,7 +27,7 @@ __all__ = ["PTQ"]
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
+    t = plain(t).detach()
     if t.dtype in (torch.bfloat16, torch.float16):
         t = t.float()
     return t.cpu().numpy()
@@ -76,7 +77,7 @@ class _FrozenQuantLinear(nn.Module):
         if self._q_weight:
             w = fake_quant_channelwise(w, axis=1, scale=self.w_scale,
                                        bits=self._cfg.weight_bits)
-        return TF.linear(x, w.t(), self.inner.bias)
+        return TF.linear(x, torch.t(w), self.inner.bias)
 
 
 class _FrozenQuantConv2D(nn.Module):

@@ -1,7 +1,9 @@
 """The op cases of the port's parity checks: numpy only.
 
 Every op that ``paddle_tpu/ops/{creation,math,manipulation,linalg}.py``
-registers in ``OPS`` has a case here: numpy inputs made from one seed,
+registers in ``OPS``, and every ``nn`` op the port registers (the
+activations, ``linear``, ``embedding``, ``scaled_dot_product_attention``),
+has a case here: numpy inputs made from one seed,
 its arguments, which operand to differentiate, and its tolerance class.
 This module imports numpy alone, so that ``chip_smoke.py`` can run the
 same cases on the card without the JAX package;
@@ -281,10 +283,46 @@ CASES = {
     "eigvals": ([SYM], {}, {"sorted": True}),
     "cond": ([SYM], {}),
     "lu_unpack": ([SYM, np.array([2, 2, 4, 4], np.int32)], {}),
+    # ------------------------------------------- nn (activations and more)
+    "relu": ([T34], {}),
+    "relu6": ([3.5 * T34], {}),
+    "sigmoid": ([T34], {}),
+    "log_sigmoid": ([T34], {}),
+    "silu": ([T34], {}),
+    "softsign": ([T34], {}),
+    "tanh_act": ([T34], {}),
+    "mish": ([T34], {}),
+    "gelu": ([T34], {"approximate": True}),
+    "elu": ([T34], {"alpha": 0.7}),
+    "selu": ([T34], {}),
+    "celu": ([T34], {"alpha": 1.3}),
+    "leaky_relu": ([T34], {"negative_slope": 0.2}),
+    "prelu": ([IMG4[:2], np.array([0.1, -0.3, 0.5, 0.2], np.float32)], {}),
+    "hardtanh": ([T34], {"min": -0.5, "max": 1.5}),
+    "hardshrink": ([T34], {"threshold": 0.3}),
+    "softshrink": ([T34], {"threshold": 0.3}),
+    "hardsigmoid": ([4.0 * T34], {}),
+    "hardswish": ([4.0 * T34], {}),
+    "softplus": ([T34], {"beta": 2.0, "threshold": 3.0}),
+    "tanhshrink": ([T34], {}),
+    "thresholded_relu": ([T34], {"threshold": 0.2}),
+    "softmax": ([T34], {"axis": 0}),
+    "log_softmax": ([T34], {}),
+    "gumbel_softmax": ([T34], {}),
+    "glu": ([T34], {"axis": 1}),
+    "maxout": ([T234], {"groups": 3, "axis": 1}),
+    "linear": ([T34, M45, C35[0]], {}),
+    "embedding": ([I3, M45], {}, {"grad": 1}),
+    "scaled_dot_product_attention": (
+        [T234.reshape(1, 3, 2, 4), B34.reshape(1, 3, 2, 2).repeat(2, 3),
+         U34.reshape(1, 3, 2, 2).repeat(2, 3)], {}),
 }
 
 # ops the registry-wide comparison leaves out, each with its reason
-EXCEPTIONS = {}
+EXCEPTIONS = {
+    "gumbel_softmax": "its noise comes from each device's own generator, "
+                      "so the card and the host draw other values",
+}
 
 EXACT = {
     "zeros_like", "ones_like", "full_like", "tril", "triu", "add",
@@ -310,7 +348,8 @@ EXACT = {
     "broadcast_shape", "shard_index", "diag_embed", "fill_diagonal",
     "fill_diagonal_tensor", "temporal_shift", "gather_tree",
     "transpose_last2", "t", "histogram", "bincount", "matrix_rank",
-    "lu_unpack",
+    "lu_unpack", "relu", "relu6", "hardtanh", "hardshrink",
+    "thresholded_relu", "maxout", "embedding",
 }
 
 TR = {
@@ -325,6 +364,9 @@ TR = {
     "inverse", "det", "slogdet", "matrix_power", "pinv", "solve",
     "triangular_solve", "cholesky_solve", "lstsq", "eigvalsh", "cross",
     "cov", "corrcoef", "multi_dot", "lu", "tensordot", "eigvals", "cond",
+    "sigmoid", "log_sigmoid", "silu", "softsign", "tanh_act", "mish",
+    "gelu", "elu", "selu", "celu", "softplus", "tanhshrink", "softmax",
+    "log_softmax", "glu", "linear", "scaled_dot_product_attention",
     "trace", "mean", "sum", "nansum", "nanmean", "cumsum", "lerp",
     "deg2rad", "rad2deg", "angle", "scatter_nd_add", "index_add",
     "floor_divide", "diff", "add_n",

@@ -25,6 +25,7 @@ the JAX scaler's scale trajectory, skipped steps, ``state_dict`` and
 """
 import importlib
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -33,6 +34,7 @@ import paddle_tpu as paddle
 from paddle_tpu import nn as jnn
 from paddle_tpu import optimizer as joptim
 from paddle_tpu.core import metrics as jmetrics
+from paddle_tpu.jit.api import functional_call as jax_functional_call
 from paddle_tpu.models.gpt import gpt as jax_gpt
 import paddle_tpu.models.resnet as jresnet
 from paddle_tpu_torch import amp
@@ -135,9 +137,16 @@ def test_resnet_cast_decisions_match_jax(monkeypatch):
     img = rng.randn(2, 3, 64, 64).astype(np.float32)
     lbl = np.array([1, 2])
     seen = _recorders(monkeypatch)
-    with paddle.amp.auto_cast():
-        jnn.CrossEntropyLoss()(jm(paddle.to_tensor(img)),
-                               paddle.to_tensor(lbl))
+    state = {k: v._data for k, v in jm.state_dict().items()}
+
+    def j_loss(state, x, y):
+        # traced once under jax.jit: the hook sees each op once, as in
+        # an eager call, and XLA compiles one program instead of each op
+        with paddle.amp.auto_cast():
+            out = jax_functional_call(jm, state, paddle.Tensor(x))
+            return jnn.CrossEntropyLoss()(out, paddle.Tensor(y))._data
+
+    jax.jit(j_loss)(state, img, lbl.astype(np.int32))
     with amp.auto_cast():
         loss = CrossEntropyLoss()(tm(torch.tensor(img)), torch.tensor(lbl))
     assert seen["port"] == seen["jax"]

@@ -203,7 +203,7 @@ def _jax_loss_and_grads(jm, ids, tt, mlm, sop):
         out = functional_call(jm, dict(zip(names, pvals)), _j(ids), _j(tt))
         return jm.loss(out, y)._data
 
-    loss, grads = jax.value_and_grad(loss_of)(vals)
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(vals)
     return float(loss), dict(zip(names, (np.asarray(g) for g in grads)))
 
 
@@ -331,8 +331,11 @@ def test_initializers_draw_from_the_generator():
         initializer=I.Constant(1.5), trainable=False))
     assert torch.equal(e.weight, torch.full((10, 4), 1.5))
     assert not e.weight.requires_grad
-    with pytest.raises(NotImplementedError, match="A2"):
-        Linear(2, 2, device="cpu", weight_attr=I.ParamAttr(name="w"))
+    # name, learning_rate and need_clip are accepted and applied nowhere,
+    # as in the JAX package (ROADMAP C23)
+    named = Linear(2, 2, device="cpu", weight_attr=I.ParamAttr(
+        name="w", learning_rate=0.5, need_clip=False))
+    assert not named.weight.stop_gradient
 
 
 def test_layer_list_keys_and_activations():
@@ -350,3 +353,15 @@ def test_layer_list_keys_and_activations():
                                np.tanh(x), atol=1e-6)
     t = torch.ones(3)
     assert sharded_constraint(t, ("dp", None)) is t
+
+
+def test_keys_and_parameter_order_equal_the_jax_model(pair):
+    """``state_dict`` keys (parameters, then buffers) and
+    ``named_parameters`` order equal the JAX model's: ``convert.py``
+    maps the optimizer state's ``param_{i}`` by that order."""
+    jm, tm = pair
+    assert list(tm.state_dict()) == list(jm.state_dict())
+    assert [n for n, _ in tm.named_parameters()] == \
+        [n for n, _ in jm.named_parameters()]
+    assert [tuple(p.shape) for p in tm.parameters()] == \
+        [tuple(p.shape) for p in jm.parameters()]

@@ -39,7 +39,6 @@ A = rng.randn(3, 4).astype(np.float32)
 LATER = {
     "Model": "A9 (hapi)", "summary": "A9 (hapi)", "flops": "A9 (hapi)",
     "save": "A9 (framework_io)", "load": "A9 (framework_io)",
-    "ParamAttr": "A2b (nn)",
 }
 
 

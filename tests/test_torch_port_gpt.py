@@ -16,6 +16,7 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.models.gpt import gpt as jax_gpt
+from _port_jax_decode import prefill_and_decode
 from paddle_tpu_torch.convert import load_reference_state
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM, gpt
 
@@ -109,21 +110,17 @@ def test_prefill_ragged_and_teacher_forced_decode_match(pair):
     ids = rng.randint(0, 512, (3, 20))
     plen = np.array([20, 9, 1], np.int32)
     forced = rng.randint(0, 512, (5, 3))
-    j_logits, j_cache = jm(_jax(ids), use_cache=True,
-                           prompt_len=_jax(plen), cache_max_len=48)
+    j_logits, j_cache = prefill_and_decode(jm, ids, plen, forced, 48)
     with torch.no_grad():
         t_logits, t_cache = tm(torch.as_tensor(ids), use_cache=True,
                                prompt_len=torch.as_tensor(plen),
                                cache_max_len=48)
-        np.testing.assert_allclose(t_logits.numpy(),
-                                   np.asarray(j_logits._data), **TOL)
+        np.testing.assert_allclose(t_logits.numpy(), j_logits[0], **TOL)
         np.testing.assert_array_equal(t_cache.kv_len.numpy(), plen)
-        for tok in forced:
-            j_logits, j_cache = jm(_jax(tok[:, None]), cache=j_cache)
+        for tok, ref in zip(forced, j_logits[1:]):
             t_logits, t_cache = tm(torch.as_tensor(tok)[:, None],
                                    cache=t_cache)
-            np.testing.assert_allclose(t_logits.numpy(),
-                                       np.asarray(j_logits._data), **TOL)
+            np.testing.assert_allclose(t_logits.numpy(), ref, **TOL)
     np.testing.assert_array_equal(t_cache.kv_len.numpy(),
                                   np.asarray(j_cache.kv_len))
 
@@ -164,7 +161,7 @@ def test_initializer_is_seeded_by_generator():
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb), ka
     w = a.gpt.blocks[0].attn.qkv_proj.weight
-    assert w.shape == (64, 192)
+    assert tuple(w.shape) == (64, 192)
     assert abs(float(w.detach().std()) - 0.02) < 0.003
 
 
@@ -214,3 +211,15 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         max_new_tokens=4, prefill_buckets=(16,), max_batch=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg)
+
+
+def test_keys_and_parameter_order_equal_the_jax_model(pair):
+    """``state_dict`` keys (parameters, then buffers) and
+    ``named_parameters`` order equal the JAX model's: ``convert.py``
+    maps the optimizer state's ``param_{i}`` by that order."""
+    jm, tm = pair
+    assert list(tm.state_dict()) == list(jm.state_dict())
+    assert [n for n, _ in tm.named_parameters()] == \
+        [n for n, _ in jm.named_parameters()]
+    assert [tuple(p.shape) for p in tm.parameters()] == \
+        [tuple(p.shape) for p in jm.parameters()]

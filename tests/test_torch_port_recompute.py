@@ -587,7 +587,7 @@ def test_attention_dropout_matches_jax_with_its_mask(causal):
         return (j_sdpa(q_, k_, v_, None, p, causal, None, key) * w).sum()
 
     ref = np.asarray(j_sdpa(q, k, v, None, p, causal, None, key))
-    j_grads = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
+    j_grads = jax.jit(jax.grad(j_loss, argnums=(0, 1, 2)))(q, k, v)
     tq_, tk_, tv_ = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     out = tatt._sdpa_xla(tq_, tk_, tv_, None, causal, None, p,
                          torch.from_numpy(keep))

@@ -588,3 +588,15 @@ def test_functionals_match_jax():
                                   torch.tensor(b), 1e-5, df)
         np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_keys_and_parameter_order_equal_the_jax_model(trained_pair):
+    """``state_dict`` keys (parameters, then buffers) and
+    ``named_parameters`` order equal the JAX model's: ``convert.py``
+    maps the optimizer state's ``param_{i}`` by that order."""
+    jm, tm = trained_pair["jm"], trained_pair["tm"]
+    assert list(tm.state_dict()) == list(jm.state_dict())
+    assert [n for n, _ in tm.named_parameters()] == \
+        [n for n, _ in jm.named_parameters()]
+    assert [tuple(p.shape) for p in tm.parameters()] == \
+        [tuple(p.shape) for p in jm.parameters()]

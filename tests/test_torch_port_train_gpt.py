@@ -50,7 +50,7 @@ def _jax_loss_and_grads(jm, ids, labels):
         out = functional_call(jm, dict(zip(names, pvals)), x)
         return jm.loss(out, y)._data
 
-    loss, grads = jax.value_and_grad(loss_of)(vals)
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(vals)
     return float(loss), dict(zip(names, (np.asarray(g) for g in grads)))
 
 

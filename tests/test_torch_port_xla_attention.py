@@ -20,6 +20,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.models.gpt import gpt as jax_gpt
 from paddle_tpu.nn.functional.attention import _sdpa_xla
+from _port_jax_decode import prefill_and_decode
 from paddle_tpu_torch.convert import load_reference_state
 from paddle_tpu_torch.generation.attention import cached_attention
 from paddle_tpu_torch.generation.kv_cache import KVCache
@@ -262,25 +263,18 @@ def test_gpt_at_head_dim_80_matches_jax():
     plen = np.array([14, 6], np.int32)
     forced = rng.randint(0, 512, (3, 2))
 
-    def jx(a):
-        return paddle.to_tensor(np.asarray(a, np.int32))
-
-    j_logits, j_cache = jm(jx(ids), use_cache=True, prompt_len=jx(plen),
-                           cache_max_len=32)
+    j_logits, _ = prefill_and_decode(jm, ids, plen, forced, 32)
     _reset()
     with torch.no_grad():
         t_logits, t_cache = tm(torch.as_tensor(ids), use_cache=True,
                                prompt_len=torch.as_tensor(plen),
                                cache_max_len=32)
-        np.testing.assert_allclose(t_logits.numpy(),
-                                   np.asarray(j_logits._data), atol=1e-4,
-                                   rtol=1e-4)
-        for tok in forced:
-            j_logits, j_cache = jm(jx(tok[:, None]), cache=j_cache)
+        np.testing.assert_allclose(t_logits.numpy(), j_logits[0],
+                                   atol=1e-4, rtol=1e-4)
+        for tok, ref in zip(forced, j_logits[1:]):
             t_logits, t_cache = tm(torch.as_tensor(tok)[:, None],
                                    cache=t_cache)
-            np.testing.assert_allclose(t_logits.numpy(),
-                                       np.asarray(j_logits._data),
+            np.testing.assert_allclose(t_logits.numpy(), ref,
                                        atol=1e-4, rtol=1e-4)
     assert sdpa_xla.calls > 0 and fa.decode_xla.calls == 2 * len(forced)
     assert fa.flash_attention_plain.calls == 0
